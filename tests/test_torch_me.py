@@ -199,3 +199,119 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                                torch.zeros((3, 2), dtype=torch.int32),
                                torchme.lambda_for(27, "cpu"))
     assert torchme.ME_KERNEL_LAUNCHES == launches
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' per-frame half-pel planes: plain version and geometry
+# ---------------------------------------------------------------------------
+
+#: reference planes: each CASES reference, and saturating content (the
+#: 6-tap overshoots and every clip bites)
+_PLANE_REFS = dict(
+    {name: (lambda make=make: make()[1]) for name, make in CASES.items()},
+    extremes_80x48=lambda: (np.random.default_rng(3).integers(
+        0, 2, (48, 80)) * 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("case", sorted(_PLANE_REFS))
+def test_halfpel_planes_ref_matches_jax_planes(case):
+    # the prepass's plain version against jaxme._halfpel_planes on the
+    # reference edge-padded as me_search_xla pads it, over the whole
+    # margin the wrapper allocates
+    ref = _PLANE_REFS[case]()
+    H, W = ref.shape
+    h = torchme.ME_HALO
+    padded = jnp.pad(jnp.asarray(ref, jnp.int16),
+                     ((jaxme._PV, jaxme._PV), (jaxme._PH, jaxme._PH)),
+                     mode="edge").astype(jnp.int32)
+    planes = jaxme._halfpel_planes(
+        padded, lambda x, k: jnp.roll(x, k, axis=0),
+        lambda x, k: jnp.roll(x, k, axis=1))
+    want = np.stack([np.asarray(p)[jaxme._PV - h:jaxme._PV + H + h,
+                                   jaxme._PH - h:jaxme._PH + W + h]
+                     for p in planes])
+    got = torchme.halfpel_planes_ref(torch.from_numpy(ref.astype(np.int16)))
+    assert got.dtype == torch.uint8
+    assert tuple(got.shape) == (4, H + 2 * h, W + 2 * h)
+    np.testing.assert_array_equal(got.numpy().astype(np.int32), want)
+
+
+def test_search_geometry_inside_halo():
+    # every candidate of OFFSET_TABLE around every centre |c| <= _CLIM
+    # reads its plane inside the margin ME_HALO, from an MB at any edge
+    # of the frame; with the 6-tap's -2..+3 reach on top it stays inside
+    # the plain version's pads, so the kernel's clamped reads equal them
+    h = torchme.ME_HALO
+    assert h == torchme._CLIM + torchme._WR
+    cents = range(-torchme._CLIM, torchme._CLIM + 1, 2)
+    for (_ci, wy, wx) in torchme.OFFSET_TABLE:
+        my, mx = wy >> 1, wx >> 1
+        # the search kernel stages +-_WR pel around each centre
+        assert max(abs(my), abs(mx)) <= torchme._WR
+        for axis, (m, half, pad) in enumerate(
+                ((my, wy & 1, torchme._PV), (mx, wx & 1, torchme._PH))):
+            # a half-pel axis filters -2..+3 samples along it (j is half
+            # along both: its vertical pass reads b's unrounded sums)
+            tap_lo, tap_hi = (2, 3) if half else (0, 0)
+            for c in cents:
+                # pixel i of an MB reads plane sample i + c + m: the MB at
+                # the top/left edge reaches c + m before the frame's first
+                # sample, the one at the bottom/right edge c + m past its
+                # last
+                assert -h <= c + m <= h, (axis, c, wy, wx)
+                assert -pad <= c + m - tap_lo and c + m + tap_hi <= pad
+
+
+def test_centers_stay_inside_the_clamp():
+    # the margin assumes |c| <= _CLIM whatever the carried median says
+    cur, ref, _, _ = CASES["fast_96x64"]()
+    tc, tr = (torch.from_numpy(np.asarray(a, np.int16)) for a in (cur, ref))
+    for pmv in ([1000, -1000], [-99, 77], [47, 49]):
+        cents = torchme.centers_from(tc, tr, torch.tensor(pmv,
+                                                          dtype=torch.int32))
+        assert int(cents.abs().max()) <= torchme._CLIM
+        assert not bool((cents % 2).any())
+
+
+@pytest.mark.parametrize("case", ["mixed_192x128", "fast_96x64"])
+def test_search_over_halo_planes_matches_ref(case):
+    # the addressing the kernel uses: candidate (ci, wy, wx) of the MB at
+    # (y0, x0) reads plane (wy & 1) * 2 + (wx & 1) from row
+    # y0 + cy + (wy >> 1) + ME_HALO, column x0 + cx + (wx >> 1) + ME_HALO;
+    # a plain search over halfpel_planes_ref with it gives me_search_ref's
+    # vectors and luma prediction
+    cur, ref, ru, rv = (torch.from_numpy(np.asarray(a, np.int16))
+                        for a in CASES[case]())
+    H, W = cur.shape
+    h = torchme.ME_HALO
+    centers = torch.tensor([[12, -12], [-4, 6], [0, 0]], dtype=torch.int32)
+    lam = torchme.lambda_for(27, "cpu")
+    planes = torchme.halfpel_planes_ref(ref).to(torch.int32)
+    c32 = cur.to(torch.int32)
+    best = torch.full((H // 16, W // 16), 2**30, dtype=torch.int32)
+    bmv = torch.zeros((H // 16, W // 16, 2), dtype=torch.int32)
+    pred = torch.zeros((H, W), dtype=torch.int32)
+    for (ci, wy, wx) in torchme.OFFSET_TABLE:
+        cy, cx = (int(v) for v in centers[ci])
+        oy, ox = cy + (wy >> 1) + h, cx + (wx >> 1) + h
+        cand = planes[(wy & 1) * 2 + (wx & 1), oy:oy + H, ox:ox + W]
+        sad = (c32 - cand).abs().reshape(H // 16, 16, W // 16, 16).sum(
+            dim=(1, 3)).to(torch.int32)
+        mvy, mvx = 2 * cy + wy, 2 * cx + wx
+        cost = sad + int(lam) * (abs(mvy) + abs(mvx))
+        take = cost < best
+        best = torch.where(take, cost, best)
+        bmv[take] = torch.tensor([mvy, mvx], dtype=torch.int32)
+        pred = torch.where(take.repeat_interleave(16, 0).repeat_interleave(
+            16, 1), cand, pred)
+    want = torchme.me_search_ref(cur, ref, ru, rv, centers, lam)
+    np.testing.assert_array_equal(bmv.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(pred.numpy(), want[1].numpy())
+
+
+def test_halfpel_cuda_wrapper_refuses_cpu_tensors():
+    ref = torch.from_numpy(np.asarray(CASES["pan_96x64"]()[1], np.int16))
+    launches = torchme.ME_PREPASS_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        torchme.halfpel_planes_cuda(ref)
+    assert torchme.ME_PREPASS_LAUNCHES == launches

@@ -1,5 +1,6 @@
-"""Half-pel motion search + compensation: a hand-written CUDA kernel
-(csrc/me_search.cu) and its plain PyTorch version.
+"""Half-pel motion search + compensation: hand-written CUDA kernels
+(csrc/me_search.cu: a per-frame half-pel prepass and the search) and
+their plain PyTorch versions.
 
 For one P frame and every 16x16 macroblock the search scores the 227
 candidates of OFFSET_TABLE around three even-pel centres (the coarse
@@ -11,8 +12,9 @@ intermediates — and the eighth-pel bilinear chroma prediction
 (§8.4.2.2.2). Motion search and compensation are one pass.
 
 `me_search_ref` is the plain version: it takes the CPU path and is what
-the kernel is held against on the card. `me_search` launches the kernel
-for CUDA tensors and never falls back to the plain version there.
+the kernels are held against on the card (`halfpel_planes_ref` is the
+prepass's own, for the tests). `me_search` launches the kernels for
+CUDA tensors and never falls back to the plain version there.
 
 MV units are HALF-PEL throughout (the entropy packers scale mvd by 2
 to quarter-pel units).
@@ -50,6 +52,13 @@ _PV = 32                   # luma top pad rows
 _PH = 24                   # luma left pad lanes
 _PVC = 16                  # chroma top pad rows
 _PHC = 16                  # chroma left pad lanes
+
+#: margin, in luma samples on every side, of the per-frame half-pel
+#: planes the CUDA kernel searches: a centre reaches _CLIM pel, the
+#: integer window _WR pel further, and the fine grid's -2..+1 pel stays
+#: inside that. The 6-tap's -2..+3 reach beyond it goes through clamped
+#: reads. It sizes the wrapper's scratch; the kernel's kHalo must agree.
+ME_HALO = _CLIM + _WR
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +139,28 @@ def _edge_pad(x, top: int, bottom: int, left: int, right: int):
     rows = torch.arange(-top, H + bottom, device=x.device).clamp(0, H - 1)
     cols = torch.arange(-left, W + right, device=x.device).clamp(0, W - 1)
     return x[rows][:, cols]
+
+
+def halfpel_planes_ref(ref_y):
+    """Plain version of the kernel's prepass: the full-pel, b, h and j
+    planes of `ref_y` (int16 (H, W), values in [0, 255]) as uint8
+    (4, H + 2 ME_HALO, W + 2 ME_HALO); [p, r, c] is the value at pel
+    (r - ME_HALO, c - ME_HALO), reads outside the frame clamped. Same
+    roundings as `_halfpel_planes`, written without rolls."""
+    h = ME_HALO
+    r = _edge_pad(ref_y, h + 2, h + 3, h + 2, h + 3).to(torch.int32)
+
+    def tap(x, dim):     # out[l] = 6-tap centred between l + 2 and l + 3
+        n = x.shape[dim] - 5
+        s = [x.narrow(dim, k, n) for k in range(6)]
+        return s[0] - 5 * s[1] + 20 * s[2] + 20 * s[3] - 5 * s[4] + s[5]
+
+    hb1 = tap(r, 1)                       # rows still carry the 2/3 reach
+    f = r[2:-3, 2:-3]
+    b = torch.clamp((hb1[2:-3] + 16) >> 5, 0, 255)
+    hh = torch.clamp((tap(r[:, 2:-3], 0) + 16) >> 5, 0, 255)
+    j = torch.clamp((tap(hb1, 0) + 512) >> 10, 0, 255)
+    return torch.stack([f, b, hh, j]).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -274,9 +305,12 @@ _ME_SO = os.path.join(_BUILD_DIR, "libme_search.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: number of ME kernel launches in this process (me_search_cuda adds one
-#: per launch and nowhere else)
+#: number of search-kernel launches in this process (me_search_cuda adds
+#: one per launch and nowhere else)
 ME_KERNEL_LAUNCHES = 0
+#: number of half-pel prepass launches in this process
+#: (halfpel_planes_cuda adds one per launch and nowhere else)
+ME_PREPASS_LAUNCHES = 0
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -323,19 +357,29 @@ def load_me_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(_ME_SO)
         lib.me_search_set_table.restype = ctypes.c_int
         lib.me_search_set_table.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.me_search_halo.restype = ctypes.c_int
+        lib.me_search_halo.argtypes = []
+        lib.me_halfpel_launch.restype = ctypes.c_int
+        lib.me_halfpel_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]   # ref, H, W
+            + [ctypes.c_void_p] * 2)                        # planes, stream
         lib.me_search_launch.restype = ctypes.c_int
         lib.me_search_launch.argtypes = (
-            [ctypes.c_void_p] * 6                 # cur, ry, ru, rv, cent, lam
+            [ctypes.c_void_p] * 6            # cur, planes, ru, rv, cent, lam
             + [ctypes.c_int, ctypes.c_int]        # H, W
             + [ctypes.c_void_p] * 4               # mv, py, pu, pv
             + [ctypes.c_void_p])                  # stream
+        if lib.me_search_halo() != ME_HALO:
+            raise RuntimeError(
+                f"{ME_SOURCE} has a plane margin of {lib.me_search_halo()}, "
+                f"the wrapper allocates {ME_HALO}")
         _lib = lib
         return lib
 
 
 def _ensure_table(lib, device: torch.device) -> None:
-    """Copy OFFSET_TABLE into the kernel's constant memory once per
-    device (the table's single source of truth is this module)."""
+    """Copy OFFSET_TABLE into the kernel's device table once per device
+    (the table's single source of truth is this module)."""
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
     with _build_lock:
@@ -350,35 +394,80 @@ def _ensure_table(lib, device: torch.device) -> None:
         _table_ready.add(idx)
 
 
-def me_search_cuda(cur_y, ref_y, ref_u, ref_v, centers, lam):
-    """The ME kernel (csrc/me_search.cu) on CUDA tensors: same contract
-    as :func:`me_search_ref`. Launches on the current stream and never
-    synchronizes: centers and lam stay on the device."""
-    global ME_KERNEL_LAUNCHES
-    if cur_y.device.type != "cuda":
-        raise ValueError("me_search_cuda needs CUDA tensors, got "
-                         f"{cur_y.device}")
-    H, W = cur_y.shape
+def _frame_shape(name: str, t) -> tuple[int, int]:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the ME kernels need CUDA tensors, got "
+                         f"{t.device}")
+    if t.dim() != 2:
+        raise ValueError(f"{name}: want a 2-D plane, got {tuple(t.shape)}")
+    H, W = t.shape
     if H % 16 or W % 16 or H <= 0 or W <= 0:
         raise ValueError(f"frame {H}x{W} is not a multiple of 16")
-    want = (("cur_y", cur_y, (H, W), torch.int16),
+    return H, W
+
+
+def _check(name: str, t, device, shape, dtype) -> None:
+    if (t.device != device or t.dtype != dtype
+            or tuple(t.shape) != shape or not t.is_contiguous()):
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {shape} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def halfpel_planes_cuda(ref_y):
+    """The prepass kernel (csrc/me_search.cu, halfpel_kernel) on a CUDA
+    int16 (H, W) plane: same result as :func:`halfpel_planes_ref`, into
+    a new uint8 (4, H + 2 ME_HALO, W + 2 ME_HALO) tensor. Launches on the
+    current stream and never synchronizes."""
+    global ME_PREPASS_LAUNCHES
+    H, W = _frame_shape("ref_y", ref_y)
+    dev = ref_y.device
+    _check("ref_y", ref_y, dev, (H, W), torch.int16)
+    lib = load_me_library()
+    planes = torch.empty((4, H + 2 * ME_HALO, W + 2 * ME_HALO),
+                         dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.me_halfpel_launch(ref_y.data_ptr(), H, W,
+                                   planes.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"ME prepass launch failed (cuda error {rc})")
+    with _count_lock:
+        ME_PREPASS_LAUNCHES += 1
+    return planes
+
+
+def me_search_cuda(cur_y, ref_y, ref_u, ref_v, centers, lam, planes=None):
+    """The ME kernels (csrc/me_search.cu) on CUDA tensors: same contract
+    as :func:`me_search_ref`. Launches the prepass
+    (:func:`halfpel_planes_cuda` of `ref_y`) unless `planes`, its output
+    for this `ref_y`, is given, then the search, on the current stream;
+    never synchronizes: centers and lam stay on the device.
+
+    Precondition, as for the TPU kernel: every sample of cur_y and ref_y
+    lies in [0, 255] (the search packs four samples a 32-bit word; a
+    value outside gives wrong SADs, not an error)."""
+    global ME_KERNEL_LAUNCHES
+    H, W = _frame_shape("cur_y", cur_y)
+    dev = cur_y.device
+    for name, t, shape, dtype in (
+            ("cur_y", cur_y, (H, W), torch.int16),
             ("ref_y", ref_y, (H, W), torch.int16),
             ("ref_u", ref_u, (H // 2, W // 2), torch.int16),
             ("ref_v", ref_v, (H // 2, W // 2), torch.int16),
-            ("centers", centers, (3, 2), torch.int32))
-    for name, t, shape, dtype in want:
-        if (t.device != cur_y.device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: want contiguous {dtype} {shape} on "
-                f"{cur_y.device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
-    if (lam.device != cur_y.device or lam.dtype != torch.int32
+            ("centers", centers, (3, 2), torch.int32)):
+        _check(name, t, dev, shape, dtype)
+    if cur_y.data_ptr() % 8:
+        raise ValueError("cur_y: want a start aligned to 8 bytes")
+    if (lam.device != dev or lam.dtype != torch.int32
             or lam.numel() != 1):
         raise ValueError("lam: want one int32 value on the frame's device")
     lib = load_me_library()
-    _ensure_table(lib, cur_y.device)
-    dev = cur_y.device
+    _ensure_table(lib, dev)
+    if planes is None:
+        planes = halfpel_planes_cuda(ref_y)
+    _check("planes", planes, dev, (4, H + 2 * ME_HALO, W + 2 * ME_HALO),
+           torch.uint8)
     mv = torch.empty((H // 16, W // 16, 2), dtype=torch.int32, device=dev)
     py = torch.empty((H, W), dtype=torch.int16, device=dev)
     pu = torch.empty((H // 2, W // 2), dtype=torch.int16, device=dev)
@@ -387,7 +476,7 @@ def me_search_cuda(cur_y, ref_y, ref_u, ref_v, centers, lam):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.me_search_launch(
-            cur_y.data_ptr(), ref_y.data_ptr(), ref_u.data_ptr(),
+            cur_y.data_ptr(), planes.data_ptr(), ref_u.data_ptr(),
             ref_v.data_ptr(), centers.data_ptr(), lam.data_ptr(), H, W,
             mv.data_ptr(), py.data_ptr(), pu.data_ptr(), pv.data_ptr(),
             stream)
