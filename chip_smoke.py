@@ -139,24 +139,25 @@ def build_all() -> None:
 
 def sass_summary() -> None:
     """Which instruction the search's packed SAD became: count each
-    kernel's VABSDIFF4 in cuobjdump's SASS (the search's source has 64:
-    16 rows x 4 words of one candidate)."""
+    kernel's VABSDIFF4 in cuobjdump's SASS and require 64 in the search
+    (16 rows x 4 words of one candidate, each one `__vsadu4`)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = f"{CUDA_HOME}/bin/cuobjdump" if CUDA_HOME else "cuobjdump"
-    try:
-        sass = subprocess.run([tool, "-sass", torchme._ME_SO],
-                              capture_output=True, text=True,
-                              timeout=120).stdout
-    except OSError as exc:
-        print(f"sass: cuobjdump not runnable ({exc})")
-        return
+    sass = subprocess.run([tool, "-sass", torchme._ME_SO],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts = {}
     for part in sass.split("Function : ")[1:]:
         name, body = part.split("\n", 1)
         n = sum(1 for line in body.splitlines()
                 if line.lstrip().startswith("/*") and ";" in line)
+        counts[name.strip()] = body.count("VABSDIFF4")
         print(f"sass {name.strip()}: {n} instructions, "
-              f"{body.count('VABSDIFF4')} VABSDIFF4", flush=True)
+              f"{counts[name.strip()]} VABSDIFF4", flush=True)
+    search = [c for name, c in counts.items() if "search_kernel" in name]
+    check(search == [64], f"search_kernel's SASS holds {search} VABSDIFF4, "
+                          "want one kernel with 64")
 
 
 # ---- phase 3 -----------------------------------------------------------
@@ -327,8 +328,8 @@ def check_me_kernels(dev) -> list[dict]:
     planes = torchme.halfpel_planes_cuda(ref)
     fns = {
         "me_halfpel": lambda: torchme.halfpel_planes_cuda(ref),
-        "me_search": lambda: torchme.me_search_cuda(
-            cur, ref, ru, rv, centers, lam, planes=planes),
+        "me_search": lambda: torchme.me_search_planes_cuda(
+            cur, planes, ru, rv, centers, lam),
         "me_total": lambda: torchme.me_search_cuda(cur, ref, ru, rv,
                                                    centers, lam),
     }
@@ -362,9 +363,9 @@ def check_me_kernels(dev) -> list[dict]:
             "max_abs_err": err_planes if name == "me_halfpel" else err_me,
             "ms": ms, "eager_ms": min(eager[name]),
             "plain_ms": plain[name], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "prev_ms": ME_SEARCH_PREV_MS if name == "me_search" else None})
-    print(f"ME before the redesign (one kernel): {ME_SEARCH_PREV_MS} ms")
+            "bound_by": bound_by, "library_ms": None})
+    print(f"ME before the redesign (one kernel; recorded in PERF.md, not "
+          f"measured in this run): {ME_SEARCH_PREV_MS} ms")
     return recs
 
 

@@ -315,3 +315,15 @@ def test_halfpel_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         torchme.halfpel_planes_cuda(ref)
     assert torchme.ME_PREPASS_LAUNCHES == launches
+
+
+def test_search_cuda_wrapper_refuses_cpu_tensors():
+    cur, ref, ru, rv = (torch.from_numpy(np.asarray(a, np.int16))
+                        for a in CASES["pan_96x64"]())
+    launches = torchme.ME_KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        torchme.me_search_planes_cuda(cur, torchme.halfpel_planes_ref(ref),
+                                      ru, rv,
+                                      torch.zeros((3, 2), dtype=torch.int32),
+                                      torchme.lambda_for(27, "cpu"))
+    assert torchme.ME_KERNEL_LAUNCHES == launches

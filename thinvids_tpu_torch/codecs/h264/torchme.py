@@ -305,8 +305,8 @@ _ME_SO = os.path.join(_BUILD_DIR, "libme_search.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: number of search-kernel launches in this process (me_search_cuda adds
-#: one per launch and nowhere else)
+#: number of search-kernel launches in this process
+#: (me_search_planes_cuda adds one per launch and nowhere else)
 ME_KERNEL_LAUNCHES = 0
 #: number of half-pel prepass launches in this process
 #: (halfpel_planes_cuda adds one per launch and nowhere else)
@@ -437,22 +437,23 @@ def halfpel_planes_cuda(ref_y):
     return planes
 
 
-def me_search_cuda(cur_y, ref_y, ref_u, ref_v, centers, lam, planes=None):
-    """The ME kernels (csrc/me_search.cu) on CUDA tensors: same contract
-    as :func:`me_search_ref`. Launches the prepass
-    (:func:`halfpel_planes_cuda` of `ref_y`) unless `planes`, its output
-    for this `ref_y`, is given, then the search, on the current stream;
-    never synchronizes: centers and lam stay on the device.
+def me_search_planes_cuda(cur_y, planes, ref_u, ref_v, centers, lam):
+    """The search kernel (csrc/me_search.cu, search_kernel) on CUDA
+    tensors, over `planes`, the :func:`halfpel_planes_cuda` output of the
+    frame's reference luma: same outputs as :func:`me_search_ref` on that
+    reference. Launches on the current stream and never synchronizes:
+    centers and lam stay on the device.
 
-    Precondition, as for the TPU kernel: every sample of cur_y and ref_y
-    lies in [0, 255] (the search packs four samples a 32-bit word; a
-    value outside gives wrong SADs, not an error)."""
+    Precondition, as for the TPU kernel: every sample of cur_y lies in
+    [0, 255] (the search packs four samples a 32-bit word; a value
+    outside gives wrong SADs, not an error)."""
     global ME_KERNEL_LAUNCHES
     H, W = _frame_shape("cur_y", cur_y)
     dev = cur_y.device
     for name, t, shape, dtype in (
             ("cur_y", cur_y, (H, W), torch.int16),
-            ("ref_y", ref_y, (H, W), torch.int16),
+            ("planes", planes, (4, H + 2 * ME_HALO, W + 2 * ME_HALO),
+             torch.uint8),
             ("ref_u", ref_u, (H // 2, W // 2), torch.int16),
             ("ref_v", ref_v, (H // 2, W // 2), torch.int16),
             ("centers", centers, (3, 2), torch.int32)):
@@ -464,10 +465,6 @@ def me_search_cuda(cur_y, ref_y, ref_u, ref_v, centers, lam, planes=None):
         raise ValueError("lam: want one int32 value on the frame's device")
     lib = load_me_library()
     _ensure_table(lib, dev)
-    if planes is None:
-        planes = halfpel_planes_cuda(ref_y)
-    _check("planes", planes, dev, (4, H + 2 * ME_HALO, W + 2 * ME_HALO),
-           torch.uint8)
     mv = torch.empty((H // 16, W // 16, 2), dtype=torch.int32, device=dev)
     py = torch.empty((H, W), dtype=torch.int16, device=dev)
     pu = torch.empty((H // 2, W // 2), dtype=torch.int16, device=dev)
@@ -485,6 +482,16 @@ def me_search_cuda(cur_y, ref_y, ref_u, ref_v, centers, lam, planes=None):
     with _count_lock:
         ME_KERNEL_LAUNCHES += 1
     return mv, py, pu, pv
+
+
+def me_search_cuda(cur_y, ref_y, ref_u, ref_v, centers, lam):
+    """Both ME kernels on CUDA tensors, with the contract of
+    :func:`me_search_ref`: the prepass on `ref_y`, then the search over
+    its planes. Precondition: every sample of cur_y and ref_y lies in
+    [0, 255], as for the TPU kernel."""
+    _frame_shape("cur_y", cur_y)
+    return me_search_planes_cuda(cur_y, halfpel_planes_cuda(ref_y), ref_u,
+                                 ref_v, centers, lam)
 
 
 # ---------------------------------------------------------------------------
