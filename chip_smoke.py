@@ -29,6 +29,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
               kernels / median / residual, transfer pack).
 5. parity   — the same content at 352x288 (24 frames, gop 8) encoded on
               the card and on the CPU must give identical bytes.
+6. job      — the transcode job path with port modules only, as the
+              reference executor runs it: phase 4's clip written to a y4m
+              in a temporary directory → ingest.open_video →
+              make_shard_encoder(meta, Settings(defaults, gop_frames=8),
+              None, device="cuda") → encode → concat_segments → mux_mp4,
+              with the ME launch counts set to 0 just before and read
+              just after (14 each); its Annex-B stream must equal phase
+              4's; print the MP4's length and sha256 and the job's fps.
+7. job parity — at 352x288 (24 frames) the job's MP4 on the card equals
+              the CPU port's; the all-intra encoder (inter=False) gives
+              the same bytes on the card and the CPU; compact_transfer
+              off and pack_backend=process give the default stream on
+              the card (the sidecars must take every GOP).
+8. intra    — one 1080p all-intra wave (8 frames, every frame an IDR)
+              on the card: its slices, and its fps over the wave's
+              dispatch + collect (best of 2 after a warm-up).
 
 Before the last line it prints one JSON object of kernel records and the
 card's name and power limit; the last line is the device JSON object.
@@ -38,6 +54,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -435,7 +452,7 @@ def main_path(w: int = 1920, h: int = 1080, n: int = 16, qp: int = 27,
     print(f"main path bench-style: e2e {n / t_e2e:.3f} fps, device-only "
           f"{n / t_dev:.3f} fps (best of 3, waves pre-staged)")
     print(f"stage_ms {json.dumps(stage_ms)}", flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "stream": stream}
 
 
 def _sync_ms(fn, reps: int = 3) -> float:
@@ -510,6 +527,143 @@ def card_equals_cpu() -> None:
     print("parity 352x288: card and CPU streams identical")
 
 
+# ---- phases 6-8 ----------------------------------------------------------
+
+def _job_settings():
+    from thinvids_tpu_torch.core.config import DEFAULT_SETTINGS, Settings
+
+    return Settings(values=dict(DEFAULT_SETTINGS, gop_frames=8))
+
+
+def _write_clip(path: str, frames, w: int, h: int) -> None:
+    from thinvids_tpu_torch.io.y4m import write_y4m
+
+    write_y4m(path, VideoMeta(width=w, height=h, fps_num=30, fps_den=1,
+                              num_frames=len(frames)), frames)
+
+
+def _run_job(path: str, device: str) -> tuple[bytes, bytes]:
+    """The reference executor's transcode steps, port modules only:
+    (Annex-B stream, MP4 bytes)."""
+    from thinvids_tpu_torch.ingest.decode import open_video
+    from thinvids_tpu_torch.io.mp4 import mux_mp4
+    from thinvids_tpu_torch.parallel.dispatch import make_shard_encoder
+
+    with open_video(path) as src:
+        enc = make_shard_encoder(src.meta, _job_settings(), None,
+                                 device=device)
+        stream = concat_segments(enc.encode(src))
+        return stream, mux_mp4(stream, src.meta, audio=src.audio)
+
+
+def job_path(tmp: str, main_stream: bytes, w: int = 1920, h: int = 1080,
+             n: int = 16) -> None:
+    path = os.path.join(tmp, "job1080.y4m")
+    _write_clip(path, make_frames(n, w, h), w, h)
+    torch.cuda.synchronize()
+    torchme.ME_PREPASS_LAUNCHES = 0
+    torchme.ME_KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    stream, mp4 = _run_job(path, "cuda")
+    t_job = time.perf_counter() - t0
+    launches = {"me_halfpel": torchme.ME_PREPASS_LAUNCHES,
+                "me_search": torchme.ME_KERNEL_LAUNCHES}
+    print(f"job path {w}x{h} x{n} (y4m → open_video → make_shard_encoder → "
+          f"encode → concat → mux_mp4): MP4 {len(mp4)} bytes, sha256 "
+          f"{hashlib.sha256(mp4).hexdigest()}; Annex-B {len(stream)} bytes, "
+          f"sha256 {hashlib.sha256(stream).hexdigest()}; {n / t_job:.3f} "
+          f"fps over the whole job ({t_job:.3f} s); ME launches {launches}",
+          flush=True)
+    check(stream == main_stream, "the job path's stream differs from the "
+                                 "main path's")
+    for name, count in launches.items():
+        check(count == 14, f"job path: {name} launched {count} times, "
+                           "want 14")
+    check(mp4[4:8] == b"ftyp" and b"moov" in mp4[:4096],
+          "the job's MP4 does not start with ftyp + moov")
+
+
+def _shutdown_sidecars(enc) -> None:
+    pool = enc._proc_pool
+    if pool is None:
+        return
+    procs = list((getattr(pool, "_processes", None) or {}).values())
+    pool.shutdown(wait=False, cancel_futures=True)
+    for p in procs:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.kill()
+
+
+def job_parity(tmp: str, w: int = 352, h: int = 288, n: int = 24) -> None:
+    frames = make_frames(n, w, h, seed=5, pan=2)
+    path = os.path.join(tmp, "job352.y4m")
+    _write_clip(path, frames, w, h)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[device] = _run_job(path, device)
+        print(f"job parity 352x288 x{n} on {device}: MP4 "
+              f"{len(out[device][1])} bytes in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check(out["cuda"][1] == out["cpu"][1], "card and CPU MP4s differ")
+    default = out["cuda"][0]
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    intra = {}
+    for device in ("cuda", "cpu"):
+        enc = GopShardEncoder(meta, qp=27, gop_frames=8, inter=False,
+                              device=device)
+        intra[device] = concat_segments(enc.encode(frames))
+    check(intra["cuda"] == intra["cpu"], "all-intra: card and CPU differ")
+    enc = GopShardEncoder(meta, qp=27, gop_frames=8, compact_transfer=False,
+                          device="cuda")
+    check(concat_segments(enc.encode(frames)) == default,
+          "compact_transfer=False changed the bytes")
+    enc = GopShardEncoder(meta, qp=27, gop_frames=8, pack_backend="process",
+                          device="cuda")
+    try:
+        check(enc._proc_pool is not None, "no pack sidecar pool started")
+        got = concat_segments(enc.encode(frames))
+        gops = enc.stages.snapshot()["proc_pack_gops"]
+    finally:
+        _shutdown_sidecars(enc)
+    want_gops = len(enc.plan(n).gops)
+    check(got == default, "pack_backend=process changed the bytes")
+    check(gops == want_gops, f"the sidecars packed {gops} GOPs, want "
+                             f"{want_gops}")
+    print(f"job parity 352x288: card MP4 == CPU MP4 ({len(out['cuda'][1])} "
+          f"bytes); all-intra card == CPU ({len(intra['cuda'])} bytes); "
+          f"compact_transfer=False and pack_backend=process ({gops} GOPs on "
+          "the sidecars) give the default stream", flush=True)
+
+
+def intra_wave(w: int = 1920, h: int = 1080, n: int = 8) -> None:
+    frames = make_frames(n, w, h, seed=1)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    enc = GopShardEncoder(meta, qp=27, gop_frames=n, inter=False,
+                          device="cuda")
+    _, waves = enc.prepare_waves(frames)
+    check(len(waves) == 1, f"{len(waves)} all-intra waves, want 1")
+    stream = concat_segments(enc.encode_waves(waves))     # warm-up
+    best = float("inf")
+    for _ in range(2):
+        enc.stages.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s2 = concat_segments(enc.encode_waves(waves))
+        best = min(best, time.perf_counter() - t0)
+        check(s2 == stream, "a repeated all-intra wave changed the bytes")
+    snap = enc.stages.snapshot()
+    types = [u[1] for u in split_annexb(stream)]
+    check(types.count(5) == n and types.count(1) == 0,
+          f"all-intra slice NAL types {types}")
+    print(f"intra wave {w}x{h} x{n} qp 27 (all-intra, one wave): "
+          f"{len(stream)} bytes, sha256 {hashlib.sha256(stream).hexdigest()},"
+          f" {n / best:.3f} fps (dispatch + collect, best of 2), "
+          f"dense_fallback_waves {snap['dense_fallback_waves']}, stage_ms "
+          f"{json.dumps(snap)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -523,11 +677,17 @@ def main() -> int:
     build_all()
     print("kernels: me_halfpel, me_search")
     recs = check_me_kernels(dev)
-    launches = main_path()["launches"]
+    main = main_path()
     for rec in recs:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = main["launches"][rec["name"]]
     time_breakdown(dev)
     card_equals_cpu()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tvt-smoke-") as tmp:
+        job_path(tmp, main["stream"])
+        job_parity(tmp)
+    intra_wave()
     print(json.dumps({"kernels": recs}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -89,6 +89,11 @@ def test_scan_sees_the_whole_port(tmp_path):
     for want in ("chip_smoke.py",
                  "thinvids_tpu_torch/codecs/h264/torchme.py",
                  "thinvids_tpu_torch/parallel/dispatch.py",
+                 "thinvids_tpu_torch/parallel/packproc.py",
+                 "thinvids_tpu_torch/core/config.py",
+                 "thinvids_tpu_torch/ingest/decode.py",
+                 "thinvids_tpu_torch/io/mp4.py",
+                 "thinvids_tpu_torch/tools/oracle.py",
                  "thinvids_tpu_torch/native/__init__.py"):
         assert want in rel
     # the scan catches both spellings, at module level and in a function,

@@ -1,10 +1,17 @@
-"""H.264 encoder host half: level arrays → CAVLC slices.
+"""H.264 encoder: the codec surface and its host half.
 
 The per-frame COMPUTE (prediction, forward transform, quantization,
 closed-loop reconstruction) runs on the device (torchcore.py,
 torchinter.py); this module is the sequential entropy PACK that turns
-level arrays into conformant Annex-B slices on the host, plus the
-per-GOP slice-thunk plumbing the dispatcher fans across its pack pool.
+level arrays into conformant Annex-B slices on the host, the per-GOP
+slice-thunk plumbing the dispatcher fans across its pack pool, and the
+user-facing encoders: `H264Encoder` / `encode_frames` (all-intra, every
+frame IDR) and `encode_gop` (one closed GOP, IDR + P). They take
+``device="cuda"`` by default; the reference's numpy compute path
+(``use_jax=False``, `encode_frame_arrays`) is not ported.
+
+Device code is imported inside the functions that run it, so the pack
+sidecars (parallel/packproc.py) import this module without torch.
 
 Mode policy (keeps macroblock rows data-parallel on the device):
 - MB (0,0): DC prediction (no neighbors);
@@ -19,6 +26,7 @@ import functools
 
 import numpy as np
 
+from ...core.types import Frame, VideoMeta, is_yuv420
 from ...io.bits import BitWriter, annexb_nal
 from . import cavlc
 from .headers import (
@@ -187,6 +195,121 @@ def pack_slice(levels: FrameLevels, mbw: int, mbh: int, sps: SPS, pps: PPS,
 
     bw.rbsp_trailing_bits()
     return annexb_nal(3, NAL_SLICE_IDR if idr else 1, bw.getvalue())
+
+
+class H264Encoder:
+    """Stateful per-job encoder: sequence headers + frame encode.
+
+    Scope: intra-only (every frame IDR), 4:2:0, fixed qp, CAVLC. The
+    intra compute runs on `device` (torchcore.build_intra_encoder)."""
+
+    def __init__(self, meta: VideoMeta, qp: int = 27, rd=None,
+                 device="cuda"):
+        from ...core.devices import resolve_device
+        from .rdo import RD_OFF
+
+        self.meta = meta
+        self.qp = qp
+        self.rd = rd if rd is not None else RD_OFF
+        if self.rd.deblock or self.rd.pskip:
+            # all-intra scope: no recon chain to filter, no inter MBs to
+            # skip — the GOP path carries those features.
+            raise ValueError(
+                "H264Encoder (all-intra) supports mode_decision/aq "
+                "only; deblock/pskip need the GOP path")
+        self.device = resolve_device(device)
+        self.sps = SPS(width=meta.width, height=meta.height,
+                       fps_num=meta.fps_num, fps_den=meta.fps_den)
+        self.pps = PPS(init_qp=qp)
+        self._fn = None
+
+    def _compute(self, y: np.ndarray, u: np.ndarray, v: np.ndarray
+                 ) -> FrameLevels:
+        from . import torchcore
+
+        if self._fn is None:
+            self._fn = torchcore.build_intra_encoder(
+                y.shape, self.qp, self.rd, device=self.device)
+        return self._fn(y, u, v)
+
+    def encode_frame(self, frame: Frame, frame_num: int = 0,
+                     idr_pic_id: int = 0, with_headers: bool = True) -> bytes:
+        if not is_yuv420(frame):
+            # The MB geometry below hard-assumes 4:2:0 (8x8 chroma per MB);
+            # feeding 4:2:2/4:4:4 would silently mis-encode.
+            raise ValueError(
+                f"H264Encoder supports only 4:2:0 input, got "
+                f"{frame.chroma.name}; convert before encoding")
+        padded = frame.padded(16)
+        levels = self._compute(padded.y, padded.u, padded.v)
+        mbh, mbw = padded.y.shape[0] // 16, padded.y.shape[1] // 16
+        slice_nal = pack_slice(levels, mbw, mbh, self.sps, self.pps, self.qp,
+                               frame_num=0, idr=True,
+                               idr_pic_id=idr_pic_id % 65536)
+        if with_headers:
+            return self.sps.to_nal() + self.pps.to_nal() + slice_nal
+        return slice_nal
+
+
+def encode_frames(frames: list[Frame], meta: VideoMeta, qp: int = 27,
+                  device="cuda") -> bytes:
+    """Encode a closed sequence of frames to one Annex-B byte stream
+    (all-intra: every frame IDR)."""
+    enc = H264Encoder(meta, qp=qp, device=device)
+    out = []
+    for i, frame in enumerate(frames):
+        out.append(enc.encode_frame(frame, idr_pic_id=i,
+                                    with_headers=(i == 0)))
+    return b"".join(out)
+
+
+def encode_gop(frames: list[Frame], meta: VideoMeta, qp: int = 27,
+               idr_pic_id: int = 0, with_headers: bool = True,
+               return_recon: bool = False, rd=None, device="cuda"):
+    """Encode a closed GOP: frame 0 IDR, frames 1..F-1 inter-coded (P).
+
+    The GOP's compute (intra frame + motion search / compensation /
+    transform chained through the recon carry) is one
+    torchinter.encode_gop_planes call on `device`; this host half packs
+    the I-slice and the P-slices from the plane-layout levels. With
+    `return_recon` also returns the reconstructed planes (recon_y,
+    recon_u, recon_v), each (F, H, W) int32 over the padded frame.
+    """
+    import torch
+
+    from ...core.devices import resolve_device
+    from . import torchinter
+    from .layout import unflatten_gop
+    from .rdo import RD_OFF, require_rd_off
+
+    if rd is None:
+        rd = RD_OFF
+    require_rd_off(rd)
+    dev = resolve_device(device)
+    if not frames:
+        raise ValueError("empty GOP")
+    bad = next((f for f in frames if not is_yuv420(f)), None)
+    if bad is not None:
+        raise ValueError(
+            f"encode_gop supports only 4:2:0 input, got {bad.chroma.name}")
+    padded = [f.padded(16) for f in frames]
+    ph, pw = padded[0].y.shape
+    mbh, mbw = ph // 16, pw // 16
+    ys, us, vs = (torch.from_numpy(np.stack([getattr(p, c) for p in padded]))
+                  .to(dev) for c in "yuv")
+    out = torchinter.encode_gop_planes(ys, us, vs, qp, mbw=mbw, mbh=mbh,
+                                       emit_recon=return_recon)
+    intra, planes = unflatten_gop(out[1].cpu().numpy(), out[0].cpu().numpy(),
+                                  len(frames), mbw, mbh)
+    sps = SPS(width=meta.width, height=meta.height,
+              fps_num=meta.fps_num, fps_den=meta.fps_den)
+    pps = PPS(init_qp=qp)
+    stream = b"".join(run_slice_thunks(gop_slice_thunks_planes(
+        intra, planes, len(frames), mbw, mbh, sps, pps, qp, idr_pic_id,
+        with_headers=with_headers, rd=rd)))
+    if return_recon:
+        return stream, tuple(r.cpu().numpy() for r in out[2])
+    return stream
 
 
 def unpack_mode16(mode16: np.ndarray):

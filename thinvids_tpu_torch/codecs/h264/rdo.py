@@ -1,17 +1,20 @@
-"""Rate-distortion operating point of the encoder core (the subset the
-RD-off GOP path needs).
+"""Rate-distortion operating point of the encoder core.
 
 One frozen, hashable config rides through the encode programs and the
-host packers. This port runs with every feature off (``RD_OFF``); the
-fields exist so the host packers' `rd.deblock` / `rd.ships_modes`
-checks read the same names as the reference's.
+host packers. The port's device programs run with every feature off
+(``RD_OFF``); settings-built encoders resolve the config from the four
+RD knobs (``rd_from_settings``) and refuse anything else, since the RD
+features themselves are not ported yet (ROADMAP A7). The fields keep
+the reference's names so the host packers' `rd.deblock` /
+`rd.ships_modes` checks read the same.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-#: AQ quantization of the strength knob (aq_q is in 1/AQ_QUANT QP units)
+#: AQ quantization of the strength knob: the continuous setting is
+#: snapped to 1/AQ_QUANT steps (aq_q is in 1/AQ_QUANT QP units)
 AQ_QUANT = 4
 
 
@@ -42,3 +45,33 @@ class RdConfig:
 
 #: the feature-off config: every existing path's behavior, bit for bit
 RD_OFF = RdConfig()
+
+
+def require_rd_off(rd: RdConfig) -> None:
+    """Refuse any RD feature: the port's device programs implement none
+    yet, and encoding feature-off in their place would be a different
+    result, not the asked-for one."""
+    if rd != RD_OFF:
+        raise NotImplementedError(
+            f"RD features {rd} are not ported yet (ROADMAP A7); set "
+            "mode_decision/pskip/deblock off and aq_strength 0")
+
+
+def aq_from_strength(strength: float) -> int:
+    """Quantize the float aq_strength knob to the static aq_q field."""
+    return max(0, min(3 * AQ_QUANT,
+                      int(round(float(strength) * AQ_QUANT))))
+
+
+def rd_from_settings(settings) -> RdConfig:
+    """Build the static RD config from a Settings snapshot (the four
+    knobs registered in core/config.DEFAULT_SETTINGS)."""
+    from ...core.config import as_bool, as_float
+
+    return RdConfig(
+        mode_decision=as_bool(settings.get("mode_decision", False), False),
+        pskip=as_bool(settings.get("pskip", False), False),
+        deblock=as_bool(settings.get("deblock", False), False),
+        aq_q=aq_from_strength(as_float(settings.get("aq_strength", 0.0),
+                                       0.0)),
+    )

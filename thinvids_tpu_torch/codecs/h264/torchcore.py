@@ -16,7 +16,10 @@ then columns; inverse: columns then rows — the order the ``>> 1``
 rounding depends on).
 
 The sequential entropy pack stays on the host (encoder.pack_slice or the
-C++ packer); this module only produces level arrays.
+C++ packer); this module only produces level arrays, packs them for the
+device→host transfer (the all-intra path's element-granular sparse pack,
+the GOP path's two-tier block pack + compact stream), and holds the
+all-intra frame encoder (`encode_intra` / `build_intra_encoder`).
 """
 
 from __future__ import annotations
@@ -26,7 +29,10 @@ import functools
 import numpy as np
 import torch
 
+from ...core.devices import resolve_device
+from .encoder import FrameLevels, _mode_policy
 from .intra import LUMA_BLOCK_ORDER
+from .rdo import RD_OFF, require_rd_off
 from .transform import CHROMA_QP_TABLE, MF_TABLE, V_TABLE, ZIGZAG_4x4
 
 # raster (by*4+bx) index for each z-scan position
@@ -420,3 +426,144 @@ def _compact_stream(nblk, nval, bitmap, bmask16, vals):
     payload[start + torch.arange(vb, device=dev)] = vals.view(torch.uint8)
     used = (nb8 + 2 * nblk + nval).to(torch.int32)
     return used, payload
+
+
+# ---------------------------------------------------------------------------
+# all-intra frames: flat levels, element-granular sparse transfer pack,
+# host inverses and the frame encoder
+# ---------------------------------------------------------------------------
+
+def _flat_levels(y, u, v, qp: int, mbw: int, mbh: int):
+    """One frame's intra levels as ONE flat int32 vector, layout
+    [luma_dc | luma_ac | chroma_dc | chroma_ac] (the reference's
+    dispatch._flat_levels, RD off)."""
+    ldc, lac, cdc, cac = _intra_core(y, u, v, qp, mbw=mbw, mbh=mbh)[:4]
+    return torch.cat([ldc.reshape(-1), lac.reshape(-1), cdc.reshape(-1),
+                      cac.reshape(-1)])
+
+
+def intra_flat_len(nmb: int) -> int:
+    """Length of one frame's flat intra transfer vector (RD off: no
+    per-MB mode side channel)."""
+    return nmb * 384
+
+
+# Sparse level-transfer budget: nonzero density above 1/div falls back
+# to a dense fetch (typical all-intra density at qp 27 is ~10-15 %).
+_SPARSE_BUDGET_DIV = 4
+# Escape side-channel size: levels with |v| > 127 ride as (position,
+# value) int32 pairs so vals stay int8.
+_SPARSE_ESCAPES = 4096
+
+
+def _sparse_pack(flat, budget_div: int = _SPARSE_BUDGET_DIV):
+    """Compact a flat int32 level vector on device.
+
+    Returns (nnz, n_esc, bitmap, vals, esc_pos, esc_val):
+    - bitmap: 1 bit/coeff nonzero mask (big-endian within bytes, matching
+      np.unpackbits), ceil(L/8) bytes;
+    - vals: the nonzero levels in scan order, clipped to int8, in a fixed
+      L // budget_div buffer;
+    - esc_pos/esc_val: flat positions + true values of levels exceeding
+      int8 (|v| > 127), in a fixed _SPARSE_ESCAPES buffer.
+    The counts are 0-d int32 tensors. The caller falls back to a dense
+    fetch iff nnz > budget or n_esc > _SPARSE_ESCAPES (`sparse_fits`).
+    As in _block_sparse_pack2, the reference's mode="drop" scatters
+    become clamps onto one dump slot that is sliced away."""
+    L = flat.shape[0]
+    budget = L // budget_div
+    dev = flat.device
+    flat = flat.to(torch.int32)
+    mask = flat != 0
+    m32 = mask.to(torch.int32)
+    nnz = m32.sum().to(torch.int32)
+    pos = torch.cumsum(m32, 0) - 1
+    idx = torch.where(mask, pos, budget).clamp(max=budget).to(torch.int64)
+    vals = torch.zeros(budget + 1, dtype=torch.int8, device=dev)
+    vals[idx] = torch.clamp(flat, -_I8_MAX, _I8_MAX).to(torch.int8)
+    bitmap = _bitmap(mask)
+    esc = torch.abs(flat) > _I8_MAX
+    e32 = esc.to(torch.int32)
+    n_esc = e32.sum().to(torch.int32)
+    epos = torch.cumsum(e32, 0) - 1
+    eidx = torch.where(esc, epos, _SPARSE_ESCAPES).clamp(
+        max=_SPARSE_ESCAPES).to(torch.int64)
+    esc_pos = torch.zeros(_SPARSE_ESCAPES + 1, dtype=torch.int32,
+                          device=dev)
+    esc_pos[eidx] = torch.arange(L, dtype=torch.int32, device=dev)
+    esc_val = torch.zeros(_SPARSE_ESCAPES + 1, dtype=torch.int32,
+                          device=dev)
+    esc_val[eidx] = flat
+    return (nnz, n_esc, bitmap, vals[:budget], esc_pos[:_SPARSE_ESCAPES],
+            esc_val[:_SPARSE_ESCAPES])
+
+
+def sparse_fits(nnz: int, n_esc: int, L: int,
+                budget_div: int = _SPARSE_BUDGET_DIV) -> bool:
+    return (int(nnz) <= L // budget_div
+            and int(n_esc) <= _SPARSE_ESCAPES)
+
+
+def _sparse_unpack(nnz: int, n_esc: int, bitmap: np.ndarray,
+                   vals: np.ndarray, esc_pos: np.ndarray,
+                   esc_val: np.ndarray, L: int) -> np.ndarray:
+    """Host inverse of _sparse_pack → flat int32 levels."""
+    mask = np.unpackbits(bitmap)[:L].astype(bool)
+    out = np.zeros(L, np.int32)
+    out[mask] = vals[:nnz].astype(np.int32)
+    if n_esc:
+        out[esc_pos[:n_esc]] = esc_val[:n_esc]
+    return out
+
+
+def _unpack_levels(flat: np.ndarray, mbw: int, mbh: int) -> FrameLevels:
+    """Flat intra levels (host) → FrameLevels views, with the fixed mode
+    raster (RD off). The transfer dtype is kept: int16 feeds the
+    zero-copy native entry (cavlc_pack_islice16), int32 the original
+    one."""
+    nmb = mbw * mbh
+    sizes = (nmb * 16, nmb * 16 * 15, nmb * 2 * 4, nmb * 2 * 4 * 15)
+    offs = np.cumsum((0,) + sizes)
+    flat = np.asarray(flat)
+    luma_mode, chroma_mode = _mode_policy(mbw, mbh)
+    return FrameLevels(
+        luma_mode=luma_mode,
+        chroma_mode=chroma_mode,
+        luma_dc=flat[offs[0]:offs[1]].reshape(nmb, 16),
+        luma_ac=flat[offs[1]:offs[2]].reshape(nmb, 16, 15),
+        chroma_dc=flat[offs[2]:offs[3]].reshape(nmb, 2, 4),
+        chroma_ac=flat[offs[3]:offs[4]].reshape(nmb, 2, 4, 15),
+    )
+
+
+def encode_intra(y: np.ndarray, u: np.ndarray, v: np.ndarray, qp: int,
+                 rd=RD_OFF, device="cuda") -> FrameLevels:
+    """Run the intra compute on `device` and return host-side FrameLevels
+    (the reference's encode_intra_jax): the sparse transfer, or the
+    int16 dense fetch when the frame overflows its budgets."""
+    require_rd_off(rd)
+    dev = resolve_device(device)
+    mbh, mbw = y.shape[0] // 16, y.shape[1] // 16
+    yd, ud, vd = (torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                  for p in (y, u, v))
+    L = intra_flat_len(mbw * mbh)
+    flat = _flat_levels(yd, ud, vd, int(qp), mbw, mbh)
+    nnz, n_esc, bitmap, vals, esc_pos, esc_val = (
+        t.cpu().numpy() for t in _sparse_pack(flat))
+    if sparse_fits(nnz, n_esc, L):
+        return _unpack_levels(
+            _sparse_unpack(int(nnz), int(n_esc), bitmap, vals,
+                           esc_pos, esc_val, L), mbw, mbh)
+    # Rare (very dense content): fetch the levels wide, as int16.
+    return _unpack_levels(flat.to(torch.int16).cpu().numpy(), mbw, mbh)
+
+
+def build_intra_encoder(y_shape: tuple[int, int], qp: int, rd=RD_OFF,
+                        device="cuda"):
+    """Encoder-facing factory: returns fn(y, u, v) -> FrameLevels."""
+    require_rd_off(rd)
+    dev = resolve_device(device)
+
+    def fn(y, u, v):
+        return encode_intra(y, u, v, qp, rd, device=dev)
+    return fn

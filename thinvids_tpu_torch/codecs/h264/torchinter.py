@@ -241,10 +241,13 @@ def _intra_frame_outputs(y, u, v, qp: int, *, mbw: int, mbh: int):
             (ry.to(torch.int16), ru.to(torch.int16), rv.to(torch.int16)))
 
 
-def encode_gop_planes(ys, us, vs, qp: int, *, mbw: int, mbh: int):
+def encode_gop_planes(ys, us, vs, qp: int, *, mbw: int, mbh: int,
+                      emit_recon: bool = False):
     """Closed-GOP compute emitting PLANE-layout levels: frame 0 intra,
     frames 1..F-1 inter (P). ys: (F, H, W) uint8 (us/vs the chroma
-    halves). Returns (mv (F-1, nmb, 2) int8, flat int16).
+    halves). Returns (mv (F-1, nmb, 2) int8, flat int16); with
+    `emit_recon` also the per-frame reconstructed planes (recon_y,
+    recon_u, recon_v), each (F, H, W) int32 (quality measurements).
 
     flat layout (all reshape(-1)):
       [ intra il_dc | il_ac | ic_dc | ic_ac          (nmb * 384)
@@ -263,10 +266,13 @@ def encode_gop_planes(ys, us, vs, qp: int, *, mbw: int, mbh: int):
         ys[0], us[0], vs[0], qp, mbw=mbw, mbh=mbh)
     pred_mv = torch.zeros(2, dtype=torch.int32, device=ys.device)
     mvs, lps, cdcs, cacs = [], [], [], []
+    recons = [(ry, ru, rv)]
     for i in range(1, ys.shape[0]):
         (mv, lp, cdc, cac, ry, ru, rv, pred_mv) = _encode_p_plane(
             ys[i], us[i], vs[i], ry, ru, rv, pred_mv, qp, qpc, mbw=mbw,
             mbh=mbh)
+        if emit_recon:
+            recons.append((ry, ru, rv))
         mvs.append(mv.to(torch.int8))
         lps.append(lp)
         cdcs.append(cdc)
@@ -283,4 +289,8 @@ def encode_gop_planes(ys, us, vs, qp: int, *, mbw: int, mbh: int):
                           device=ys.device)
         p_parts = []
     parts = [a.reshape(-1).to(torch.int16) for a in intra] + p_parts
+    if emit_recon:
+        recon = tuple(torch.stack(planes).to(torch.int32)
+                      for planes in zip(*recons))
+        return mv8, torch.cat(parts), recon
     return mv8, torch.cat(parts)

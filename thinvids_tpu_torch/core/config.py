@@ -1,0 +1,540 @@
+"""Layered configuration system (a copy of the reference package's).
+
+Four-tier precedence:
+
+    code defaults  <  environment  <  live (runtime-tunable)  <  per-job
+
+The live tier is an in-process dict guarded by a lock with a TTL read cache;
+the cluster API mutates it via ``update_live_settings`` with the same
+validation/clamping its POST /settings handler applies.
+
+Every key is overridable from the environment as ``TVT_<KEY_UPPERCASED>``
+(e.g. ``TVT_QP=30``, ``TVT_PACK_BACKEND=process``). The key set, the
+coercers and the clamps are the reference's, key for key, so one job's
+settings resolve the same knobs in either package; the port reads the
+encoder knobs (``qp``, ``gop_frames``, ``max_segments``, the RD features,
+``pack_workers``, ``pipeline_window``, ``decode_ahead``,
+``compact_transfer``, ``pack_backend``, ``sfe_bands``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+from typing import Any, Callable, Mapping
+
+# Defaults: the reference package's DEFAULT_SETTINGS, key for key.
+DEFAULT_SETTINGS: dict[str, Any] = {
+    # admission / scheduling
+    "auto_start_jobs": True,
+    "max_active_jobs": 0,            # 0 = derived: pipeline_workers // 2
+    "pipeline_worker_count": 8,      # logical pipeline slots (devices or hosts)
+    "drain_ratio": 0.75,             # admit next job at >= this encode drain
+    "min_idle_workers": 4,
+    "reject_av1": False,             # we ENCODE AV1 (ref rejected it as input)
+    "large_file_gb": 15.0,
+    "large_file_behavior": "direct",  # reject | direct | nfs
+    # segmentation / sharding
+    "gop_frames": 32,                # closed-GOP length (frames)
+    "max_segments": 200,
+    # encoder operating point (analog of VEM_* env knobs)
+    "rc_mode": "cqp",                # cqp | vbr2pass
+    "target_bitrate_kbps": 0.0,      # vbr2pass target; 0 = unset
+    "qp": 27,
+    # rate-distortion features (codecs/h264/rdo.RdConfig; every
+    # settings-built encoder reads these — see the README's
+    # "Rate-distortion controls" section for the expected
+    # bits-at-quality effect of each knob):
+    # mode_decision (TVT_MODE_DECISION): per-MB SATD intra mode
+    #   decision (V/H/DC) instead of the fixed raster policy;
+    # pskip (TVT_PSKIP): P_Skip bias — near-zero inter residuals drop
+    #   so static MBs code as skip runs;
+    # deblock (TVT_DEBLOCK): §8.7 in-loop deblocking on the recon
+    #   carried between frames (signaled in the slice headers; SFE
+    #   runs it with a cross-band halo, and the remote planner keeps
+    #   deblock jobs on GOP shards);
+    # aq_strength (TVT_AQ_STRENGTH, 0..3): perceptual variance-AQ
+    #   per-MB QP modulation on intra frames (0 = off; quantized to
+    #   quarter steps — the config is a compile-time specialization).
+    "mode_decision": False,
+    "pskip": False,
+    "deblock": False,
+    "aq_strength": 0.0,
+    # ABR ladder subsystem (abr/): default job type for registrations
+    # that don't say (watch-folder drops named *.ladder.* always become
+    # ladder jobs), the rung heights (TVT_LADDER_RUNGS; heights at or
+    # above the source collapse into the source-resolution top rung),
+    # and the HLS media-segment target duration (TVT_SEGMENT_S; cut at
+    # closed-GOP boundaries so every rung segments identically).
+    "job_type": "transcode",         # transcode | ladder | live
+    "ladder_rungs": "1080,720,480,360",
+    "segment_s": 6.0,
+    # live LL-HLS subsystem (live/ + ingest/tail.py): a `live` job
+    # tails a GROWING source and serves viewers during ingest.
+    # live_stall_s (TVT_LIVE_STALL_S): no source growth for this long
+    # = clean end-of-stream (finalize playlists, EXT-X-ENDLIST).
+    # dvr_window_s (TVT_DVR_WINDOW_S): sliding DVR window in seconds —
+    # older segments leave the playlist (EXT-X-MEDIA-SEQUENCE advance)
+    # and are deleted from disk; <= 0 keeps the full history (EVENT
+    # playlist, final tree is a complete VOD). The LL-HLS part
+    # duration is one GOP (gop_frames / fps) by construction.
+    "live_stall_s": 10.0,
+    "dvr_window_s": 0.0,
+    # origin serving + QoS (origin/, cluster/qos.py): hot-segment
+    # cache budget in bytes (TVT_ORIGIN_CACHE_BYTES; 0 disables the
+    # cache), the per-job cap on concurrent LL-HLS blocking-reload
+    # waiters (TVT_ORIGIN_MAX_WAITERS; beyond it the API answers 503 +
+    # Retry-After instead of pinning server threads), the job priority
+    # class override (TVT_JOB_PRIORITY / per-job setting; auto derives
+    # live > ladder > batch from the job type), and the live deadline
+    # machinery: a live part slower than live_part_budget_s
+    # (TVT_LIVE_PART_BUDGET_S; 0 = 2x the stream's segment duration)
+    # preempts batch shards until live_recover_parts consecutive parts
+    # land back inside budget (TVT_LIVE_RECOVER_PARTS).
+    "origin_cache_bytes": 64 * 1024 * 1024,
+    "origin_max_waiters": 64,
+    "job_priority": "auto",          # auto | live | ladder | batch
+    "live_part_budget_s": 0.0,
+    "live_recover_parts": 2,
+    # load harness defaults (tools/loadgen.py + bench.py's origin run):
+    # concurrent player sessions (TVT_LOADGEN_SESSIONS) and the load
+    # window in seconds (TVT_LOADGEN_DURATION_S)
+    "loadgen_sessions": 500,
+    "loadgen_duration_s": 10.0,
+    "profile_dir": "",               # non-empty: a profiler trace of
+                                     # the encode stage lands here
+                                     # (TVT_PROFILE_DIR)
+    # observability (the obs/ layer): metrics_enabled gates the
+    # GET /metrics Prometheus endpoint (TVT_METRICS_ENABLED; recording
+    # itself is always on — it is cheap and /metrics_snapshot reads the
+    # same counters); trace_sample (TVT_TRACE_SAMPLE, 0..1) decides PER
+    # JOB at dispatch whether its spans record at all; trace_ring_spans
+    # (TVT_TRACE_RING_SPANS) bounds each job's span ring on the
+    # coordinator; flight_record (TVT_FLIGHT_RECORD) gates the
+    # postmortem <job>.trace.json artifact on job failure / worker
+    # quarantine / QoS preemption.
+    "metrics_enabled": True,
+    "trace_sample": 1.0,
+    "trace_ring_spans": 4096,
+    "flight_record": True,
+    # host wave pipeline (parallel/dispatch.py): slice-granular CAVLC
+    # pack threads (0 = os.cpu_count()) and the in-flight wave window.
+    # Deliberately independent: the pack pool sizes to the host's cores,
+    # the window to device queue depth / HBM budget.
+    "pack_workers": 0,
+    "pipeline_window": 4,
+    # device→host boundary (parallel/dispatch.py): compact_transfer
+    # folds each GOP's sparse level streams into one byte payload ON
+    # DEVICE so the bulk fetch moves only the used bytes
+    # (TVT_COMPACT_TRANSFER=0 restores the three-array sparse2
+    # transfer — the validated fallback, bit-identical output);
+    # pack_backend=process opts into shared-memory pack sidecar
+    # processes (TVT_PACK_BACKEND) that run unpack+pack outside the
+    # coordinator's GIL — the 4K host-pack ceiling.
+    "compact_transfer": True,
+    "pack_backend": "thread",        # thread | process
+    # split-frame encoding (parallel/dispatch.SfeShardEncoder): shard
+    # ONE frame across the mesh as horizontal MB-row bands, each coded
+    # as its own H.264 slice — the single-stream latency mode.
+    # sfe_bands (TVT_SFE_BANDS): bands per frame; 0 keeps the default
+    # GOP-wave encoder (current behavior, byte-identical); > 0 caps at
+    # the local device count (and at the frame's MB rows).
+    # sfe_halo_rows (TVT_SFE_HALO_ROWS): reference rows exchanged with
+    # each neighbor band for motion search (multiple of 16; capped at
+    # the band height). >= 32 covers the full ±16-pel search + 6-tap
+    # interpolation reach (banded ME bit-identical to full-frame); 16
+    # clamps the vertical search to ±8 pel centers (documented bound).
+    "sfe_bands": 0,
+    "sfe_halo_rows": 32,
+    # streaming ingest (ingest/decode.py + parallel/dispatch.py):
+    # staged waves the background staging thread decodes + uploads
+    # ahead of dispatch (TVT_DECODE_AHEAD). Each staged-ahead wave is
+    # ALREADY H2D-uploaded, so total input residency is the in-flight
+    # window + decode_ahead (+1 blocked) waves of HBM YUV — size it
+    # against device HBM headroom, not just source latency.
+    "decode_ahead": 2,
+    # liveness / watchdog budgets (seconds)
+    "metrics_ttl_s": 15.0,
+    "scheduler_poll_s": 2.0,
+    "watchdog_poll_s": 15.0,
+    "stall_starting_s": 300.0,
+    "stall_running_s": 900.0,
+    "stall_stamping_s": 900.0,
+    "heartbeat_throttle_s": 15.0,
+    "part_failure_max_retries": 5,
+    # idle suspend (agent)
+    "suspend_enabled": False,
+    "suspend_idle_s": 300.0,
+    "suspend_cpu_pct": 20.0,
+    # elastic farm (farm/controller.py): autoscale_enabled gates the
+    # CapacityController's wake/drain/suspend decisions
+    # (TVT_AUTOSCALE_ENABLED; lifecycle bookkeeping and the claim gate
+    # run regardless); farm_min_workers / farm_max_workers bound the
+    # ACTIVE worker count (max 0 = no cap — scale to whatever demand
+    # asks for); drain_grace_s is the lifecycle grace: a DRAINING
+    # worker still holding leases past it has them requeued (no
+    # attempt burn) before suspend, and a WAKING worker with no
+    # heartbeat inside it falls back to SUSPENDED for a retry.
+    "autoscale_enabled": False,
+    "farm_min_workers": 0,
+    "farm_max_workers": 0,
+    "drain_grace_s": 30.0,
+    # multi-tenant fair share (farm/tenancy.py): tenant is the per-job
+    # namespace override (TVT_TENANT as a cluster default; normally
+    # set per job or via the <tenant>__name filename prefix);
+    # tenant_shares weights the fair-share admission ("acme:3,bravo:1"
+    # — unlisted tenants weigh 1) at BOTH admission points: the
+    # dispatch pass and the shard board's claim.
+    "tenant": "",
+    "tenant_shares": "",
+    # chaos harness (tools/loadgen.py --chaos + bench _run_autoscale):
+    # mean seconds between worker SIGKILLs (0 = no kills), the /work
+    # route partition length (0 = no partition), and the diurnal load
+    # curve's period.
+    "chaos_kill_interval_s": 0.0,
+    "chaos_partition_s": 0.0,
+    "chaos_period_s": 60.0,
+    # remote worker execution backend (cluster/remote.py)
+    "execution_backend": "local",    # local | remote
+    "remote_shard_gops": 0,          # GOPs per shard; 0 = auto (~2/worker)
+    "remote_plan_devices": 0,        # GOP plan width; 0 = live worker count
+    "remote_shard_timeout_s": 120.0,  # per-GOP lease budget: a shard's
+                                     # lease = this x its GOP count
+    "remote_retry_backoff_s": 2.0,   # requeue backoff base (doubles/attempt)
+    "remote_worker_max_failures": 3,  # consecutive failures -> quarantine
+    "remote_no_worker_grace_s": 30.0,  # no live workers this long -> job fails
+    "remote_claim_poll_s": 1.0,      # worker daemon claim poll interval
+    # durable shard checkpointing + end-to-end part integrity
+    # (cluster/partstore.py): part_spool_dir roots the per-job part
+    # spool and board checkpoint journals (TVT_PART_SPOOL_DIR; "" =
+    # beside the executor's output dir — keep it on the same stable
+    # disk across restarts, or resume finds nothing); part_integrity
+    # (TVT_PART_INTEGRITY) gates the per-segment sha256 verification
+    # at /work ingest, at crash-resume rehydration, and again before
+    # the stitcher reads a spooled part; resume_enabled
+    # (TVT_RESUME_ENABLED) gates the recover_jobs RESUME path —
+    # off restores the restart-from-scratch recovery.
+    "part_spool_dir": "",
+    "part_integrity": True,
+    "resume_enabled": True,
+    # worker HTTP resilience (cluster/remote.WorkerClient): retries ×
+    # jittered exponential backoff on connection-refused/5xx for claim
+    # polls, heartbeats and part uploads, so a coordinator restart
+    # window neither fails shards nor quarantines healthy workers
+    # (TVT_REMOTE_HTTP_RETRIES / TVT_REMOTE_HTTP_BACKOFF_S).
+    "remote_http_retries": 4,
+    "remote_http_backoff_s": 0.5,
+    # farm split-frame encoding (cluster/remote.py band shards +
+    # cluster/halo.py): sfe_farm (TVT_SFE_FARM) lets the remote
+    # backend plan frame-BAND shards (one band slice per worker, halo
+    # exchanged per frame over the /work relay) whenever sfe_bands > 0
+    # — off keeps the remote backend farming whole GOP ranges even
+    # with SFE configured locally; halo_timeout_s (TVT_HALO_TIMEOUT_S)
+    # bounds how long a band worker waits for a peer's halo blob
+    # before failing the shard (the board then restarts the lockstep
+    # group); live_farm_catchup (TVT_LIVE_FARM_CATCHUP) lets a live
+    # job's backlog GOPs fan across the farm while the newest GOP
+    # encodes locally at the edge.
+    "sfe_farm": True,
+    "halo_timeout_s": 60.0,
+    "live_farm_catchup": True,
+}
+
+_ENV_PREFIX = "TVT_"
+
+_BOOL_TRUE = {"1", "true", "yes", "on"}
+_BOOL_FALSE = {"0", "false", "no", "off"}
+
+
+def as_bool(value: Any, default: bool = False) -> bool:
+    if isinstance(value, bool):
+        return value
+    if value is None:
+        return default
+    text = str(value).strip().lower()
+    if text in _BOOL_TRUE:
+        return True
+    if text in _BOOL_FALSE:
+        return False
+    return default
+
+
+def as_int(value: Any, default: int = 0) -> int:
+    try:
+        return int(float(str(value).strip()))
+    except (TypeError, ValueError):
+        return default
+
+
+def as_float(value: Any, default: float = 0.0) -> float:
+    try:
+        return float(str(value).strip())
+    except (TypeError, ValueError):
+        return default
+
+
+def _coerce_like(default: Any, raw: Any) -> Any:
+    if isinstance(default, bool):
+        return as_bool(raw, default)
+    if isinstance(default, int):
+        return as_int(raw, default)
+    if isinstance(default, float):
+        return as_float(raw, default)
+    return str(raw)
+
+
+def _clean_rung_spec(raw: Any) -> str:
+    """Normalize a ladder_rungs value via the canonical parser."""
+    from ..abr.ladder import parse_rung_heights
+
+    heights = parse_rung_heights(raw)
+    return ",".join(str(h) for h in heights) \
+        or DEFAULT_SETTINGS["ladder_rungs"]
+
+
+# Validation clamps applied on live updates (the POST /settings clamping).
+_CLAMPS: dict[str, Callable[[Any], Any]] = {
+    "qp": lambda v: min(51, max(0, as_int(v, 27))),
+    "mode_decision": lambda v: as_bool(v, False),
+    "pskip": lambda v: as_bool(v, False),
+    "deblock": lambda v: as_bool(v, False),
+    # cap mirrors rdo.aq_from_strength's 3.0 ceiling (clamped offsets
+    # saturate at ±AQ_MAX_DELTA well before that)
+    "aq_strength": lambda v: min(3.0, max(0.0, as_float(v, 0.0))),
+    "gop_frames": lambda v: min(600, max(1, as_int(v, 32))),
+    "max_segments": lambda v: min(4096, max(1, as_int(v, 200))),
+    "drain_ratio": lambda v: min(1.0, max(0.0, as_float(v, 0.75))),
+    "pipeline_worker_count": lambda v: min(4096, max(1, as_int(v, 8))),
+    "min_idle_workers": lambda v: max(0, as_int(v, 4)),
+    "rc_mode": lambda v: str(v) if str(v) in ("cqp", "vbr2pass") else "cqp",
+    "job_type": lambda v: str(v)
+    if str(v) in ("transcode", "ladder", "live")
+    else "transcode",
+    # sanitize through the one canonical rung-spec parser
+    # (abr/ladder.parse_rung_heights, imported lazily so config stays
+    # import-light); an empty result falls back to the default ladder
+    "ladder_rungs": lambda v: _clean_rung_spec(v),
+    "segment_s": lambda v: min(60.0, max(1.0, as_float(v, 6.0))),
+    # floor keeps the end-of-stream poll from declaring EOS between
+    # two writes of a healthy real-time writer (one frame at 24 fps
+    # is ~42 ms; 0.5 s is the practical minimum stall)
+    "live_stall_s": lambda v: min(3600.0, max(0.5, as_float(v, 10.0))),
+    "dvr_window_s": lambda v: min(86400.0, max(0.0, as_float(v, 0.0))),
+    "origin_cache_bytes": lambda v: min(8 << 30, max(
+        0, as_int(v, 64 * 1024 * 1024))),
+    # floor of 1: a zero cap would 503 every blocking reload, which is
+    # indistinguishable from a broken origin to a player
+    "origin_max_waiters": lambda v: min(100_000, max(1, as_int(v, 64))),
+    "job_priority": lambda v: str(v)
+    if str(v) in ("auto", "live", "ladder", "batch")
+    else "auto",
+    "live_part_budget_s": lambda v: min(600.0, max(0.0, as_float(v, 0.0))),
+    "live_recover_parts": lambda v: min(100, max(1, as_int(v, 2))),
+    "loadgen_sessions": lambda v: min(100_000, max(1, as_int(v, 500))),
+    "loadgen_duration_s": lambda v: min(3600.0, max(0.5, as_float(v, 10.0))),
+    # a full-off sample (0.0) is legal: tracing costs nothing then
+    "trace_sample": lambda v: min(1.0, max(0.0, as_float(v, 1.0))),
+    # floor keeps at least a useful postmortem window; cap bounds the
+    # coordinator's per-job memory (a span dict is ~200 B)
+    "trace_ring_spans": lambda v: min(65536, max(256, as_int(v, 4096))),
+    "pack_workers": lambda v: min(256, max(0, as_int(v, 0))),
+    "pipeline_window": lambda v: min(64, max(1, as_int(v, 4))),
+    "pack_backend": lambda v: str(v)
+    if str(v) in ("thread", "process")
+    else "thread",
+    "sfe_bands": lambda v: min(64, max(0, as_int(v, 0))),
+    # multiple of 16 (band/ext-plane MB alignment), floor 16, cap 128
+    "sfe_halo_rows": lambda v: min(128, max(16, (as_int(v, 32) // 16) * 16)),
+    # capped well below pipeline_window's 64: every staged-ahead wave
+    # pins HBM-resident input arrays (see DEFAULT_SETTINGS note)
+    "decode_ahead": lambda v: min(16, max(1, as_int(v, 2))),
+    "target_bitrate_kbps": lambda v: min(500_000.0, max(0.0, as_float(v, 0.0))),
+    "large_file_behavior": lambda v: str(v)
+    if str(v) in ("reject", "direct", "nfs")
+    else "direct",
+    "execution_backend": lambda v: str(v)
+    if str(v) in ("local", "remote")
+    else "local",
+    "remote_shard_gops": lambda v: min(4096, max(0, as_int(v, 0))),
+    "remote_plan_devices": lambda v: min(4096, max(0, as_int(v, 0))),
+    "remote_shard_timeout_s": lambda v: max(1.0, as_float(v, 120.0)),
+    "remote_retry_backoff_s": lambda v: max(0.0, as_float(v, 2.0)),
+    "remote_worker_max_failures": lambda v: max(1, as_int(v, 3)),
+    "remote_no_worker_grace_s": lambda v: max(0.1, as_float(v, 30.0)),
+    # floor: a non-positive poll would busy-spin idle workers against
+    # the coordinator's /work/claim
+    "remote_claim_poll_s": lambda v: max(0.05, as_float(v, 1.0)),
+    # 0 retries = fail fast (tests); cap bounds how long one upload
+    # can mask a genuinely dead coordinator from the failure path
+    "remote_http_retries": lambda v: min(20, max(0, as_int(v, 4))),
+    "remote_http_backoff_s": lambda v: min(30.0, max(
+        0.05, as_float(v, 0.5))),
+    "sfe_farm": lambda v: as_bool(v, True),
+    # floor: sub-second would flap on a single straggling device step;
+    # cap: a dead peer must fail into the lease machinery well inside
+    # a band shard's (per-GOP-scaled) lease budget
+    "halo_timeout_s": lambda v: min(600.0, max(1.0, as_float(v, 60.0))),
+    "live_farm_catchup": lambda v: as_bool(v, True),
+    "farm_min_workers": lambda v: min(4096, max(0, as_int(v, 0))),
+    "farm_max_workers": lambda v: min(4096, max(0, as_int(v, 0))),
+    # floor keeps a drain from force-requeueing leases the instant it
+    # starts; cap bounds how long a stuck drain can pin a host
+    "drain_grace_s": lambda v: min(3600.0, max(1.0, as_float(v, 30.0))),
+    # tenant labels sanitize through the one canonical cleaner
+    # (farm/tenancy.py) so the config tier, the filename parser and
+    # the scheduler all agree on the namespace; "" stays "" (= derive
+    # from the job name)
+    "tenant": lambda v: _clean_tenant_setting(v),
+    "tenant_shares": lambda v: _clean_tenant_shares(v),
+    "chaos_kill_interval_s": lambda v: min(
+        3600.0, max(0.0, as_float(v, 0.0))),
+    "chaos_partition_s": lambda v: min(
+        600.0, max(0.0, as_float(v, 0.0))),
+    "chaos_period_s": lambda v: min(
+        86400.0, max(1.0, as_float(v, 60.0))),
+}
+
+
+def _clean_tenant_setting(raw: Any) -> str:
+    from ..farm.tenancy import clean_tenant
+
+    text = str(raw or "").strip()
+    return clean_tenant(text) if text else ""
+
+
+def _clean_tenant_shares(raw: Any) -> str:
+    from ..farm.tenancy import render_tenant_shares
+
+    return render_tenant_shares(raw)
+
+
+def _validate_setting(key: str, raw: Any) -> Any:
+    """Clamp-or-coerce one setting value; shared by the live tier and the
+    per-job overlay so both validate identically."""
+    clamp = _CLAMPS.get(key)
+    return clamp(raw) if clamp else _coerce_like(DEFAULT_SETTINGS[key], raw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Settings:
+    """Immutable snapshot of merged settings at read time."""
+
+    values: Mapping[str, Any]
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self.values[name]
+        except KeyError as exc:  # pragma: no cover - programming error
+            raise AttributeError(name) from exc
+
+    def get(self, name: str, default: Any = None) -> Any:
+        return self.values.get(name, default)
+
+    def effective_max_active_jobs(self) -> int:
+        explicit = as_int(self.values.get("max_active_jobs"), 0)
+        if explicit > 0:
+            return explicit
+        return max(1, as_int(self.values.get("pipeline_worker_count"), 8) // 2)
+
+
+class _LiveStore:
+    """Runtime-tunable settings tier with a short TTL read cache."""
+
+    def __init__(self, ttl_s: float = 10.0) -> None:
+        self._lock = threading.Lock()
+        self._live: dict[str, Any] = {}
+        self._ttl_s = ttl_s
+        self._cached: Settings | None = None
+        self._cached_at = 0.0
+
+    def snapshot(self) -> Settings:
+        now = time.monotonic()
+        with self._lock:
+            if self._cached is not None and now - self._cached_at < self._ttl_s:
+                return self._cached
+            merged = dict(DEFAULT_SETTINGS)
+            for key, default in DEFAULT_SETTINGS.items():
+                env = os.environ.get(_ENV_PREFIX + key.upper())
+                if env is not None:
+                    merged[key] = _coerce_like(default, env)
+            merged.update(self._live)
+            snap = Settings(values=merged)
+            self._cached = snap
+            self._cached_at = now
+            return snap
+
+    def update(self, updates: Mapping[str, Any]) -> dict[str, Any]:
+        applied: dict[str, Any] = {}
+        with self._lock:
+            for key, raw in updates.items():
+                if key not in DEFAULT_SETTINGS:
+                    continue
+                value = _validate_setting(key, raw)
+                self._live[key] = value
+                applied[key] = value
+            self._cached = None
+        return applied
+
+    def drop_cache(self) -> None:
+        """Clear only the TTL read cache; live overrides survive (the
+        reference's invalidate_settings_cache semantics)."""
+        with self._lock:
+            self._cached = None
+
+    def reset(self) -> None:
+        """Wipe live overrides AND the cache — tests / cluster reset only."""
+        with self._lock:
+            self._cached = None
+            self._live.clear()
+
+
+_STORE = _LiveStore()
+
+
+def get_settings(refresh: bool = False) -> Settings:
+    if refresh:
+        _STORE.drop_cache()
+    return _STORE.snapshot()
+
+
+def update_live_settings(updates: Mapping[str, Any]) -> dict[str, Any]:
+    return _STORE.update(updates)
+
+
+def invalidate_settings_cache() -> None:
+    """Drop the read cache so the next read re-merges env + live tiers.
+
+    This does NOT wipe live overrides; use :func:`reset_live_settings`
+    for a full wipe.
+    """
+    _STORE.drop_cache()
+
+
+def reset_live_settings() -> None:
+    _STORE.reset()
+
+
+# Per-job settings tier: keys a job record may override (the job-hash
+# settings editable while the job is not RUNNING).
+JOB_SETTING_KEYS = frozenset(
+    {"gop_frames", "qp", "rc_mode", "target_bitrate_kbps",
+     "max_segments", "profile_dir", "ladder_rungs", "segment_s",
+     "live_stall_s", "dvr_window_s", "job_priority",
+     "live_part_budget_s", "sfe_bands", "sfe_halo_rows", "tenant",
+     # per-job RD operating point: a per-title encode may flip the
+     # compression-efficiency features without touching the cluster
+     "mode_decision", "pskip", "deblock", "aq_strength"}
+)
+
+
+def overlay_job_settings(base: Settings, overrides: Mapping[str, Any]) -> Settings:
+    """Apply a job's per-job overrides on top of a settings snapshot, with
+    the same clamping/coercion the live tier gets. Unknown keys ignored."""
+    merged = dict(base.values)
+    for key, raw in overrides.items():
+        if key not in JOB_SETTING_KEYS:
+            continue
+        merged[key] = _validate_setting(key, raw)
+    return Settings(values=merged)

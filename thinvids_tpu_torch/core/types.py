@@ -178,6 +178,14 @@ class Frame:
         return Frame(y, u, v, self.pts, self.frame_type)
 
 
+def is_yuv420(frame) -> bool:
+    """True when `frame` is 4:2:0. Compares the chroma format by NAME, so
+    a frame of another package's Frame class (whose ChromaFormat is a
+    different enum with the same members, e.g. the frames the reference
+    package's ingest yields) passes as well as the port's own."""
+    return frame.chroma.name == ChromaFormat.YUV420.name
+
+
 @dataclasses.dataclass(frozen=True)
 class GopSpec:
     """A closed GOP: the unit of parallel work (the analog of a

@@ -1,0 +1,247 @@
+"""Input decode: turn a media file into YUV frames for the encode mesh.
+
+A copy of the reference package's module. Decode is a STREAMING
+ingest stage: :func:`open_video` returns a :class:`FrameSource` that
+decodes on demand — raw .y4m frames seek in O(1) (fixed-size records,
+io/y4m.Y4MRangeReader), .mp4 (AVC) demuxes natively (io/mp4.demux_mp4)
+and decodes closed-GOP sample ranges through the bound libavcodec
+(tools/oracle) — so an encode never materializes a whole clip in host
+RAM, time-to-first-wave is one wave's decode, and a remote worker
+decodes only its shard's frame range. The source's audio track rides
+along for bit-exact passthrough into the transcoded output.
+
+:func:`read_video` (the old list-materializing API) survives for
+small-clip tools and tests; the executors stream through
+:func:`open_video`.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterator
+
+from ..core.types import Frame, VideoMeta
+from ..io.mp4 import Mp4Track
+
+
+class DecodeError(ValueError):
+    """File cannot be decoded into frames."""
+
+
+class FrameSource:
+    """Lazy, seekable frame access to one media file.
+
+    Duck-typed as a read-only sequence of :class:`Frame`: ``len(src)``,
+    iteration, integer indexing, and contiguous slicing (``src[a:b]``
+    is a lazy :class:`_FrameWindow` that decodes only ``[a, b)`` when
+    iterated) all work, so the encoder and executors are agnostic
+    between a materialized ``list[Frame]`` and a stream.
+
+    ``frames_decoded`` counts frames actually decoded (including any
+    mp4 keyframe lead-in) — the bounded-work instrumentation the
+    shard-range and residency tests assert on.
+    """
+
+    meta: VideoMeta
+    audio: Mp4Track | None = None
+
+    def __init__(self) -> None:
+        self.frames_decoded = 0
+
+    # -- subclass surface ----------------------------------------------
+
+    def iter_frames(self, start: int = 0,
+                    stop: int | None = None) -> Iterator[Frame]:
+        """Yield frames [start, stop) decoding only what the range
+        needs. Restartable: every call opens its own decode cursor."""
+        raise NotImplementedError
+
+    def close(self) -> None:
+        """Release any persistent resources (sources keep no open file
+        handles between iterations, so this is best-effort hygiene)."""
+
+    # -- sequence protocol ---------------------------------------------
+
+    def __len__(self) -> int:
+        return int(self.meta.num_frames)
+
+    def __iter__(self) -> Iterator[Frame]:
+        return self.iter_frames()
+
+    def read_range(self, start: int, count: int) -> list[Frame]:
+        return list(self.iter_frames(start, start + count))
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            if key.step not in (None, 1):
+                raise ValueError("FrameSource slices must be contiguous")
+            start, stop, _ = key.indices(len(self))
+            return _FrameWindow(self, start, stop)
+        idx = key if key >= 0 else len(self) + key
+        frames = self.read_range(idx, 1)
+        if not frames:
+            raise IndexError(key)
+        return frames[0]
+
+    def __enter__(self) -> "FrameSource":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class _FrameWindow:
+    """Contiguous lazy view into a FrameSource (``src[a:b]``): decodes
+    only its own range when iterated, so a remote worker's shard slice
+    is O(shard) work and memory instead of O(clip)."""
+
+    def __init__(self, source: FrameSource, start: int, stop: int) -> None:
+        self._source = source
+        self._start = start
+        self._stop = max(start, stop)
+
+    def __len__(self) -> int:
+        return self._stop - self._start
+
+    def iter_frames(self, start: int = 0,
+                    stop: int | None = None) -> Iterator[Frame]:
+        lo = self._start + max(0, start)
+        hi = self._stop if stop is None else min(self._stop,
+                                                 self._start + stop)
+        return self._source.iter_frames(lo, hi)
+
+    def __iter__(self) -> Iterator[Frame]:
+        return self.iter_frames()
+
+    def __getitem__(self, key):
+        if isinstance(key, slice):
+            if key.step not in (None, 1):
+                raise ValueError("FrameSource slices must be contiguous")
+            start, stop, _ = key.indices(len(self))
+            return _FrameWindow(self._source, self._start + start,
+                                self._start + stop)
+        idx = key if key >= 0 else len(self) + key
+        if not 0 <= idx < len(self):
+            raise IndexError(key)
+        return self._source[self._start + idx]
+
+
+class _Y4MFrameSource(FrameSource):
+    """Raw y4m: fixed-size frame records → O(1) byte seek per frame."""
+
+    def __init__(self, path: str) -> None:
+        super().__init__()
+        from ..io.y4m import Y4MRangeReader
+
+        self._reader = Y4MRangeReader(path)
+        self.meta = self._reader.meta
+        self.audio = None
+
+    def iter_frames(self, start: int = 0,
+                    stop: int | None = None) -> Iterator[Frame]:
+        stop = len(self) if stop is None else min(stop, len(self))
+        for frame in self._reader.read_range(max(0, start), stop):
+            self.frames_decoded += 1
+            yield frame
+
+
+class _Mp4FrameSource(FrameSource):
+    """AVC .mp4: the demuxed COMPRESSED samples stay in RAM; decode
+    happens per closed-GOP sample range through the bound libavcodec,
+    so resident decoded frames are bounded by one GOP + the consumer's
+    window rather than the whole clip, and a range read decodes only
+    from the nearest preceding sync sample (the keyframe lead-in)."""
+
+    def __init__(self, path: str) -> None:
+        super().__init__()
+        from ..io.mp4 import read_mp4
+        from ..tools import oracle
+
+        if not oracle.oracle_available():
+            raise DecodeError(
+                "mp4 input needs the libavcodec decoder, which is "
+                "unavailable in this environment")
+        self._oracle = oracle
+        m = read_mp4(path)
+        self._media = m
+        num, den = m.fps
+        self.meta = VideoMeta(
+            width=m.width, height=m.height, fps_num=num, fps_den=den,
+            num_frames=m.num_frames, codec="h264",
+            duration_s=m.duration_ts / max(1, m.timescale),
+            size_bytes=os.path.getsize(path))
+        self.audio = m.audio
+        self._keys = m.sync_samples()
+
+    def iter_frames(self, start: int = 0,
+                    stop: int | None = None) -> Iterator[Frame]:
+        import bisect
+
+        n = len(self)
+        stop = n if stop is None else min(stop, n)
+        w, h = self.meta.width, self.meta.height
+        pos = max(0, start)
+        while pos < stop:
+            ki = bisect.bisect_right(self._keys, pos) - 1
+            k = self._keys[ki]
+            k_next = self._keys[ki + 1] if ki + 1 < len(self._keys) else n
+            planes = self._oracle.decode_h264(
+                self._media.annexb_for(k, k_next))
+            self.frames_decoded += len(planes)
+            if len(planes) != k_next - k:
+                raise DecodeError(
+                    f"decoded {len(planes)} frames for sample range "
+                    f"[{k}, {k_next}), container says {k_next - k}")
+            for i in range(pos, min(stop, k_next)):
+                y, u, v = planes[i - k]
+                yield Frame(y=y[:h, :w], u=u[:h // 2, :w // 2],
+                            v=v[:h // 2, :w // 2], pts=i)
+            pos = k_next
+
+
+_SOURCES = {
+    ".y4m": _Y4MFrameSource,
+    ".mp4": _Mp4FrameSource,
+}
+
+
+def open_video(path: str | os.PathLike) -> FrameSource:
+    """Open a media file for streaming decode: parses the header /
+    demuxes the container but decodes NO frames yet.
+
+    Raises :class:`DecodeError` for unsupported extensions or
+    unreadable content. Supported extensions: `supported_exts()`.
+    """
+    path = os.fspath(path)
+    ext = os.path.splitext(path)[1].lower()
+    factory = _SOURCES.get(ext)
+    if factory is None:
+        raise DecodeError(f"unsupported media extension {ext!r}: {path}")
+    try:
+        return factory(path)
+    except DecodeError:
+        raise
+    except (OSError, ValueError, EOFError) as exc:
+        raise DecodeError(f"cannot decode {path}: {exc}") from exc
+
+
+def read_video(path: str | os.PathLike
+               ) -> tuple[VideoMeta, list[Frame], Mp4Track | None]:
+    """(meta, frames, audio_track_or_None), fully MATERIALIZED.
+
+    Kept for small-clip tools (stamping, import, tests); the executors
+    and worker daemons stream through :func:`open_video` instead so a
+    long clip never pins its decoded frames in RAM at once.
+    """
+    path = os.fspath(path)
+    with open_video(path) as src:
+        try:
+            return src.meta, src.read_range(0, len(src)), src.audio
+        except DecodeError:
+            raise
+        except (OSError, ValueError, EOFError) as exc:
+            raise DecodeError(f"cannot decode {path}: {exc}") from exc
+
+
+def supported_exts() -> tuple[str, ...]:
+    return tuple(_SOURCES)

@@ -1,1 +1,1 @@
-"""Bit-level IO and NAL framing."""
+"""Bit-level IO and NAL framing, y4m frame IO, and the MP4 mux/demux."""

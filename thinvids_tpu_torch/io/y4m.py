@@ -1,0 +1,265 @@
+"""YUV4MPEG2 (y4m) reader/writer.
+
+The uncompressed frame interchange format for the framework: ingest test
+clips, dump reconstructions for quality harnesses (a copy of the reference
+package's module).
+Supports C420 (jpeg/mpeg2/paldv tagged), C422, C444 and mono, 8-bit.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+from typing import BinaryIO, Iterator
+
+import numpy as np
+
+from ..core.types import ChromaFormat, Frame, VideoMeta
+
+_COLORSPACE_TO_CHROMA = {
+    "C420": ChromaFormat.YUV420,
+    "C420jpeg": ChromaFormat.YUV420,
+    "C420mpeg2": ChromaFormat.YUV420,
+    "C420paldv": ChromaFormat.YUV420,
+    "C422": ChromaFormat.YUV422,
+    "C444": ChromaFormat.YUV444,
+    "Cmono": ChromaFormat.YUV400,
+}
+
+_CHROMA_TO_COLORSPACE = {
+    ChromaFormat.YUV420: "C420jpeg",
+    ChromaFormat.YUV422: "C422",
+    ChromaFormat.YUV444: "C444",
+    ChromaFormat.YUV400: "Cmono",
+}
+
+
+class Y4MReader:
+    """Streaming y4m reader; iterate to get :class:`Frame` objects."""
+
+    def __init__(self, fp: BinaryIO) -> None:
+        self._fp = fp
+        header = self._read_line()
+        if not header.startswith("YUV4MPEG2"):
+            raise ValueError("not a YUV4MPEG2 stream")
+        self.width = 0
+        self.height = 0
+        self.fps_num, self.fps_den = 30, 1
+        self.chroma = ChromaFormat.YUV420
+        self.interlace = "p"
+        for token in header.split()[1:]:
+            tag, rest = token[0], token[1:]
+            if tag == "W":
+                self.width = int(rest)
+            elif tag == "H":
+                self.height = int(rest)
+            elif tag == "F":
+                num, den = rest.split(":")
+                self.fps_num, self.fps_den = int(num), int(den)
+            elif tag == "I":
+                self.interlace = rest
+            elif tag == "C":
+                try:
+                    self.chroma = _COLORSPACE_TO_CHROMA[token]
+                except KeyError:
+                    raise ValueError(f"unsupported colorspace {token!r}") from None
+        if self.width <= 0 or self.height <= 0:
+            raise ValueError("y4m header missing W/H")
+        if self.interlace not in ("p", "?"):
+            raise ValueError("interlaced y4m is not supported")
+
+    def _read_line(self) -> str:
+        raw = bytearray()
+        while True:
+            b = self._fp.read(1)
+            if not b:
+                raise EOFError("truncated y4m header")
+            if b == b"\n":
+                return raw.decode("ascii")
+            raw += b
+            if len(raw) > 512:
+                raise ValueError("y4m header line too long")
+
+    @property
+    def meta(self) -> VideoMeta:
+        return VideoMeta(
+            width=self.width,
+            height=self.height,
+            fps_num=self.fps_num,
+            fps_den=self.fps_den,
+            chroma=self.chroma,
+            codec="rawvideo",
+        )
+
+    def _plane_shapes(self) -> list[tuple[int, int]]:
+        shapes = [(self.height, self.width)]
+        if self.chroma.has_chroma:
+            hdiv, vdiv = self.chroma.subsampling
+            ch = (self.height + vdiv - 1) // vdiv
+            cw = (self.width + hdiv - 1) // hdiv
+            shapes += [(ch, cw), (ch, cw)]
+        return shapes
+
+    def __iter__(self) -> Iterator[Frame]:
+        idx = 0
+        while True:
+            try:
+                line = self._read_line()
+            except EOFError:
+                return
+            if not line.startswith("FRAME"):
+                raise ValueError(f"expected FRAME marker, got {line!r}")
+            planes = []
+            for h, w in self._plane_shapes():
+                data = self._fp.read(h * w)
+                if len(data) != h * w:
+                    raise EOFError("truncated y4m frame payload")
+                planes.append(np.frombuffer(data, np.uint8).reshape(h, w))
+            y = planes[0]
+            u, v = (planes[1], planes[2]) if len(planes) == 3 else (None, None)
+            yield Frame(y, u, v, pts=idx)
+            idx += 1
+
+
+class Y4MWriter:
+    """Streaming y4m writer."""
+
+    def __init__(self, fp: BinaryIO, meta: VideoMeta) -> None:
+        self._fp = fp
+        self._meta = meta
+        colorspace = _CHROMA_TO_COLORSPACE[meta.chroma]
+        fp.write(
+            f"YUV4MPEG2 W{meta.width} H{meta.height} "
+            f"F{meta.fps_num}:{meta.fps_den} Ip A1:1 {colorspace}\n".encode()
+        )
+
+    def write(self, frame: Frame) -> None:
+        if (frame.height, frame.width) != (self._meta.height, self._meta.width):
+            raise ValueError("frame size does not match stream header")
+        self._fp.write(b"FRAME\n")
+        self._fp.write(np.ascontiguousarray(frame.y).tobytes())
+        if frame.u is not None:
+            self._fp.write(np.ascontiguousarray(frame.u).tobytes())
+            self._fp.write(np.ascontiguousarray(frame.v).tobytes())
+
+
+class Y4MRangeReader:
+    """O(1) frame-range access to a .y4m file on disk.
+
+    8-bit y4m frames are fixed-size records (a bare ``FRAME\\n`` marker
+    + a constant plane payload), so frame ``i`` lives at a computable
+    byte offset — the property the streaming ingest pipeline
+    (ingest/decode.py) uses to hand a remote worker ONLY its shard's
+    frame range and to restart iteration per encode pass without
+    re-reading the prefix. Frame-header parameters (``FRAME Ixyz``)
+    would break the arithmetic; they are detected and rejected on read
+    (probe_video already assumes their absence, ingest/probe.py).
+    """
+
+    _MARKER = b"FRAME\n"
+
+    def __init__(self, path: str | os.PathLike) -> None:
+        self.path = os.fspath(path)
+        self._size = os.path.getsize(self.path)
+        with open(self.path, "rb") as fp:
+            header = Y4MReader(fp)
+            self._data_start = fp.tell()
+        self._header = header               # header facts; its fp is closed
+        self._shapes = header._plane_shapes()
+        payload = sum(h * w for h, w in self._shapes)
+        self._record = len(self._MARKER) + payload
+        self.num_frames = max(0, (self._size - self._data_start)
+                              // self._record)
+        # Fail at OPEN time for parameterized frame markers: the
+        # fixed-record arithmetic (shared with probe_video) is wrong
+        # for them, and surfacing that here beats a mid-encode
+        # ValueError after partial work. Mixed files that go bad later
+        # are still caught by the per-frame marker check in
+        # read_range.
+        if self.num_frames > 0:
+            with open(self.path, "rb") as fp:
+                fp.seek(self._data_start)
+                first = fp.read(len(self._MARKER))
+            if first != self._MARKER:
+                raise ValueError(
+                    f"{self.path}: first frame marker {first!r} is not "
+                    f"a bare FRAME record — parameterized y4m frame "
+                    f"headers are unsupported by the streaming reader "
+                    f"(probe_video makes the same assumption)")
+
+    @property
+    def meta(self) -> VideoMeta:
+        h = self._header
+        return VideoMeta(
+            width=h.width, height=h.height,
+            fps_num=h.fps_num, fps_den=h.fps_den,
+            num_frames=self.num_frames, chroma=h.chroma,
+            codec="rawvideo",
+            duration_s=self.num_frames / h.meta.fps if h.meta.fps else 0.0,
+            size_bytes=self._size,
+        )
+
+    def read_range(self, start: int, stop: int) -> Iterator[Frame]:
+        """Yield frames [start, stop) straight from their byte offsets.
+        Each call opens its own file handle, so concurrent iterations
+        (an encode pass overlapping an analysis pass) never share a
+        cursor."""
+        start = max(0, start)
+        stop = min(self.num_frames, stop)
+        if stop <= start:
+            return
+        with open(self.path, "rb") as fp:
+            fp.seek(self._data_start + start * self._record)
+            for idx in range(start, stop):
+                marker = fp.read(len(self._MARKER))
+                if marker != self._MARKER:
+                    raise ValueError(
+                        f"{self.path}: frame {idx} marker {marker!r} is "
+                        f"not a bare FRAME record (parameterized y4m "
+                        f"frame headers are unsupported for range reads)")
+                planes = []
+                for h, w in self._shapes:
+                    data = fp.read(h * w)
+                    if len(data) != h * w:
+                        raise EOFError("truncated y4m frame payload")
+                    planes.append(np.frombuffer(data, np.uint8).reshape(h, w))
+                y = planes[0]
+                u, v = ((planes[1], planes[2]) if len(planes) == 3
+                        else (None, None))
+                yield Frame(y, u, v, pts=idx)
+
+
+def read_y4m(path: str | os.PathLike) -> tuple[VideoMeta, list[Frame]]:
+    with open(path, "rb") as fp:
+        reader = Y4MReader(fp)
+        frames = list(reader)
+    meta = reader.meta
+    return (
+        VideoMeta(
+            width=meta.width,
+            height=meta.height,
+            fps_num=meta.fps_num,
+            fps_den=meta.fps_den,
+            num_frames=len(frames),
+            chroma=meta.chroma,
+            codec="rawvideo",
+            duration_s=len(frames) / meta.fps if meta.fps else 0.0,
+            size_bytes=os.path.getsize(path),
+        ),
+        frames,
+    )
+
+
+def write_y4m(path: str | os.PathLike, meta: VideoMeta, frames: list[Frame]) -> None:
+    with open(path, "wb") as fp:
+        writer = Y4MWriter(fp, meta)
+        for frame in frames:
+            writer.write(frame)
+
+
+def frames_to_bytes(meta: VideoMeta, frames: list[Frame]) -> bytes:
+    buf = io.BytesIO()
+    writer = Y4MWriter(buf, meta)
+    for frame in frames:
+        writer.write(frame)
+    return buf.getvalue()

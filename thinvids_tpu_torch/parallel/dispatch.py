@@ -1,5 +1,5 @@
 """GOP wave dispatch on one device: closed GOPs encoded in waves, levels
-fetched compactly, slices entropy-packed on a host thread pool.
+fetched compactly, slices entropy-packed on the host.
 
 A wave of GOPs is staged (frames stacked into (G, F, H, W) arrays and
 uploaded), dispatched (each GOP's IDR + P compute and device-side
@@ -8,6 +8,17 @@ sparse pack folded into one byte payload), and collected on a collector
 thread: the tiny counts first, then only the used prefix of the payload,
 then unpack + unflatten + CAVLC pack of every slice on the pack pool.
 Encoded segments concat in GOP index order.
+
+The reference's other forms of the same encoder are here too, each
+bit-identical to it: the all-intra wave (``inter=False``: every frame an
+IDR, per-frame element-granular sparse transfer, torchcore._sparse_pack);
+the three-array sparse2 transfer (``compact_transfer=False``); and
+``pack_backend=process``, shared-memory pack sidecars (packproc.py) that
+unpack + pack whole GOPs outside this process's GIL, degrading to an
+inline pack of the same spool if the pool breaks. Every knob resolves
+from the settings snapshot (core/config) in the reference's order, and
+:func:`make_shard_encoder` is the settings-driven seam a job executor
+calls (``encoder_factory``).
 
 Host side, the pipeline is instrumented per stage (StageProfile): every
 wave's source decode / staging (stack + H2D upload) / dispatch / device
@@ -24,6 +35,8 @@ thread up to `decode_ahead` waves ahead of dispatch.
 from __future__ import annotations
 
 import contextlib
+import functools
+import logging
 import os
 import threading
 import time
@@ -32,23 +45,26 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..core.config import as_bool, get_settings
 from ..core.devices import resolve_device
-from ..core.types import (ChromaFormat, EncodedSegment, Frame, GopSpec,
-                          SegmentPlan, VideoMeta)
+from ..core.types import (EncodedSegment, Frame, GopSpec, SegmentPlan,
+                          VideoMeta, is_yuv420)
 from ..codecs.h264 import torchcore, torchinter
-from ..codecs.h264.encoder import gop_slice_thunks_planes
+from ..codecs.h264.encoder import gop_slice_thunks_planes, pack_slice
 from ..codecs.h264.headers import PPS, SPS
 from ..codecs.h264.layout import _INTRA_FLAT_MB as _INTRA_MB
 from ..codecs.h264.layout import (_P_FLAT_MB, unflatten_gop,
                                   unflatten_gop_parts, unpack_compact_auto)
-from ..codecs.h264.rdo import RD_OFF
+from ..codecs.h264.rdo import rd_from_settings, require_rd_off
 from .planner import plan_segments
+
+_LOG = logging.getLogger(__name__)
 
 
 # ---- host-stage wall-clock instrumentation --------------------------------
 
 #: canonical stage keys, in pipeline order (the reference's names; the
-#: stages this single-device GOP path never enters stay at 0)
+#: stages this single-device encoder never enters stay at 0)
 STAGE_NAMES = ("decode", "stage", "scale", "dispatch", "device_wait",
                "fetch", "dense_retry", "sparse_unpack", "unflatten",
                "pack", "concat", "sfe", "halo")
@@ -142,7 +158,9 @@ class _FrameCursor:
                     raise ValueError(
                         f"frame stream ended at {self._hi}, but the "
                         f"wave plan needs frame {i}") from None
-            if self._require_420 and f.chroma is not ChromaFormat.YUV420:
+            # by value: frames from another package's ingest carry its
+            # own ChromaFormat enum
+            if self._require_420 and not is_yuv420(f):
                 raise ValueError(
                     f"GopShardEncoder supports only 4:2:0 input, got "
                     f"{f.chroma.name}; convert before encoding")
@@ -217,16 +235,35 @@ def background_stage(staged_waves, decode_ahead: int = 2):
     return drain()
 
 
-def _per_gop_sparse(y, u, v, qp: int, mbw: int, mbh: int):
-    """(F, H, W) GOP → (mv int8, dense intra-DC segments, nblk, nval,
-    n_esc, used, payload): the compact transfer.
+def _sparse_unpack2_host(nblk: int, nval: int, bitmap, bmask16, vals,
+                         L: int) -> np.ndarray:
+    """Two-tier sparse unpack: native scatter when a compiler exists,
+    layout's numpy version otherwise (identical output)."""
+    from .. import native as native_mod
+    from ..codecs.h264.layout import block_sparse_unpack2_host
+
+    if native_mod.available():
+        return native_mod.block_sparse_unpack2(nblk, nval, bitmap,
+                                               bmask16, vals, L)
+    return block_sparse_unpack2_host(nblk, nval, bitmap, bmask16, vals, L)
+
+
+def _per_gop_sparse(y, u, v, qp: int, mbw: int, mbh: int,
+                    compact: bool = True):
+    """(F, H, W) GOP → (mv int8, dense intra-DC segments, two-tier
+    sparse levels for the rest).
 
     BOTH intra hadamard DC segments — luma DC (nmb * 16) and chroma DC
     (nmb * 8) — ship DENSE: hadamard DC levels are the only ones that
     exceed int8 at practical QPs, and the sparse pack has no escape
     side-channel — an escape anywhere forces the wave-wide dense
-    fallback. The rest folds into one contiguous byte payload
-    (torchcore._compact_stream)."""
+    fallback.
+
+    With `compact` (the default transfer) the rest folds into one
+    contiguous byte payload (torchcore._compact_stream): (mv8, dense,
+    nblk, nval, n_esc, used, payload). Without it the three sparse
+    streams ship as they are: (mv8, dense, nblk, nval, n_esc, bitmap,
+    bmask16, vals)."""
     mv8, flat = torchinter.encode_gop_planes(y, u, v, qp, mbw=mbw, mbh=mbh)
     nmb = mbw * mbh
     ndc, nlac, ncdc = nmb * 16, nmb * 240, nmb * 8
@@ -234,6 +271,8 @@ def _per_gop_sparse(y, u, v, qp: int, mbw: int, mbh: int):
     rest = torch.cat([flat[ndc:ndc + nlac], flat[ndc + nlac + ncdc:]])
     nblk, nval, n_esc, bitmap, bmask16, vals = \
         torchcore._block_sparse_pack2(rest)
+    if not compact:
+        return (mv8, dense, nblk, nval, n_esc, bitmap, bmask16, vals)
     used, payload = torchcore._compact_stream(nblk, nval, bitmap, bmask16,
                                               vals)
     return (mv8, dense, nblk, nval, n_esc, used, payload)
@@ -244,11 +283,13 @@ def _per_gop_dense(y, u, v, qp: int, mbw: int, mbh: int):
     return flat
 
 
-def _encode_gop_single(ys, us, vs, qps, *, mbw: int, mbh: int):
+def _encode_gop_single(ys, us, vs, qps, *, mbw: int, mbh: int,
+                       compact: bool = True):
     """One wave on one device: ys (G, F, H, W) uint8, qps (G,) host
-    ints. Each GOP runs the per-GOP program in turn; the 7 outputs
-    stack over G."""
-    outs = [_per_gop_sparse(ys[g], us[g], vs[g], int(qps[g]), mbw, mbh)
+    ints. Each GOP runs the per-GOP program in turn; the 7 (compact) or
+    8 outputs stack over G."""
+    outs = [_per_gop_sparse(ys[g], us[g], vs[g], int(qps[g]), mbw, mbh,
+                            compact=compact)
             for g in range(ys.shape[0])]
     return tuple(torch.stack(parts) for parts in zip(*outs))
 
@@ -260,40 +301,94 @@ def _encode_gop_single_dense(ys, us, vs, qps, *, mbw: int, mbh: int):
                         for g in range(ys.shape[0])])
 
 
+def _encode_wave(ys, us, vs, qps, *, mbw: int, mbh: int):
+    """All-intra wave: ys (G, F, H, W) uint8, qps (G,) host ints, the
+    per-GOP QP (the rate-control hook). Every frame is coded intra at
+    its GOP's QP and sparse-packed on its own (torchcore._sparse_pack:
+    ~10x fewer device→host bytes than raw int32); the 6 outputs come
+    back with leading (G, F) dims, and the host checks the nnz/escape
+    counts for the rare dense fallback."""
+    outs = []
+    for g in range(ys.shape[0]):
+        frames = [torchcore._sparse_pack(torchcore._flat_levels(
+            ys[g, f], us[g, f], vs[g, f], int(qps[g]), mbw, mbh))
+            for f in range(ys.shape[1])]
+        outs.append(tuple(torch.stack(parts) for parts in zip(*frames)))
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _encode_wave_dense(ys, us, vs, qps, *, mbw: int, mbh: int):
+    """Dense fallback of the all-intra wave: (G, F, L) int16 levels (int16
+    covers the full CAVLC level range), at the same per-GOP QPs."""
+    return torch.stack([
+        torch.stack([torchcore._flat_levels(ys[g, f], us[g, f], vs[g, f],
+                                            int(qps[g]), mbw, mbh)
+                     for f in range(ys.shape[1])])
+        for g in range(ys.shape[0])]).to(torch.int16)
+
+
 def _to_host(t) -> np.ndarray:
     return t.cpu().numpy()
 
 
 class GopShardEncoder:
-    """Encode a clip as closed GOPs (IDR + P) on one device, in waves."""
+    """Encode a clip as closed GOPs (IDR + P, or all-intra) on one
+    device, in waves."""
 
     def __init__(self, meta: VideoMeta, qp: int = 27, gop_frames: int = 32,
-                 max_segments: int = 200, gops_per_wave: int = 4,
+                 max_segments: int = 200, inter: bool = True,
+                 gops_per_wave: int = 4,
                  pack_workers: int | None = None,
                  pipeline_window: int | None = None,
                  decode_ahead: int | None = None,
+                 compact_transfer: bool | None = None,
+                 pack_backend: str | None = None,
                  device="cuda"):
         self.device = resolve_device(device)
         self.meta = meta
         self.qp = qp
+        #: inter=True encodes each GOP as IDR + P frames (motion-coded);
+        #: False keeps the all-intra path (every frame IDR).
+        self.inter = inter
         self.gop_frames = gop_frames
         self.max_segments = max_segments
         #: GOPs encoded per wave — batches dispatch + transfer so
-        #: per-call host<->device latency amortizes
+        #: per-call host<->device latency amortizes. Inter path only.
         self.gops_per_wave = max(1, int(gops_per_wave))
         self.sps = SPS(width=meta.width, height=meta.height,
                        fps_num=meta.fps_num, fps_den=meta.fps_den)
         self.pps = PPS(init_qp=qp)
-        self.rd = RD_OFF
-        #: slice-granular CAVLC pack threads (None = all cores)
-        self.pack_workers = int(pack_workers or 0) or (os.cpu_count() or 2)
+        snap = get_settings()
+        #: static RD feature set, resolved from settings (the
+        #: mode_decision/pskip/deblock/aq_strength knobs); the features
+        #: are not ported yet, so anything but RD_OFF is refused
+        self.rd = rd_from_settings(snap)
+        require_rd_off(self.rd)
+        #: slice-granular CAVLC pack threads (0/None in config = all
+        #: cores). Decoupled from the wave window: the pack pool sizes
+        #: to the HOST (cpu count), the window to device queue depth.
+        if pack_workers is None:
+            pack_workers = int(snap.get("pack_workers", 0) or 0)
+        self.pack_workers = int(pack_workers) or (os.cpu_count() or 2)
         #: in-flight wave window: staged inputs + outputs of this many
         #: waves stay alive at once (device queue x transfer overlap)
-        self.pipeline_window = int(pipeline_window or 0) \
-            or self.PIPELINE_WINDOW
+        if pipeline_window is None:
+            pipeline_window = int(snap.get("pipeline_window", 0) or 0)
+        self.pipeline_window = int(pipeline_window) or self.PIPELINE_WINDOW
         #: staged waves decoded + uploaded ahead of dispatch by the
-        #: background staging thread (encode() / background_stage)
-        self.decode_ahead = int(decode_ahead or 0) or self.DECODE_AHEAD
+        #: background staging thread (encode() / background_stage); adds
+        #: to input device residency on top of the in-flight window
+        if decode_ahead is None:
+            decode_ahead = int(snap.get("decode_ahead", 0) or 0)
+        self.decode_ahead = int(decode_ahead) or self.DECODE_AHEAD
+        #: device-side stream compaction (torchcore._compact_stream): the
+        #: sparse GOP streams fold into one byte payload on device and
+        #: the host fetches only the used prefix. Default on; off keeps
+        #: the three-array sparse2 transfer (bit-identical either way).
+        if compact_transfer is None:
+            compact_transfer = as_bool(snap.get("compact_transfer", True),
+                                       True)
+        self.compact_transfer = bool(compact_transfer)
         #: per-stage host wall-clock
         self.stages = StageProfile()
         #: streaming-ingest instrumentation: peak decoded frames the
@@ -301,16 +396,43 @@ class GopShardEncoder:
         self.staging_stats: dict = {"peak_resident_frames": 0}
         #: eager so concurrent collect_wave threads never race a lazy init
         self._pack_pool = self._new_pack_pool()
+        #: entropy-pack execution backend: "thread" (slice thunks on
+        #: the pack pool) or "process" (GOP-granular shared-memory
+        #: sidecars, packproc.py — unpack+pack outside this process's
+        #: GIL). Process packing rides the compact payload; waves that
+        #: fall off it (dense fallback, compact_transfer off, intra
+        #: path) pack on threads as before.
+        if pack_backend is None:
+            pack_backend = str(snap.get("pack_backend", "thread")
+                               or "thread")
+        self.pack_backend = str(pack_backend)
+        #: guards _proc_pool: collect_wave runs on one collector thread
+        #: per in-flight wave, and any of them may retire a broken
+        #: sidecar pool (_disable_proc_pool) while the others read it
+        self._proc_lock = threading.Lock()
+        self._proc_pool = self._new_proc_pool()
         #: Optional per-GOP QP overrides (rate control): gop index → qp.
         #: GOPs absent from the map encode at the base `qp`; slice
         #: headers carry the delta vs PPS init_qp.
         self.gop_qp: dict[int, int] = {}
+        #: Elastic-replan continuation: when encoding a clip SUFFIX,
+        #: emitted GopSpecs shift by these so indices / frame ranges
+        #: (and idr_pic_id) stay globally consistent with the segments
+        #: already completed (the executor's wave loop sets them).
+        self.gop_index_offset = 0
+        self.frame_offset = 0
+        #: Externally supplied plan (remote shards): the EXACT
+        #: shard-local GOP boundaries to encode, bypassing the local
+        #: planner.
+        self.plan_override: SegmentPlan | None = None
 
     @property
     def num_devices(self) -> int:
         return 1
 
     def plan(self, num_frames: int) -> SegmentPlan:
+        if self.plan_override is not None:
+            return self.plan_override
         return plan_segments(num_frames, self.gop_frames, self.num_devices,
                              self.max_segments)
 
@@ -354,7 +476,7 @@ class GopShardEncoder:
         cursor = _FrameCursor(frames, self.stages, require_420=True,
                               stats=self.staging_stats)
         gops = list(plan.gops)
-        per_wave = self.gops_per_wave
+        per_wave = self.gops_per_wave if self.inter else 1
         for wave_start in range(0, len(gops), per_wave):
             wave = gops[wave_start:wave_start + per_wave]
             F = max(g.num_frames for g in wave)
@@ -386,7 +508,12 @@ class GopShardEncoder:
             wave, ysd, usd, vsd, qps = staged
             ph, pw = ysd.shape[2], ysd.shape[3]
             mbh, mbw = ph // 16, pw // 16
-            out = _encode_gop_single(ysd, usd, vsd, qps, mbw=mbw, mbh=mbh)
+            if self.inter:
+                out = _encode_gop_single(ysd, usd, vsd, qps, mbw=mbw,
+                                         mbh=mbh,
+                                         compact=self.compact_transfer)
+            else:
+                out = _encode_wave(ysd, usd, vsd, qps, mbw=mbw, mbh=mbh)
             done = None
             if self.device.type == "cuda":
                 done = torch.cuda.Event()
@@ -406,6 +533,36 @@ class GopShardEncoder:
                                      thread_name_prefix="tvt-pack")
         weakref.finalize(self, pool.shutdown, False)
         return pool
+
+    def _new_proc_pool(self):
+        """GOP-granular pack sidecar processes (pack_backend=process),
+        or None for the threaded backend. Spawn context: children
+        import packproc fresh and must never inherit (or initialize) a
+        CUDA context. Falls back to threads with a warning when the
+        platform can't spawn a pool."""
+        if self.pack_backend != "process" or not self.inter:
+            return None
+        import concurrent.futures as cf
+        import multiprocessing as mp
+        import weakref
+
+        try:
+            pool = cf.ProcessPoolExecutor(
+                max(1, min(self.pack_workers, 8)),
+                mp_context=mp.get_context("spawn"))
+        except Exception as exc:    # noqa: BLE001 - degrade, don't die
+            _LOG.warning("pack_backend=process unavailable (%s: %s); "
+                         "falling back to threaded pack",
+                         type(exc).__name__, exc)
+            return None
+        weakref.finalize(self, pool.shutdown, False)
+        return pool
+
+    def _fetch_bulk(self, arrays) -> list[np.ndarray]:
+        """Device→host fetch of whole arrays (one device: plain copies)."""
+        host = [_to_host(a) for a in arrays]
+        self.stages.bump("d2h_bytes", sum(int(a.nbytes) for a in host))
+        return host
 
     #: payload fetch slice quantum cap (bytes): used prefixes round up
     #: to a quantum of max(256, min(this, PB // 8)) so the fetched
@@ -429,15 +586,95 @@ class GopShardEncoder:
         self.stages.bump("d2h_bytes", int(host.nbytes))
         return list(host)
 
+    @staticmethod
+    def _release_spool(shm, spools: list) -> None:
+        if shm in spools:
+            spools.remove(shm)
+        shm.close()
+        try:
+            shm.unlink()
+        except FileNotFoundError:       # pragma: no cover
+            pass
+
+    def _disable_proc_pool(self, exc: BaseException) -> None:
+        """Runtime degrade: a broken sidecar pool (spawn refused, child
+        OOM-killed) must not fail the encode — retire the pool and pack
+        the rest of the job on threads. Swap-under-lock: several
+        collector threads can hit the broken pool in the same wave
+        window, and exactly ONE of them must log the retirement."""
+        with self._proc_lock:
+            pool, self._proc_pool = self._proc_pool, None
+        if pool is not None:
+            _LOG.warning(
+                "pack sidecar pool broke (%s: %s); packing on threads "
+                "from here on", type(exc).__name__, exc)
+
+    def _submit_process_pack(self, proc, mv8_g, dc16_g, payload_row,
+                             nblk: int, nval: int, used: int,
+                             gop: GopSpec, F: int, mbw: int, mbh: int,
+                             gop_qp: int, spools: list):
+        """Spool one GOP's compact transfer parts ([mv8 | dense DC |
+        payload]) into a shared-memory block and submit its
+        unpack+unflatten+pack to the sidecar pool (packproc). Returns a
+        callable yielding the slice payloads; it releases the spool
+        after the result lands (`spools` lets collect_wave release
+        blocks whose gather was never reached when a wave fails
+        mid-flight). A BROKEN pool degrades instead of failing the
+        wave: the same spool bytes pack in-process via packproc (a host
+        pack of the same bytes, counted in proc_pack_gops and logged)."""
+        import dataclasses as _dc
+        from concurrent.futures.process import BrokenProcessPool
+        from multiprocessing import shared_memory
+
+        from . import packproc
+
+        mv = np.ascontiguousarray(mv8_g).view(np.uint8).reshape(-1)
+        dn = np.ascontiguousarray(dc16_g).view(np.uint8).reshape(-1)
+        pl = np.ascontiguousarray(payload_row[:used])
+        total = mv.nbytes + dn.nbytes + pl.nbytes
+        shm = shared_memory.SharedMemory(create=True, size=max(1, total))
+        spools.append(shm)
+        buf = np.frombuffer(shm.buf, np.uint8)
+        buf[:mv.nbytes] = mv
+        buf[mv.nbytes:mv.nbytes + dn.nbytes] = dn
+        buf[mv.nbytes + dn.nbytes:total] = pl
+        del buf     # shm.close() refuses while exported views exist
+        args = (shm.name, mv.nbytes, dn.nbytes, pl.nbytes, nblk, nval,
+                gop.num_frames, F, mbw, mbh, _dc.asdict(self.sps),
+                _dc.asdict(self.pps), gop_qp, gop.index,
+                _dc.asdict(self.rd))
+        try:
+            fut = proc.submit(packproc.pack_gop_from_shm, *args)
+        except Exception:
+            self._release_spool(shm, spools)
+            raise
+        self.stages.bump("proc_pack_gops")
+
+        def gather() -> list[bytes]:
+            try:
+                return fut.result()
+            except BrokenProcessPool as exc:
+                self._disable_proc_pool(exc)
+                # the spool holds everything the child would have read
+                return packproc.pack_gop_from_shm(*args)
+            finally:
+                self._release_spool(shm, spools)
+
+        return gather
+
     def collect_wave(self, pending: tuple) -> list[EncodedSegment]:
-        """Fetch one dispatched wave's levels (compact, with the dense
-        fallback) and entropy-pack its GOPs on the host, fanning the
-        pack across the slice pool."""
+        """Fetch one dispatched wave's levels (compact or sparse, with
+        the dense fallback) and entropy-pack its GOPs on the host,
+        fanning the pack across the slice pool — or, with
+        pack_backend=process, handing whole GOPs to the shared-memory
+        sidecars."""
         wave, ysd, usd, vsd, qps, mbw, mbh, out, done = pending
         prof = self.stages
         F = ysd.shape[1]
         nmb = mbw * mbh
-        L = nmb * _INTRA_MB + (F - 1) * nmb * _P_FLAT_MB
+        L = (nmb * _INTRA_MB + (F - 1) * nmb * _P_FLAT_MB
+             if self.inter else nmb * _INTRA_MB)
+        compact = self.inter and self.compact_transfer
         # Barrier on the tiny count outputs first: they complete when
         # the wave's compute does, splitting "waiting on the device"
         # from the bulk D2H fetch in the stage breakdown — and letting
@@ -445,77 +682,158 @@ class GopShardEncoder:
         with prof.stage("device_wait"):
             if done is not None:
                 done.synchronize()
-            tiny = [_to_host(t) for t in out[2:6]]
+            if self.inter:
+                tiny = [_to_host(t) for t in (out[2:6] if compact
+                                              else out[2:5])]
+            else:
+                tiny = [_to_host(out[0]), _to_host(out[1])]
         prof.bump("d2h_bytes", sum(int(a.nbytes) for a in tiny))
-        nblk, nval, n_esc, used = tiny
-        # dense prefix = both intra hadamard DC segments (luma +
-        # chroma); the sparse remainder skips them (_per_gop_sparse)
-        ndc, ncdc = nmb * 16, nmb * 8
-        Lr = L - ndc - ncdc
-        sparse_ok = torchcore.block_sparse2_fits(
-            nblk.max(), nval.max(), n_esc.max(), Lr)
-        flat = payload_rows = None
-        if sparse_ok:
-            with prof.stage("fetch"):
-                mv8, dc16 = _to_host(out[0]), _to_host(out[1])
-                prof.bump("d2h_bytes", mv8.nbytes + dc16.nbytes)
-                payload_rows = self._fetch_payload_rows(out[6], used)
+        flat = None
+        used = payload_rows = None
+        if self.inter:
+            nblk, nval, n_esc = tiny[0], tiny[1], tiny[2]
+            # dense prefix = both intra hadamard DC segments (luma +
+            # chroma); the sparse remainder skips them (_per_gop_sparse)
+            ndc, ncdc = nmb * 16, nmb * 8
+            Lr = L - ndc - ncdc
+            sparse_ok = torchcore.block_sparse2_fits(
+                nblk.max(), nval.max(), n_esc.max(), Lr)
+            if sparse_ok:
+                with prof.stage("fetch"):
+                    if compact:
+                        used = tiny[3]
+                        mv8, dc16 = self._fetch_bulk(out[0:2])
+                        payload_rows = self._fetch_payload_rows(out[6],
+                                                                used)
+                    else:
+                        mv8, dc16, bitmap, bmask16, vals = \
+                            self._fetch_bulk(
+                                (out[0], out[1], out[5], out[6], out[7]))
         else:
+            nnz, n_esc = tiny
+            sparse_ok = torchcore.sparse_fits(nnz.max(), n_esc.max(), L)
+            if sparse_ok:
+                with prof.stage("fetch"):
+                    bitmap, vals, esc_pos, esc_val = \
+                        self._fetch_bulk(out[2:6])
+        if not sparse_ok:
             # Rare wave-wide dense retry: re-encode + wide int16 fetch.
             # Its own stage (not "fetch") so the fetch number answers
             # only "what does the common bulk transfer cost", plus a
             # counter so overflow-prone content is visible.
             prof.bump("dense_fallback_waves")
             with prof.stage("dense_retry"):
-                flat = _to_host(_encode_gop_single_dense(
-                    ysd, usd, vsd, qps, mbw=mbw, mbh=mbh))
+                if self.inter:
+                    flat = _to_host(_encode_gop_single_dense(
+                        ysd, usd, vsd, qps, mbw=mbw, mbh=mbh))
+                else:
+                    flat = _to_host(_encode_wave_dense(
+                        ysd, usd, vsd, qps, mbw=mbw, mbh=mbh))
                 prof.bump("d2h_bytes", int(flat.nbytes))
-                # the dense program re-emits levels only; MVs still
-                # come from the already-computed sparse outputs
-                mv8 = _to_host(out[0])
+                if self.inter:
+                    # the dense program re-emits levels only; MVs still
+                    # come from the already-computed sparse outputs
+                    (mv8,) = self._fetch_bulk(out[0:1])
         # Header QP must match what the device QUANTIZED with — read it
         # from the staged per-wave array, not the live gop_qp dict (a
         # caller mutating gop_qp between passes must not desync slices
         # already in flight).
+        if self.gop_index_offset or self.frame_offset:
+            import dataclasses as _dc
+
+            wave = [_dc.replace(g, index=g.index + self.gop_index_offset,
+                                start_frame=(g.start_frame
+                                             + self.frame_offset))
+                    for g in wave]
         # Phase 1: unpack levels and SUBMIT every GOP's pack work — the
-        # slice pool packs the whole wave's slices concurrently; phase 2
-        # gathers in GOP order.
+        # slice pool packs the whole wave's slices concurrently (or the
+        # process sidecars take whole GOPs); phase 2 gathers in GOP
+        # order.
         pool = self._pack_pool
+        with self._proc_lock:
+            proc = self._proc_pool if (compact and sparse_ok) else None
+        #: live shared-memory spools of this wave's process-pack jobs —
+        #: released by each gather(), and swept below if the wave dies
+        #: before every gather ran (a leaked block outlives the process)
+        spools: list = []
         jobs: list[tuple] = []
         for gi, gop in enumerate(wave):
             gop_qp = int(qps[gi])
-            if sparse_ok:
-                with prof.stage("sparse_unpack"):
-                    rest = unpack_compact_auto(
-                        payload_rows[gi][:int(used[gi])], int(nblk[gi]),
-                        int(nval[gi]), Lr)
-                with prof.stage("unflatten"):
-                    intra, planes = unflatten_gop_parts(
-                        dc16[gi], rest, mv8[gi], F, mbw, mbh)
+            if self.inter:
+                if proc is not None:
+                    jobs.append((gop, self._submit_process_pack(
+                        proc, mv8[gi], dc16[gi], payload_rows[gi],
+                        int(nblk[gi]), int(nval[gi]), int(used[gi]),
+                        gop, F, mbw, mbh, gop_qp, spools)))
+                    continue
+                if sparse_ok:
+                    with prof.stage("sparse_unpack"):
+                        if compact:
+                            rest = unpack_compact_auto(
+                                payload_rows[gi][:int(used[gi])],
+                                int(nblk[gi]), int(nval[gi]), Lr)
+                        else:
+                            rest = _sparse_unpack2_host(
+                                int(nblk[gi]), int(nval[gi]), bitmap[gi],
+                                bmask16[gi], vals[gi], Lr)
+                    with prof.stage("unflatten"):
+                        intra, planes = unflatten_gop_parts(
+                            dc16[gi], rest, mv8[gi], F, mbw, mbh)
+                else:
+                    with prof.stage("unflatten"):
+                        intra, planes = unflatten_gop(flat[gi], mv8[gi], F,
+                                                      mbw, mbh)
+                # gop.num_frames (not F) drops the wave's tail-repeat
+                # padding
+                thunks = gop_slice_thunks_planes(
+                    intra, planes, gop.num_frames, mbw, mbh, self.sps,
+                    self.pps, gop_qp, idr_pic_id=gop.index, rd=self.rd)
             else:
-                with prof.stage("unflatten"):
-                    intra, planes = unflatten_gop(flat[gi], mv8[gi], F,
-                                                  mbw, mbh)
-            # gop.num_frames (not F) drops the wave's tail-repeat padding
-            thunks = gop_slice_thunks_planes(
-                intra, planes, gop.num_frames, mbw, mbh, self.sps,
-                self.pps, gop_qp, idr_pic_id=gop.index, rd=self.rd)
+                thunks = []
+                for fi in range(gop.num_frames):
+                    if sparse_ok:
+                        with prof.stage("sparse_unpack"):
+                            raw = torchcore._sparse_unpack(
+                                int(nnz[gi, fi]), int(n_esc[gi, fi]),
+                                bitmap[gi, fi], vals[gi, fi],
+                                esc_pos[gi, fi], esc_val[gi, fi], L)
+                    else:
+                        raw = flat[gi, fi]
+                    thunks.append(functools.partial(
+                        self._pack_intra_frame, raw, mbw, mbh, gop, fi,
+                        gop_qp))
             if pool is None:
                 jobs.append((gop, lambda ts=thunks: [t() for t in ts]))
             else:
                 futs = [pool.submit(t) for t in thunks]
                 jobs.append((gop, lambda fs=futs: [f.result() for f in fs]))
         segments: list[EncodedSegment] = []
-        for gop, gather in jobs:
-            with prof.stage("pack"):
-                payload = gather()
-            with prof.stage("concat"):
-                seg = EncodedSegment(
-                    gop=gop, payload=b"".join(payload),
-                    frame_sizes=tuple(len(p) for p in payload))
-            segments.append(seg)
+        try:
+            for gop, gather in jobs:
+                with prof.stage("pack"):
+                    payload = gather()
+                with prof.stage("concat"):
+                    seg = EncodedSegment(
+                        gop=gop, payload=b"".join(payload),
+                        frame_sizes=tuple(len(p) for p in payload))
+                segments.append(seg)
+        finally:
+            for shm in list(spools):    # gathers that never ran
+                self._release_spool(shm, spools)
         prof.count_wave()
         return segments
+
+    def _pack_intra_frame(self, raw, mbw: int, mbh: int, gop: GopSpec,
+                          fi: int, qp: int) -> bytes:
+        """Pack one all-intra frame's IDR slice (+ SPS/PPS at the GOP
+        head) from its flat levels — the intra path's slice-pool unit."""
+        levels = torchcore._unpack_levels(raw, mbw, mbh)
+        nal = pack_slice(levels, mbw, mbh, self.sps, self.pps, qp,
+                         idr=True,
+                         idr_pic_id=(gop.start_frame + fi) % 65536)
+        if fi == 0:
+            nal = self.sps.to_nal() + self.pps.to_nal() + nal
+        return nal
 
     #: default in-flight wave window
     PIPELINE_WINDOW = 4
@@ -567,3 +885,59 @@ class GopShardEncoder:
         while len(arrs) < F:            # tail-repeat to the wave's static F
             arrs.append(arrs[-1])
         return np.stack(arrs)
+
+
+def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
+                       shape: str | None = None, rungs=None,
+                       qp: int | None = None, total_bands: int = 0,
+                       band_range: tuple[int, int] | None = None,
+                       halo_rows: int | None = None, session=None,
+                       device="cuda") -> GopShardEncoder:
+    """The settings-driven encoder seam a job executor calls
+    (``encoder_factory``): the job's qp, gop_frames and max_segments
+    from `settings`, every other knob from the settings snapshot in the
+    GopShardEncoder constructor, as the reference resolves them.
+
+    The reference's other shapes are not ported yet, and each raises
+    NotImplementedError naming its ROADMAP item rather than encoding
+    something else in its place: a device mesh (multi-GPU waves, A2),
+    the ladder form (`rungs`, A9), split-frame bands (`sfe_bands > 0` or
+    shape="band", A11) and cross-host band slices (`band_range` /
+    `total_bands`, A12), and any RD feature on (A7). `halo_rows` and
+    `session` belong to the band forms."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a device mesh (multi-GPU waves) is not ported yet (ROADMAP "
+            "A2); pass mesh=None for one card")
+    if rungs:
+        raise NotImplementedError(
+            "the ABR ladder encoder is not ported yet (ROADMAP A9)")
+    if band_range is not None or total_bands:
+        raise NotImplementedError(
+            "cross-host band slices are not ported yet (ROADMAP A12)")
+    if shape is None:
+        shape = "band" if int(settings.get("sfe_bands", 0) or 0) > 0 \
+            else "gop"
+    if shape == "band":
+        raise NotImplementedError(
+            "split-frame encoding (sfe_bands > 0) is not ported yet "
+            "(ROADMAP A11)")
+    if shape != "gop":
+        raise ValueError(f"unknown shard shape {shape!r}")
+    require_rd_off(rd_from_settings(settings))
+    qp = int(settings.qp) if qp is None else int(qp)
+    return GopShardEncoder(meta, qp=qp,
+                           gop_frames=int(settings.gop_frames),
+                           max_segments=int(settings.max_segments),
+                           device=device)
+
+
+def encode_clip_sharded(frames: list[Frame], meta: VideoMeta, qp: int = 27,
+                        gop_frames: int = 32, inter: bool = True,
+                        device="cuda") -> bytes:
+    """Convenience: plan → shard encode → order-restoring concat."""
+    from ..core.types import concat_segments
+
+    enc = GopShardEncoder(meta, qp=qp, gop_frames=gop_frames, inter=inter,
+                          device=device)
+    return concat_segments(enc.encode(frames))
