@@ -45,6 +45,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
 8. intra    — one 1080p all-intra wave (8 frames, every frame an IDR)
               on the card: its slices, and its fps over the wave's
               dispatch + collect (best of 2 after a warm-up).
+9. rd       — the rate-distortion point of bench.py's _run_rd on the
+              card: 1920x1080, 32 frames, one GOP of 32, qp 25, through
+              encode_gop(return_recon=True) with RD off and with all four
+              features on (mode decision, P_Skip bias, deblocking,
+              aq_strength 1.0), ME launch counts set to 0 just before each
+              and read just after (31 each); bits/frame, PSNR-Y, SSIM-Y
+              and the VMAF proxy on the recon; each stream's length and
+              sha256 must equal the JAX package's (RD_POINT_JAX, from
+              scripts/jax_rd_point.py). Then GopShardEncoder(rd=RD_ALL,
+              gop_frames=8) over the same frames must equal the per-GOP
+              encode_gop streams; at 352x288 the card's bytes and recon
+              equal the CPU's for every RD config the CPU tests use, the
+              all-intra wave with mode decision + AQ, and the process pack
+              with every feature on; and the breakdown of the RD parts
+              (IDR frame per feature, P frame with the P_Skip bias and
+              the filter, the filter alone by CUDA events).
 
 Before the last line it prints one JSON object of kernel records and the
 card's name and power limit; the last line is the device JSON object.
@@ -66,6 +82,8 @@ import torch
 
 from thinvids_tpu_torch import native
 from thinvids_tpu_torch.codecs.h264 import headers, torchme
+from thinvids_tpu_torch.codecs.h264.rdo import (RD_OFF, RdConfig,
+                                                aq_from_strength)
 from thinvids_tpu_torch.core.types import Frame, VideoMeta, concat_segments
 from thinvids_tpu_torch.io.bits import split_annexb
 from thinvids_tpu_torch.parallel.dispatch import GopShardEncoder
@@ -80,6 +98,30 @@ H100_BYTES_PER_S = 3.35e12
 #: the ME kernel's time at 1088x1920 `pan` content before its redesign
 #: (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)
 ME_SEARCH_PREV_MS = 0.6304
+#: every RD feature on, at bench.py's strength (the _run_rd "on" point)
+RD_ALL = RdConfig(mode_decision=True, pskip=True, deblock=True,
+                  aq_q=aq_from_strength(1.0))
+#: the JAX package's streams at the RD point (1920x1080, 32 frames, one
+#: GOP, qp 25, bench content): (length, sha256), as
+#: `JAX_PLATFORMS=cpu python3 scripts/jax_rd_point.py` prints them
+RD_POINT_JAX = {
+    "off": (821211, "a6d865e0cabe1e39046986304bcbd197"
+                    "249bf287f1680b3db02b85d15e29ea8b"),
+    "on": (737477, "8ff2d64ebc62b36e7b2b37741cf3162e"
+                   "869d589cc241577bcea800fd14f59f3b"),
+}
+#: the RD configs the CPU parity tests hold against the JAX package
+RD_TEST_CONFIGS = {
+    "md": RdConfig(mode_decision=True),
+    "aq4": RdConfig(aq_q=4),
+    "md_aq6": RdConfig(mode_decision=True, aq_q=6),
+    "aq12": RdConfig(aq_q=12),
+    "pskip_deblock": RdConfig(pskip=True, deblock=True),
+    "md_aq4": RdConfig(mode_decision=True, aq_q=4),
+    "all": RD_ALL,
+    "pskip": RdConfig(pskip=True),
+    "deblock": RdConfig(deblock=True),
+}
 
 
 def check(cond, msg: str) -> None:
@@ -664,6 +706,250 @@ def intra_wave(w: int = 1920, h: int = 1080, n: int = 8) -> None:
           f"{json.dumps(snap)}", flush=True)
 
 
+# ---- phase 9 -------------------------------------------------------------
+
+def _me_counts() -> dict:
+    return {"me_halfpel": torchme.ME_PREPASS_LAUNCHES,
+            "me_search": torchme.ME_KERNEL_LAUNCHES}
+
+
+def _zero_me_counts() -> None:
+    torchme.ME_PREPASS_LAUNCHES = 0
+    torchme.ME_KERNEL_LAUNCHES = 0
+
+
+def rd_point(w: int = 1920, h: int = 1080, n: int = 32, qp: int = 25) -> dict:
+    """bench.py's _run_rd point on the card: RD off and every feature on,
+    one closed GOP each through encode_gop; quality on the recon, bytes
+    against the JAX package's."""
+    from thinvids_tpu_torch.codecs.h264.encoder import encode_gop
+    from thinvids_tpu_torch.tools.metrics import psnr, ssim, vmaf_proxy
+
+    frames = make_frames(n, w, h)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    out = {}
+    for name, rd in (("off", RD_OFF), ("on", RD_ALL)):
+        torch.cuda.synchronize()
+        _zero_me_counts()
+        t0 = time.perf_counter()
+        stream, recons = encode_gop(frames, meta, qp=qp, idr_pic_id=0,
+                                    with_headers=True, return_recon=True,
+                                    rd=rd, device="cuda")
+        t_gop = time.perf_counter() - t0
+        launches = _me_counts()
+        ry = recons[0]
+        ps = [psnr(f.y, ry[i][:h, :w]) for i, f in enumerate(frames)]
+        ss = [ssim(f.y, ry[i][:h, :w]) for i, f in enumerate(frames)]
+        p = float(np.mean([x for x in ps if np.isfinite(x)] or [99.0]))
+        q = float(np.mean(ss))
+        digest = hashlib.sha256(stream).hexdigest()
+        out[name] = {"bits_per_frame": round(len(stream) * 8 / n),
+                     "psnr_y": round(p, 2), "ssim_y": round(q, 4),
+                     "vmaf_proxy": vmaf_proxy(p, q), "bytes": len(stream),
+                     "sha256": digest, "launches": launches,
+                     "gop_s": round(t_gop, 3)}
+        print(f"rd point {w}x{h} x{n} gop {n} qp {qp} RD {name}: "
+              f"{json.dumps(out[name])} (GOP seconds: one pass through "
+              "encode_gop, host pack and recon fetch included)", flush=True)
+        want_len, want_sha = RD_POINT_JAX[name]
+        check((len(stream), digest) == (want_len, want_sha),
+              f"RD {name}: the card's stream ({len(stream)} bytes, "
+              f"{digest}) is not the JAX package's ({want_len}, {want_sha})")
+        for kname, count in launches.items():
+            check(count == n - 1, f"RD {name}: {kname} launched {count} "
+                                  f"times, want {n - 1}")
+    return {"frames": frames, "meta": meta, "qp": qp, "point": out}
+
+
+def rd_shard_encoder(point: dict, gop: int = 8) -> None:
+    """GopShardEncoder(rd=RD_ALL) over the RD point's frames equals the
+    per-GOP encode_gop streams, concatenated."""
+    from thinvids_tpu_torch.codecs.h264.encoder import encode_gop
+
+    frames, meta, qp = point["frames"], point["meta"], point["qp"]
+    enc = GopShardEncoder(meta, qp=qp, gop_frames=gop, rd=RD_ALL,
+                          device="cuda")
+    t0 = time.perf_counter()
+    got = concat_segments(enc.encode(frames))
+    t_enc = time.perf_counter() - t0
+    gops = enc.plan(len(frames)).gops
+    want = b"".join(encode_gop(frames[g.start_frame:g.end_frame], meta,
+                               qp=qp, idr_pic_id=g.index, rd=RD_ALL,
+                               device="cuda") for g in gops)
+    check(got == want, "GopShardEncoder(rd=RD_ALL) differs from the "
+                       "per-GOP encode_gop streams")
+    snap = enc.stages.snapshot()
+    check(snap["dense_fallback_waves"] == 0,
+          "the RD_ALL shard encode fell back to the dense transfer")
+    print(f"rd shard encoder {meta.width}x{meta.height} x{len(frames)} gop "
+          f"{gop} RD_ALL: "
+          f"{len(gops)} GOPs, {len(got)} bytes == per-GOP encode_gop, "
+          f"{len(frames) / t_enc:.3f} fps through encode()", flush=True)
+
+
+def rd_card_equals_cpu(w: int = 352, h: int = 288, n: int = 8) -> None:
+    from thinvids_tpu_torch.codecs.h264.encoder import encode_gop
+
+    frames = make_frames(n, w, h, seed=7, pan=2)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    sizes = {}
+    for name, rd in RD_TEST_CONFIGS.items():
+        got = {dev: encode_gop(frames, meta, qp=27, return_recon=True, rd=rd,
+                               device=dev) for dev in ("cuda", "cpu")}
+        check(got["cuda"][0] == got["cpu"][0],
+              f"RD {name}: card and CPU streams differ")
+        for a, b, plane in zip(got["cuda"][1], got["cpu"][1], "yuv"):
+            check(np.array_equal(a, b),
+                  f"RD {name}: card and CPU recon {plane} differ")
+        sizes[name] = len(got["cuda"][0])
+    md_aq = RdConfig(mode_decision=True, aq_q=4)
+    intra = {}
+    for dev in ("cuda", "cpu"):
+        enc = GopShardEncoder(meta, qp=27, gop_frames=4, inter=False,
+                              rd=md_aq, device=dev)
+        intra[dev] = concat_segments(enc.encode(frames))
+    check(intra["cuda"] == intra["cpu"],
+          "all-intra wave with mode decision + AQ: card and CPU differ")
+    base = concat_segments(GopShardEncoder(
+        meta, qp=27, gop_frames=4, rd=RD_ALL, device="cpu").encode(frames))
+    enc = GopShardEncoder(meta, qp=27, gop_frames=4, rd=RD_ALL,
+                          pack_backend="process", device="cuda")
+    try:
+        check(enc._proc_pool is not None, "no pack sidecar pool started")
+        got = concat_segments(enc.encode(frames))
+        gops = enc.stages.snapshot()["proc_pack_gops"]
+    finally:
+        _shutdown_sidecars(enc)
+    check(got == base, "RD_ALL process pack on the card differs from the "
+                       "CPU's thread pack")
+    check(gops == 2, f"the sidecars packed {gops} RD_ALL GOPs, want 2")
+    print(f"rd parity {w}x{h} x{n}: card == CPU (bytes and recon) for "
+          f"{json.dumps(sizes)}; all-intra md+aq4 card == CPU "
+          f"({len(intra['cuda'])} bytes); RD_ALL process pack on the card "
+          f"== CPU ({len(got)} bytes, {gops} GOPs on the sidecars)",
+          flush=True)
+
+
+def rd_breakdown(dev, w: int = 1920, h: int = 1080, qp: int = 25) -> dict:
+    """Where the RD features' time goes at 1080p: the IDR frame per
+    feature set, one P frame with the P_Skip bias and the filter, and the
+    filter alone (host clock around a synchronize, best of 3; the filter
+    also by CUDA events, median of 5)."""
+    from thinvids_tpu_torch.codecs.h264 import torchcore, torchinter
+    from thinvids_tpu_torch.codecs.h264.torchdeblock import \
+        deblock_frame_torch
+
+    frames = [f.padded(16) for f in make_frames(2, w, h)]
+    ys, us, vs = (torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+                  .to(dev) for p in "yuv")
+    mbh, mbw = ys.shape[1] // 16, ys.shape[2] // 16
+    qpc = torchcore.chroma_qp(qp)
+    p_rd = RdConfig(pskip=True, deblock=True)
+    _, (ry, ru, rv) = torchinter._intra_frame_outputs(
+        ys[0], us[0], vs[0], qp, mbw=mbw, mbh=mbh, rd=RD_ALL)
+    pmv = torch.zeros(2, dtype=torch.int32, device=dev)
+    # the filter's inputs as the P step feeds them
+    cy, cu, cv = (a[1].to(torch.int16) for a in (ys, us, vs))
+    mv, py, pu, pv, _ = torchme.me_search(cy, ry, ru, rv, pmv, qp)
+    res = torchinter._residual_p(cy, cu, cv, py, pu, pv, qp, qpc, mbw=mbw,
+                                 mbh=mbh, rd=p_rd)
+    qp_map = torch.full((mbh, mbw), qp, dtype=torch.int32, device=dev)
+    core = torchcore._intra_core(ys[0], us[0], vs[0], qp, mbw=mbw, mbh=mbh,
+                                 rd=RD_ALL)
+    ri = tuple(a.to(torch.int16) for a in core[4:7])
+    qp_map_i = (qp + core[9]).reshape(mbh, mbw)
+
+    def idr(rd):
+        return lambda: torchinter._intra_frame_outputs(
+            ys[0], us[0], vs[0], qp, mbw=mbw, mbh=mbh, rd=rd)
+
+    def pf(rd):
+        return lambda: torchinter._encode_p_plane(
+            ys[1], us[1], vs[1], ry, ru, rv, pmv, qp, qpc, mbw=mbw, mbh=mbh,
+            rd=rd)
+
+    deb_i = lambda: deblock_frame_torch(*ri, qp_map_i, intra=True)  # noqa: E731
+    deb_p = lambda: deblock_frame_torch(  # noqa: E731
+        *res[3:6], qp_map, intra=False, nz4=res[6], mv=mv)
+    parts = {
+        "idr_rd_off": idr(RD_OFF),
+        "idr_mode_decision": idr(RdConfig(mode_decision=True)),
+        "idr_aq": idr(RdConfig(aq_q=aq_from_strength(1.0))),
+        "idr_deblock": idr(RdConfig(deblock=True)),
+        "idr_rd_all": idr(RD_ALL),
+        "p_rd_off": pf(RD_OFF),
+        "p_pskip": pf(RdConfig(pskip=True)),
+        "p_pskip_deblock": pf(p_rd),
+        "p_residual_rd_off": lambda: torchinter._residual_p(
+            cy, cu, cv, py, pu, pv, qp, qpc, mbw=mbw, mbh=mbh),
+        "p_residual_pskip": lambda: torchinter._residual_p(
+            cy, cu, cv, py, pu, pv, qp, qpc, mbw=mbw, mbh=mbh,
+            rd=RdConfig(pskip=True)),
+        "deblock_intra": deb_i,
+        "deblock_p": deb_p,
+    }
+    # in turns: every part once per round, best of 3 rounds, so a drift
+    # of the shared host's speed during the phase spreads over all parts
+    ms = {k: float("inf") for k in parts}
+    for _ in range(3):
+        for k, fn in parts.items():
+            ms[k] = min(ms[k], _sync_ms(fn, reps=1))
+    ms = {k: round(v, 3) for k, v in ms.items()}
+    events = {"deblock_intra": round(_median_ms(deb_i), 3),
+              "deblock_p": round(_median_ms(deb_p), 3)}
+    print(f"rd breakdown_ms {w}x{h} qp {qp} (host clock, synced, best of 3 "
+          f"rounds in turns): {json.dumps(ms)}", flush=True)
+    print(f"rd deblock_frame_torch {w}x{h} by CUDA events (median of 5, one "
+          f"call each): {json.dumps(events)}", flush=True)
+    busy = {k: _device_busy(parts[k]) for k in
+            ("idr_rd_off", "idr_rd_all", "p_rd_off", "p_pskip_deblock")}
+    print(f"rd device busy {w}x{h} (torch.profiler, one call each: kernels "
+          f"launched, their summed device ms, the call's wall ms under the "
+          f"profiler): {json.dumps(busy)}", flush=True)
+    return {"host_ms": ms, "event_ms": events, "busy": busy}
+
+
+def _device_busy(fn) -> dict | str:
+    """Kernels one call launches and the device time they take, from a
+    torch.profiler trace of the call; the rest of its wall time the card
+    idles while the host enqueues."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        if not dev:
+            return "not measured (the trace holds no device events)"
+        busy_us = sum(e.self_device_time_total for e in dev)
+        return {"kernels": sum(e.count for e in dev),
+                "device_ms": round(busy_us / 1e3, 3),
+                "wall_ms": round(wall * 1e3, 3),
+                "busy_share": round(busy_us / 1e3 / (wall * 1e3), 4)}
+    except Exception as exc:  # noqa: BLE001 - the trace is optional
+        return f"not measured ({type(exc).__name__}: {exc})"
+
+
+def rd_phase(dev) -> None:
+    point = rd_point()
+    rd_shard_encoder(point)
+    rd_card_equals_cpu()
+    rd_breakdown(dev)
+    on, off = point["point"]["on"], point["point"]["off"]
+    print(f"rd point summary: on {on['bits_per_frame']} bits/frame at "
+          f"{on['psnr_y']} dB, off {off['bits_per_frame']} at "
+          f"{off['psnr_y']} dB; both streams equal the JAX package's",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -688,6 +974,7 @@ def main() -> int:
         job_path(tmp, main["stream"])
         job_parity(tmp)
     intra_wave()
+    rd_phase(dev)
     print(json.dumps({"kernels": recs}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

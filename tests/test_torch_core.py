@@ -26,7 +26,8 @@ from thinvids_tpu_torch.core.types import Frame as TFrame
 torch.set_num_threads(2)
 
 INTRA_NAMES = ("luma_dc", "luma_ac", "chroma_dc", "chroma_ac",
-               "recon_y", "recon_u", "recon_v")
+               "recon_y", "recon_u", "recon_v", "luma_mode", "chroma_mode",
+               "qp_delta")
 
 
 def _planes(w, h, seed=7, noise=False):
@@ -51,7 +52,7 @@ def _planes(w, h, seed=7, noise=False):
 def _jax_intra(mbw, mbh):
     """jaxcore._intra_core (RD off) jitted per shape; qp is traced."""
     return jax.jit(lambda y, u, v, qp: jaxcore._intra_core(
-        y, u, v, qp, mbw=mbw, mbh=mbh)[:7])
+        y, u, v, qp, mbw=mbw, mbh=mbh))
 
 
 def _compare_intra(y, u, v, qp):
@@ -61,7 +62,7 @@ def _compare_intra(y, u, v, qp):
         jnp.asarray(qp, jnp.int32)))
     got = torchcore._intra_core(torch.from_numpy(y), torch.from_numpy(u),
                                 torch.from_numpy(v), qp, mbw=mbw, mbh=mbh)
-    assert len(got) == 7
+    assert len(got) == len(want) == len(INTRA_NAMES)
     for name, a, b in zip(INTRA_NAMES, got, want):
         assert a.dtype == torch.int32, name
         np.testing.assert_array_equal(

@@ -215,12 +215,18 @@ def test_encode_gop_bytes_and_recon_match(w, h, n, qp, idr):
 
 def test_codec_surface_refuses_what_it_cannot_encode():
     meta = TMeta(width=64, height=48)
-    frames = [TFrame(*f) for f in _smooth_clip(2, 64, 48)]
-    with pytest.raises(NotImplementedError, match="A7"):
-        th264.H264Encoder(meta, rd=RdConfig(mode_decision=True),
-                          device="cpu").encode_frame(frames[0])
-    with pytest.raises(NotImplementedError, match="A7"):
-        th264.encode_gop(frames, meta, rd=RdConfig(aq_q=2), device="cpu")
+    jmeta = JMeta(width=64, height=48)
+    clip = _smooth_clip(2, 64, 48)
+    frames = [TFrame(*f) for f in clip]
+    # the RD features the reference accepts here encode its bytes
+    assert th264.H264Encoder(meta, rd=RdConfig(mode_decision=True),
+                             device="cpu").encode_frame(frames[0]) == \
+        jencoder.H264Encoder(jmeta, rd=JRdConfig(mode_decision=True)
+                             ).encode_frame(JFrame(*clip[0]))
+    assert th264.encode_gop(frames, meta, rd=RdConfig(aq_q=2),
+                            device="cpu") == \
+        jencoder.encode_gop([JFrame(*f) for f in clip], jmeta,
+                            rd=JRdConfig(aq_q=2))
     # the reference's own refusal comes first, as there
     with pytest.raises(ValueError, match="deblock/pskip"):
         th264.H264Encoder(meta, rd=RdConfig(deblock=True), device="cpu")

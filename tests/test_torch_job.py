@@ -6,22 +6,30 @@ executor with the port's encoder.
   transfer's bytes (and the JAX package's), the sidecars really take the
   GOPs, and a broken sidecar pool degrades to an inline pack of the same
   spool;
-- `make_shard_encoder` resolves the knobs the reference resolves, and
+- `make_shard_encoder` resolves the knobs the reference resolves (the RD
+  features included, each of which gives the JAX package's bytes), and
   raises NotImplementedError for the shapes that are not ported;
+- every RD feature on (RD_ALL) through GopShardEncoder gives the JAX
+  package's per-GOP `encode_gop` bytes with the compact, sparse2 and
+  process pack backends, and the all-intra wave with mode decision + AQ
+  gives the JAX wave's bytes;
 - a y4m job run by `LocalExecutor` with the port's encoder writes the MP4
-  the JAX executor writes (both on one device), and the port-only
-  composition (port open_video → port encoder → port mux) writes the
-  same bytes.
+  the JAX executor writes (both on one device, RD off and with
+  `TVT_MODE_DECISION=1 TVT_DEBLOCK=1`), and the port-only composition
+  (port open_video → port encoder → port mux) writes the same bytes.
 
 Every test that starts pack sidecars shuts them down in a `finally`,
 waiting a bounded time.
 """
 
+import contextlib
 import dataclasses
 import logging
 import os
 import subprocess
 import sys
+
+import functools
 
 import numpy as np
 import pytest
@@ -29,8 +37,11 @@ import pytest
 import jax
 import torch
 
+from bench import make_frames
 from thinvids_tpu.cluster import Coordinator, WorkerRegistry
 from thinvids_tpu.cluster.executor import LocalExecutor
+from thinvids_tpu.codecs.h264 import encoder as jencoder
+from thinvids_tpu.codecs.h264 import rdo as jrdo
 from thinvids_tpu.core import config as jcfg
 from thinvids_tpu.core.status import Status
 from thinvids_tpu.core.types import Frame as JFrame
@@ -39,6 +50,7 @@ from thinvids_tpu.core.types import concat_segments as jconcat
 from thinvids_tpu.ingest import decode as jdecode
 from thinvids_tpu.io.y4m import write_y4m
 from thinvids_tpu.parallel import dispatch as jdispatch
+from thinvids_tpu_torch.codecs.h264 import rdo as trdo
 from thinvids_tpu_torch.core import config as tcfg
 from thinvids_tpu_torch.core.types import Frame as TFrame
 from thinvids_tpu_torch.core.types import GopSpec, SegmentPlan
@@ -250,17 +262,11 @@ def test_make_shard_encoder_resolves_the_reference_knobs(monkeypatch, env):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("mode_decision", "A7"), ("pskip", "A7"), ("deblock", "A7"),
-    ("aq_strength", "A7"), ("sfe_bands", "A11"), ("shape_band", "A11"),
-    ("rungs", "A9"), ("band_range", "A12"), ("total_bands", "A12"),
-    ("mesh", "A2")])
+    ("sfe_bands", "A11"), ("shape_band", "A11"), ("rungs", "A9"),
+    ("band_range", "A12"), ("total_bands", "A12"), ("mesh", "A2")])
 def test_make_shard_encoder_refuses_what_is_not_ported(case, item):
     over, kw = {}, {}
-    if case in ("mode_decision", "pskip", "deblock"):
-        over[case] = True
-    elif case == "aq_strength":
-        over[case] = 1.0
-    elif case == "sfe_bands":
+    if case == "sfe_bands":
         over[case] = 2
     elif case == "shape_band":
         kw["shape"] = "band"
@@ -278,24 +284,152 @@ def test_make_shard_encoder_refuses_what_is_not_ported(case, item):
                                      device="cpu", **kw)
 
 
+_RD_ENV = {"mode_decision": ("TVT_MODE_DECISION", "1", True),
+           "pskip": ("TVT_PSKIP", "1", True),
+           "deblock": ("TVT_DEBLOCK", "1", True),
+           "aq_strength": ("TVT_AQ_STRENGTH", "1.0", 1.0)}
+
+
+@contextlib.contextmanager
+def _process_settings(monkeypatch, env: dict):
+    """Both packages' process settings snapshots with `env` set."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    tcfg.invalidate_settings_cache()
+    jcfg.invalidate_settings_cache()
+    try:
+        yield
+    finally:
+        for k in env:
+            monkeypatch.delenv(k)
+        tcfg.invalidate_settings_cache()
+        jcfg.invalidate_settings_cache()
+
+
+def _rd_clip():
+    w, h = 64, 48
+    return _smooth_clip(8, w, h, seed=31), w, h
+
+
+@pytest.mark.parametrize("case", ["mode_decision", "pskip", "deblock",
+                                  "aq_strength"])
+def test_make_shard_encoder_encodes_each_rd_knob_as_the_reference(
+        monkeypatch, case):
+    """Each RD knob on — in the job's settings and in the process
+    snapshot, which is where both packages' GopShardEncoder reads it —
+    resolves the same RdConfig and gives the JAX package's bytes."""
+    env_key, env_val, value = _RD_ENV[case]
+    clip, w, h = _rd_clip()
+    with _process_settings(monkeypatch, {env_key: env_val}):
+        over = dict(gop_frames=4, qp=28, **{case: value})
+        tenc = tdispatch.make_shard_encoder(
+            TMeta(width=w, height=h), _settings(tcfg, **over), None,
+            device="cpu")
+        jenc = jdispatch.make_shard_encoder(
+            JMeta(width=w, height=h), _settings(jcfg, **over),
+            _one_device_mesh())
+        assert dataclasses.asdict(tenc.rd) == dataclasses.asdict(jenc.rd)
+        assert tenc.rd != trdo.RD_OFF
+        got = tconcat(tenc.encode([TFrame(*f) for f in clip]))
+        assert got == jconcat(jenc.encode([JFrame(*f) for f in clip]))
+
+
 def test_encoder_refuses_rd_features_from_the_settings_tier(monkeypatch):
+    """Not refused any more: TVT_DEBLOCK=1 resolves the same RdConfig in
+    both packages' GopShardEncoder and the same stream; an unknown
+    shape and a missing card are still refused."""
     with pytest.raises(ValueError, match="unknown shard shape"):
         tdispatch.make_shard_encoder(TMeta(width=64, height=48),
                                      _settings(tcfg), shape="ring",
                                      device="cpu")
-    monkeypatch.setenv("TVT_DEBLOCK", "1")
-    tcfg.invalidate_settings_cache()
-    try:
-        with pytest.raises(NotImplementedError, match="A7"):
-            tdispatch.GopShardEncoder(TMeta(width=64, height=48),
-                                      device="cpu")
-    finally:
-        monkeypatch.delenv("TVT_DEBLOCK")
-        tcfg.invalidate_settings_cache()
+    clip, w, h = _rd_clip()
+    with _process_settings(monkeypatch, {"TVT_DEBLOCK": "1"}):
+        tenc = tdispatch.GopShardEncoder(TMeta(width=w, height=h), qp=28,
+                                         gop_frames=4, device="cpu")
+        jenc = jdispatch.GopShardEncoder(JMeta(width=w, height=h), qp=28,
+                                         gop_frames=4,
+                                         mesh=_one_device_mesh())
+        assert tenc.rd == trdo.RdConfig(deblock=True)
+        assert dataclasses.asdict(tenc.rd) == dataclasses.asdict(jenc.rd)
+        assert tconcat(tenc.encode([TFrame(*f) for f in clip])) == \
+            jconcat(jenc.encode([JFrame(*f) for f in clip]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tdispatch.make_shard_encoder(TMeta(width=64, height=48),
                                          _settings(tcfg))
+
+
+# ---- RD configs through the transfer and pack backends -----------------------
+
+_RD_ALL = dict(mode_decision=True, pskip=True, deblock=True,
+               aq_q=jrdo.aq_from_strength(1.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_rd_gops(w, h, n, gop):
+    """The JAX package's per-GOP encode_gop streams of the RD_ALL clip,
+    concatenated (GopShardEncoder's segments, as tests/test_rdo.py
+    pins them)."""
+    frames = make_frames(n, w, h)
+    meta = JMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    return b"".join(
+        jencoder.encode_gop(frames[g:g + gop], meta, qp=27,
+                            idr_pic_id=g // gop, with_headers=True,
+                            return_recon=True,
+                            rd=jrdo.RdConfig(**_RD_ALL))[0]
+        for g in range(0, n, gop))
+
+
+@pytest.mark.parametrize("backend", ["compact", "sparse2", "process"])
+def test_rd_all_through_the_shard_encoder_matches(backend):
+    w, h, n, gop = 96, 80, 8, 4
+    frames = [TFrame(y=f.y, u=f.u, v=f.v) for f in make_frames(n, w, h)]
+    kw = {"sparse2": dict(compact_transfer=False),
+          "process": dict(pack_backend="process", pack_workers=2)
+          }.get(backend, {})
+    enc = tdispatch.GopShardEncoder(
+        TMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n),
+        qp=27, gop_frames=gop, rd=trdo.RdConfig(**_RD_ALL), device="cpu",
+        **kw)
+    try:
+        got = tconcat(enc.encode_waves(enc.stage_waves(frames)))
+        snap = enc.stages.snapshot()
+    finally:
+        _shutdown_sidecars(enc)
+    assert got == _jax_rd_gops(w, h, n, gop)
+    assert snap["dense_fallback_waves"] == 0
+    # the sidecars took both GOPs (not a quiet thread fallback)
+    assert snap["proc_pack_gops"] == (2 if backend == "process" else 0)
+
+
+def test_intra_wave_with_mode_decision_and_aq_matches():
+    w, h, n = 96, 80, 4
+    clip = _smooth_clip(n, w, h, seed=17)
+    kw = dict(mode_decision=True, aq_q=4)
+    tenc = _port_encoder(clip, w, h, 27, 2, inter=False,
+                         rd=trdo.RdConfig(**kw))
+    jenc = jdispatch.GopShardEncoder(
+        JMeta(width=w, height=h, num_frames=n), qp=27, gop_frames=2,
+        inter=False, mesh=_one_device_mesh(), rd=jrdo.RdConfig(**kw))
+    tsegs = tenc.encode([TFrame(*f) for f in clip])
+    jsegs = jenc.encode([JFrame(*f) for f in clip])
+    assert [s.frame_sizes for s in tsegs] == [s.frame_sizes for s in jsegs]
+    assert tconcat(tsegs) == jconcat(jsegs)
+    assert tenc.stages.snapshot()["dense_fallback_waves"] == 0
+
+
+def test_deblock_needs_the_inter_path():
+    meta = dict(width=64, height=48)
+    for mod, Meta, rdc, extra in (
+            (tdispatch, TMeta, trdo.RdConfig, dict(device="cpu")),
+            (jdispatch, JMeta, jrdo.RdConfig,
+             dict(mesh=_one_device_mesh()))):
+        with pytest.raises(ValueError, match="deblock requires the inter"):
+            mod.GopShardEncoder(Meta(**meta), inter=False,
+                                rd=rdc(deblock=True), **extra)
+        # the intra RD features are fine there
+        mod.GopShardEncoder(Meta(**meta), inter=False,
+                            rd=rdc(mode_decision=True, aq_q=4), **extra)
 
 
 # ---- offsets, plan override, foreign frames ----------------------------------
@@ -400,3 +534,35 @@ def test_job_through_the_reference_executor_writes_its_mp4(tmp_path, w, h, n):
         data = tmp4.mux_mp4(tconcat(enc.encode(src)), src.meta,
                             audio=src.audio)
     assert data == ref_mp4
+
+
+def test_rd_job_through_the_reference_executor_writes_its_mp4(
+        tmp_path, monkeypatch):
+    """TVT_MODE_DECISION=1 TVT_DEBLOCK=1: both executors' encoders take
+    the RD features from the process snapshot; the port's MP4 is the
+    JAX executor's."""
+    w, h, n = 64, 48, 8
+    clip = _smooth_clip(n, w, h, seed=23)
+    path = tmp_path / "clip.y4m"
+    write_y4m(path, JMeta(width=w, height=h, fps_num=30, num_frames=n),
+              [JFrame(*f) for f in clip])
+    built = []
+
+    def factory(meta, settings, mesh):
+        enc = tdispatch.make_shard_encoder(meta, settings, None,
+                                           device="cpu")
+        built.append(enc)
+        return enc
+
+    with _process_settings(monkeypatch, {"TVT_MODE_DECISION": "1",
+                                         "TVT_DEBLOCK": "1"}):
+        port_job, port_mp4 = _run_job(
+            _make_rig(tmp_path, "port", encoder_factory=factory), path, w,
+            h, n)
+        ref_job, ref_mp4 = _run_job(
+            _make_rig(tmp_path, "ref", mesh=_one_device_mesh()), path, w,
+            h, n)
+    assert [e.rd for e in built] == [trdo.RdConfig(mode_decision=True,
+                                                   deblock=True)]
+    assert port_job.parts_total == ref_job.parts_total == 2
+    assert port_mp4 == ref_mp4

@@ -200,8 +200,9 @@ def pack_slice(levels: FrameLevels, mbw: int, mbh: int, sps: SPS, pps: PPS,
 class H264Encoder:
     """Stateful per-job encoder: sequence headers + frame encode.
 
-    Scope: intra-only (every frame IDR), 4:2:0, fixed qp, CAVLC. The
-    intra compute runs on `device` (torchcore.build_intra_encoder)."""
+    Scope: intra-only (every frame IDR), 4:2:0, fixed qp, CAVLC, with
+    the intra RD features (mode decision, AQ). The intra compute runs on
+    `device` (torchcore.build_intra_encoder)."""
 
     def __init__(self, meta: VideoMeta, qp: int = 27, rd=None,
                  device="cuda"):
@@ -270,21 +271,22 @@ def encode_gop(frames: list[Frame], meta: VideoMeta, qp: int = 27,
 
     The GOP's compute (intra frame + motion search / compensation /
     transform chained through the recon carry) is one
-    torchinter.encode_gop_planes call on `device`; this host half packs
-    the I-slice and the P-slices from the plane-layout levels. With
+    torchinter.encode_gop_planes call on `device`, with the RD features
+    of `rd` (rdo.RdConfig; None = all off); this host half packs the
+    I-slice and the P-slices from the plane-layout levels. With
     `return_recon` also returns the reconstructed planes (recon_y,
-    recon_u, recon_v), each (F, H, W) int32 over the padded frame.
+    recon_u, recon_v), each (F, H, W) int32 over the padded frame —
+    deblocked when rd.deblock, as a decoder reconstructs them.
     """
     import torch
 
     from ...core.devices import resolve_device
     from . import torchinter
     from .layout import unflatten_gop
-    from .rdo import RD_OFF, require_rd_off
+    from .rdo import RD_OFF
 
     if rd is None:
         rd = RD_OFF
-    require_rd_off(rd)
     dev = resolve_device(device)
     if not frames:
         raise ValueError("empty GOP")
@@ -298,9 +300,10 @@ def encode_gop(frames: list[Frame], meta: VideoMeta, qp: int = 27,
     ys, us, vs = (torch.from_numpy(np.stack([getattr(p, c) for p in padded]))
                   .to(dev) for c in "yuv")
     out = torchinter.encode_gop_planes(ys, us, vs, qp, mbw=mbw, mbh=mbh,
-                                       emit_recon=return_recon)
+                                       emit_recon=return_recon, rd=rd)
     intra, planes = unflatten_gop(out[1].cpu().numpy(), out[0].cpu().numpy(),
-                                  len(frames), mbw, mbh)
+                                  len(frames), mbw, mbh,
+                                  ships_modes=rd.ships_modes)
     sps = SPS(width=meta.width, height=meta.height,
               fps_num=meta.fps_num, fps_den=meta.fps_den)
     pps = PPS(init_qp=qp)

@@ -10,6 +10,10 @@ plane layout, closed-loop reconstruction, and the closed-GOP program.
   relayout in the hot loop, int16 storage.
 - Frames chain through an explicit carry holding the recon planes and
   the previous frame's median MV (the temporal search centre).
+- The RD features ride the same steps: the P_Skip bias in
+  `_residual_p`, the §8.7 in-loop filter (torchdeblock) on the recon
+  carried between frames, and the IDR's mode/QP side channel at the
+  tail of the GOP's flat vector.
 
 The sequential P-slice entropy pack stays on the host:
 codecs/h264/inter.py.
@@ -22,8 +26,10 @@ import functools
 import numpy as np
 import torch
 
-from . import torchme
-from .torchcore import _intra_core, _tables, chroma_qp
+from . import rdo, torchme
+from .rdo import RD_OFF
+from .torchcore import _intra_core, _mode_tail, _tables, chroma_qp
+from .torchdeblock import deblock_frame_torch, nz4_from_luma_plane
 from .transform import MF_TABLE, V_TABLE
 
 SEARCH_RANGE = torchme.SEARCH_RANGE      # integer-pel, each direction
@@ -132,12 +138,23 @@ def _dc_pos_expand(dcr_grid, h, wd_):
 # ---------------------------------------------------------------------------
 
 def _residual_p(cy16, cu16, cv16, pred_y, pred_u, pred_v, qp: int,
-                qpc: int, *, mbw: int, mbh: int):
+                qpc: int, *, mbw: int, mbh: int, rd=RD_OFF):
     """Residual transform/quant/recon for one P frame given its
-    prediction planes (RD off, plane layout). Per-MB local math only.
+    prediction planes (plane layout). Per-MB local math only.
+
+    With ``rd.pskip`` an MB whose quantized residual is negligible
+    (sum |level| <= rdo.PSKIP_SUM across all planes, every |level| <=
+    1) drops the residual entirely: its recon becomes pure prediction
+    — exactly what a decoder reconstructs for a P_Skip MB — and the
+    entropy packer's §8.4.1.1 inference turns it into a skip run
+    whenever its MV matches the skip predictor.
 
     Returns (luma_levels (H, W) int16, chroma_dc (2, nmb, 4) int16,
-    chroma_ac (2, H/2, W/2) int16, recon_y, recon_u, recon_v int16)."""
+    chroma_ac (2, H/2, W/2) int16, recon_y, recon_u, recon_v int16,
+    nz4): nz4 is the (4·mbh, 4·mbw) any-nonzero map of the FINAL luma
+    levels (the deblocking filter's bS=2 input) with ``rd.deblock``,
+    None otherwise (nothing reads it, so the RD-off step does not
+    compute it)."""
     H, W = cy16.shape
     n = mbw * mbh
     dev = cy16.device
@@ -175,7 +192,36 @@ def _residual_p(cy16, cu16, cv16, pred_y, pred_u, pred_v, qp: int,
     u_zdc, u_zac = chroma_quant(cu16, pred_u)
     v_zdc, v_zac = chroma_quant(cv16, pred_v)
 
-    # --- reconstruct from the levels ---------------------------------
+    if rd.pskip:
+        # P_Skip bias: per-MB level mass across every plane
+        az = torch.abs(z.reshape(mbh, 16, mbw, 16))
+
+        def cmass(zac):
+            c = torch.abs(zac.reshape(mbh, 8, mbw, 8))
+            return c.sum(dim=(1, 3)), c.amax(dim=(1, 3))
+        us, umx = cmass(u_zac)
+        vs, vmx = cmass(v_zac)
+        mb_sum = (az.sum(dim=(1, 3)) + us + vs
+                  + torch.abs(u_zdc).sum(dim=-1)
+                  + torch.abs(v_zdc).sum(dim=-1))
+        mb_max = torch.maximum(
+            torch.maximum(az.amax(dim=(1, 3)), torch.maximum(umx, vmx)),
+            torch.maximum(torch.abs(u_zdc).amax(dim=-1),
+                          torch.abs(v_zdc).amax(dim=-1)))
+        drop = (mb_sum <= rdo.PSKIP_SUM) & (mb_max <= 1)   # (mbh, mbw)
+        keep_y = ~torch.repeat_interleave(
+            torch.repeat_interleave(drop, 16, dim=0), 16, dim=1)
+        keep_c = ~torch.repeat_interleave(
+            torch.repeat_interleave(drop, 8, dim=0), 8, dim=1)
+        z = torch.where(keep_y, z, 0)
+        u_zac = torch.where(keep_c, u_zac, 0)
+        v_zac = torch.where(keep_c, v_zac, 0)
+        u_zdc = torch.where(drop[..., None], 0, u_zdc)
+        v_zdc = torch.where(drop[..., None], 0, v_zdc)
+
+    nz4 = nz4_from_luma_plane(z, mbh, mbw) if rd.deblock else None
+
+    # --- reconstruct from the (possibly zeroed) levels ---------------
     d = _dequant_plane(z, v_y, qp)
     recon_y = torch.clamp(((_inv4_plane(d) + 32) >> 6) + pred_y, 0, 255
                           ).to(torch.int16)
@@ -207,15 +253,18 @@ def _residual_p(cy16, cu16, cv16, pred_y, pred_u, pred_v, qp: int,
     vdc, vac, recon_v = chroma_recon(pred_v, v_zdc, v_zac)
     chroma_dc = torch.stack([udc, vdc]).to(torch.int16)  # (2, n, 4)
     chroma_ac = torch.stack([uac, vac])                  # (2, H/2, W/2)
-    return (luma_levels, chroma_dc, chroma_ac, recon_y, recon_u, recon_v)
+    return (luma_levels, chroma_dc, chroma_ac, recon_y, recon_u, recon_v,
+            nz4)
 
 
 def _encode_p_plane(cy, cu, cv, ry, ru, rv, pred_mv, qp: int, qpc: int, *,
-                    mbw: int, mbh: int):
+                    mbw: int, mbh: int, rd=RD_OFF):
     """One P frame given the carry: the previous recon planes (int16)
     and `pred_mv`, the previous frame's median MV in half-pel units (a
     search centre). Every input is an explicit tensor, so a caller can
-    feed any frame's carry.
+    feed any frame's carry. With ``rd.deblock`` the returned recon is
+    the §8.7-filtered plane (bS from the final levels and the search's
+    MVs), the one the next frame predicts from.
 
     Returns (mv (nmb, 2) int32, luma plane, chroma_dc, chroma_ac,
     recon_y, recon_u, recon_v, med_mv (2,) int32)."""
@@ -225,35 +274,59 @@ def _encode_p_plane(cy, cu, cv, ry, ru, rv, pred_mv, qp: int, qpc: int, *,
     cv16 = cv.to(torch.int16)
     mv, pred_y, pred_u, pred_v, med_mv = torchme.me_search(
         cy16, ry, ru, rv, pred_mv, qp)
-    (luma_levels, chroma_dc, chroma_ac, recon_y, recon_u,
-     recon_v) = _residual_p(cy16, cu16, cv16, pred_y, pred_u, pred_v, qp,
-                            qpc, mbw=mbw, mbh=mbh)
+    (luma_levels, chroma_dc, chroma_ac, recon_y, recon_u, recon_v,
+     nz4) = _residual_p(cy16, cu16, cv16, pred_y, pred_u, pred_v, qp, qpc,
+                        mbw=mbw, mbh=mbh, rd=rd)
+    if rd.deblock:
+        qp_map = torch.full((mbh, mbw), qp, dtype=torch.int32,
+                            device=cy.device)
+        recon_y, recon_u, recon_v = deblock_frame_torch(
+            recon_y, recon_u, recon_v, qp_map, intra=False, nz4=nz4,
+            mv=mv)
     return (mv.reshape(n, 2), luma_levels, chroma_dc, chroma_ac,
             recon_y, recon_u, recon_v, med_mv)
 
 
-def _intra_frame_outputs(y, u, v, qp: int, *, mbw: int, mbh: int):
-    """IDR half of the GOP program (RD off): intra core → the 4 blocked
-    level arrays + the int16 recon carry."""
-    out = _intra_core(y, u, v, qp, mbw=mbw, mbh=mbh)
-    il_dc, il_ac, ic_dc, ic_ac, ry, ru, rv = out
-    return ((il_dc, il_ac, ic_dc, ic_ac),
-            (ry.to(torch.int16), ru.to(torch.int16), rv.to(torch.int16)))
+def _intra_frame_outputs(y, u, v, qp: int, *, mbw: int, mbh: int,
+                         rd=RD_OFF):
+    """IDR half of the GOP program: intra core + (with rd.deblock) the
+    filtered recon carry + the pack-facing intra tuple (4 blocked
+    arrays, or 6 with the per-MB [mode16 | dqp16] side channel when
+    rd.ships_modes)."""
+    out = _intra_core(y, u, v, qp, mbw=mbw, mbh=mbh, rd=rd)
+    il_dc, il_ac, ic_dc, ic_ac, ry, ru, rv = out[:7]
+    luma_mode, chroma_mode, qp_delta = out[7:]
+    ry = ry.to(torch.int16)
+    ru = ru.to(torch.int16)
+    rv = rv.to(torch.int16)
+    if rd.deblock:
+        qp_map = (int(qp) + qp_delta).reshape(mbh, mbw)
+        ry, ru, rv = deblock_frame_torch(ry, ru, rv, qp_map, intra=True)
+    if rd.ships_modes:
+        tail = _mode_tail(luma_mode, chroma_mode, qp_delta)
+        intra = (il_dc, il_ac, ic_dc, ic_ac,
+                 tail[:mbw * mbh], tail[mbw * mbh:])
+    else:
+        intra = (il_dc, il_ac, ic_dc, ic_ac)
+    return intra, (ry, ru, rv)
 
 
 def encode_gop_planes(ys, us, vs, qp: int, *, mbw: int, mbh: int,
-                      emit_recon: bool = False):
+                      emit_recon: bool = False, rd=RD_OFF):
     """Closed-GOP compute emitting PLANE-layout levels: frame 0 intra,
     frames 1..F-1 inter (P). ys: (F, H, W) uint8 (us/vs the chroma
     halves). Returns (mv (F-1, nmb, 2) int8, flat int16); with
     `emit_recon` also the per-frame reconstructed planes (recon_y,
     recon_u, recon_v), each (F, H, W) int32 (quality measurements).
+    With rd.deblock the recon chained between frames (and emitted) is
+    the §8.7-filtered plane — exactly what a conformant decoder holds.
 
     flat layout (all reshape(-1)):
       [ intra il_dc | il_ac | ic_dc | ic_ac          (nmb * 384)
       | luma coeff planes   (F-1, H, W)
       | u DC (F-1, nmb, 4) | v DC (F-1, nmb, 4)
-      | u AC plane (F-1, H/2, W/2) | v AC plane (F-1, H/2, W/2) ]
+      | u AC plane (F-1, H/2, W/2) | v AC plane (F-1, H/2, W/2)
+      | intra mode16 (nmb) | intra dqp16 (nmb)   — rd.ships_modes only ]
 
     The host inverse is layout.unflatten_gop."""
     # The int8 MV transfer rides on search candidates being bounded by
@@ -263,14 +336,14 @@ def encode_gop_planes(ys, us, vs, qp: int, *, mbw: int, mbh: int,
     qp = int(qp)
     qpc = chroma_qp(qp)
     intra, (ry, ru, rv) = _intra_frame_outputs(
-        ys[0], us[0], vs[0], qp, mbw=mbw, mbh=mbh)
+        ys[0], us[0], vs[0], qp, mbw=mbw, mbh=mbh, rd=rd)
     pred_mv = torch.zeros(2, dtype=torch.int32, device=ys.device)
     mvs, lps, cdcs, cacs = [], [], [], []
     recons = [(ry, ru, rv)]
     for i in range(1, ys.shape[0]):
         (mv, lp, cdc, cac, ry, ru, rv, pred_mv) = _encode_p_plane(
             ys[i], us[i], vs[i], ry, ru, rv, pred_mv, qp, qpc, mbw=mbw,
-            mbh=mbh)
+            mbh=mbh, rd=rd)
         if emit_recon:
             recons.append((ry, ru, rv))
         mvs.append(mv.to(torch.int8))
@@ -288,7 +361,8 @@ def encode_gop_planes(ys, us, vs, qp: int, *, mbw: int, mbh: int,
         mv8 = torch.zeros((0, mbw * mbh, 2), dtype=torch.int8,
                           device=ys.device)
         p_parts = []
-    parts = [a.reshape(-1).to(torch.int16) for a in intra] + p_parts
+    parts = ([a.reshape(-1).to(torch.int16) for a in intra[:4]] + p_parts
+             + list(intra[4:]))
     if emit_recon:
         recon = tuple(torch.stack(planes).to(torch.int32)
                       for planes in zip(*recons))

@@ -10,8 +10,11 @@ then unpack + unflatten + CAVLC pack of every slice on the pack pool.
 Encoded segments concat in GOP index order.
 
 The reference's other forms of the same encoder are here too, each
-bit-identical to it: the all-intra wave (``inter=False``: every frame an
-IDR, per-frame element-granular sparse transfer, torchcore._sparse_pack);
+bit-identical to it: every RD config (``rd``: mode decision, AQ, the
+P_Skip bias and in-loop deblocking, with the intra mode/QP side channel
+riding the dense prefix); the all-intra wave (``inter=False``: every
+frame an IDR, per-frame element-granular sparse transfer,
+torchcore._sparse_pack);
 the three-array sparse2 transfer (``compact_transfer=False``); and
 ``pack_backend=process``, shared-memory pack sidecars (packproc.py) that
 unpack + pack whole GOPs outside this process's GIL, degrading to an
@@ -55,7 +58,7 @@ from ..codecs.h264.headers import PPS, SPS
 from ..codecs.h264.layout import _INTRA_FLAT_MB as _INTRA_MB
 from ..codecs.h264.layout import (_P_FLAT_MB, unflatten_gop,
                                   unflatten_gop_parts, unpack_compact_auto)
-from ..codecs.h264.rdo import rd_from_settings, require_rd_off
+from ..codecs.h264.rdo import RD_OFF, RdConfig, rd_from_settings
 from .planner import plan_segments
 
 _LOG = logging.getLogger(__name__)
@@ -249,7 +252,7 @@ def _sparse_unpack2_host(nblk: int, nval: int, bitmap, bmask16, vals,
 
 
 def _per_gop_sparse(y, u, v, qp: int, mbw: int, mbh: int,
-                    compact: bool = True):
+                    compact: bool = True, rd=RD_OFF):
     """(F, H, W) GOP → (mv int8, dense intra-DC segments, two-tier
     sparse levels for the rest).
 
@@ -263,12 +266,22 @@ def _per_gop_sparse(y, u, v, qp: int, mbw: int, mbh: int,
     contiguous byte payload (torchcore._compact_stream): (mv8, dense,
     nblk, nval, n_esc, used, payload). Without it the three sparse
     streams ship as they are: (mv8, dense, nblk, nval, n_esc, bitmap,
-    bmask16, vals)."""
-    mv8, flat = torchinter.encode_gop_planes(y, u, v, qp, mbw=mbw, mbh=mbh)
+    bmask16, vals). With rd.ships_modes the intra [mode16 | dqp16]
+    tail (the flat vector's last 2·nmb values) rides the dense prefix
+    too."""
+    mv8, flat = torchinter.encode_gop_planes(y, u, v, qp, mbw=mbw, mbh=mbh,
+                                             rd=rd)
     nmb = mbw * mbh
     ndc, nlac, ncdc = nmb * 16, nmb * 240, nmb * 8
-    dense = torch.cat([flat[:ndc], flat[ndc + nlac:ndc + nlac + ncdc]])
-    rest = torch.cat([flat[ndc:ndc + nlac], flat[ndc + nlac + ncdc:]])
+    dense_parts = [flat[:ndc], flat[ndc + nlac:ndc + nlac + ncdc]]
+    if rd.ships_modes:
+        # small, and mode 0 = V would defeat the sparse pack anyway
+        dense_parts.append(flat[-2 * nmb:])
+        rest = torch.cat([flat[ndc:ndc + nlac],
+                          flat[ndc + nlac + ncdc:-2 * nmb]])
+    else:
+        rest = torch.cat([flat[ndc:ndc + nlac], flat[ndc + nlac + ncdc:]])
+    dense = torch.cat(dense_parts)
     nblk, nval, n_esc, bitmap, bmask16, vals = \
         torchcore._block_sparse_pack2(rest)
     if not compact:
@@ -278,30 +291,32 @@ def _per_gop_sparse(y, u, v, qp: int, mbw: int, mbh: int,
     return (mv8, dense, nblk, nval, n_esc, used, payload)
 
 
-def _per_gop_dense(y, u, v, qp: int, mbw: int, mbh: int):
-    _mv8, flat = torchinter.encode_gop_planes(y, u, v, qp, mbw=mbw, mbh=mbh)
+def _per_gop_dense(y, u, v, qp: int, mbw: int, mbh: int, rd=RD_OFF):
+    _mv8, flat = torchinter.encode_gop_planes(y, u, v, qp, mbw=mbw, mbh=mbh,
+                                              rd=rd)
     return flat
 
 
 def _encode_gop_single(ys, us, vs, qps, *, mbw: int, mbh: int,
-                       compact: bool = True):
+                       compact: bool = True, rd=RD_OFF):
     """One wave on one device: ys (G, F, H, W) uint8, qps (G,) host
     ints. Each GOP runs the per-GOP program in turn; the 7 (compact) or
     8 outputs stack over G."""
     outs = [_per_gop_sparse(ys[g], us[g], vs[g], int(qps[g]), mbw, mbh,
-                            compact=compact)
+                            compact=compact, rd=rd)
             for g in range(ys.shape[0])]
     return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
-def _encode_gop_single_dense(ys, us, vs, qps, *, mbw: int, mbh: int):
+def _encode_gop_single_dense(ys, us, vs, qps, *, mbw: int, mbh: int,
+                             rd=RD_OFF):
     """Dense fallback for the wave: (G, L) int16 levels."""
     return torch.stack([_per_gop_dense(ys[g], us[g], vs[g], int(qps[g]),
-                                       mbw, mbh)
+                                       mbw, mbh, rd=rd)
                         for g in range(ys.shape[0])])
 
 
-def _encode_wave(ys, us, vs, qps, *, mbw: int, mbh: int):
+def _encode_wave(ys, us, vs, qps, *, mbw: int, mbh: int, rd=RD_OFF):
     """All-intra wave: ys (G, F, H, W) uint8, qps (G,) host ints, the
     per-GOP QP (the rate-control hook). Every frame is coded intra at
     its GOP's QP and sparse-packed on its own (torchcore._sparse_pack:
@@ -311,18 +326,19 @@ def _encode_wave(ys, us, vs, qps, *, mbw: int, mbh: int):
     outs = []
     for g in range(ys.shape[0]):
         frames = [torchcore._sparse_pack(torchcore._flat_levels(
-            ys[g, f], us[g, f], vs[g, f], int(qps[g]), mbw, mbh))
+            ys[g, f], us[g, f], vs[g, f], int(qps[g]), mbw, mbh, rd))
             for f in range(ys.shape[1])]
         outs.append(tuple(torch.stack(parts) for parts in zip(*frames)))
     return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
-def _encode_wave_dense(ys, us, vs, qps, *, mbw: int, mbh: int):
+def _encode_wave_dense(ys, us, vs, qps, *, mbw: int, mbh: int,
+                       rd=RD_OFF):
     """Dense fallback of the all-intra wave: (G, F, L) int16 levels (int16
     covers the full CAVLC level range), at the same per-GOP QPs."""
     return torch.stack([
         torch.stack([torchcore._flat_levels(ys[g, f], us[g, f], vs[g, f],
-                                            int(qps[g]), mbw, mbh)
+                                            int(qps[g]), mbw, mbh, rd)
                      for f in range(ys.shape[1])])
         for g in range(ys.shape[0])]).to(torch.int16)
 
@@ -343,7 +359,7 @@ class GopShardEncoder:
                  decode_ahead: int | None = None,
                  compact_transfer: bool | None = None,
                  pack_backend: str | None = None,
-                 device="cuda"):
+                 rd: RdConfig | None = None, device="cuda"):
         self.device = resolve_device(device)
         self.meta = meta
         self.qp = qp
@@ -359,11 +375,18 @@ class GopShardEncoder:
                        fps_num=meta.fps_num, fps_den=meta.fps_den)
         self.pps = PPS(init_qp=qp)
         snap = get_settings()
-        #: static RD feature set, resolved from settings (the
-        #: mode_decision/pskip/deblock/aq_strength knobs); the features
-        #: are not ported yet, so anything but RD_OFF is refused
-        self.rd = rd_from_settings(snap)
-        require_rd_off(self.rd)
+        #: static RD feature set (codecs/h264/rdo.RdConfig): per-MB
+        #: intra mode decision, P_Skip bias, in-loop deblocking,
+        #: perceptual AQ. None resolves from the settings snapshot (the
+        #: mode_decision/pskip/deblock/aq_strength knobs), as the
+        #: reference does, so every settings-built encoder inherits it.
+        if rd is None:
+            rd = rd_from_settings(snap)
+        self.rd = rd
+        if self.rd.deblock and not inter:
+            raise ValueError(
+                "deblock requires the inter (GOP) path: the all-intra "
+                "encoder has no recon chain to filter")
         #: slice-granular CAVLC pack threads (0/None in config = all
         #: cores). Decoupled from the wave window: the pack pool sizes
         #: to the HOST (cpu count), the window to device queue depth.
@@ -511,9 +534,11 @@ class GopShardEncoder:
             if self.inter:
                 out = _encode_gop_single(ysd, usd, vsd, qps, mbw=mbw,
                                          mbh=mbh,
-                                         compact=self.compact_transfer)
+                                         compact=self.compact_transfer,
+                                         rd=self.rd)
             else:
-                out = _encode_wave(ysd, usd, vsd, qps, mbw=mbw, mbh=mbh)
+                out = _encode_wave(ysd, usd, vsd, qps, mbw=mbw, mbh=mbh,
+                                   rd=self.rd)
             done = None
             if self.device.type == "cuda":
                 done = torch.cuda.Event()
@@ -672,8 +697,10 @@ class GopShardEncoder:
         prof = self.stages
         F = ysd.shape[1]
         nmb = mbw * mbh
-        L = (nmb * _INTRA_MB + (F - 1) * nmb * _P_FLAT_MB
-             if self.inter else nmb * _INTRA_MB)
+        ships_modes = self.rd.ships_modes
+        tail = 2 * nmb if ships_modes else 0     # [mode16 | dqp16]
+        L = (nmb * _INTRA_MB + (F - 1) * nmb * _P_FLAT_MB + tail
+             if self.inter else nmb * _INTRA_MB + tail)
         compact = self.inter and self.compact_transfer
         # Barrier on the tiny count outputs first: they complete when
         # the wave's compute does, splitting "waiting on the device"
@@ -693,9 +720,10 @@ class GopShardEncoder:
         if self.inter:
             nblk, nval, n_esc = tiny[0], tiny[1], tiny[2]
             # dense prefix = both intra hadamard DC segments (luma +
-            # chroma); the sparse remainder skips them (_per_gop_sparse)
+            # chroma) + the mode/dqp tail when shipped; the sparse
+            # remainder skips them (_per_gop_sparse)
             ndc, ncdc = nmb * 16, nmb * 8
-            Lr = L - ndc - ncdc
+            Lr = L - ndc - ncdc - tail
             sparse_ok = torchcore.block_sparse2_fits(
                 nblk.max(), nval.max(), n_esc.max(), Lr)
             if sparse_ok:
@@ -725,10 +753,10 @@ class GopShardEncoder:
             with prof.stage("dense_retry"):
                 if self.inter:
                     flat = _to_host(_encode_gop_single_dense(
-                        ysd, usd, vsd, qps, mbw=mbw, mbh=mbh))
+                        ysd, usd, vsd, qps, mbw=mbw, mbh=mbh, rd=self.rd))
                 else:
                     flat = _to_host(_encode_wave_dense(
-                        ysd, usd, vsd, qps, mbw=mbw, mbh=mbh))
+                        ysd, usd, vsd, qps, mbw=mbw, mbh=mbh, rd=self.rd))
                 prof.bump("d2h_bytes", int(flat.nbytes))
                 if self.inter:
                     # the dense program re-emits levels only; MVs still
@@ -778,11 +806,13 @@ class GopShardEncoder:
                                 bmask16[gi], vals[gi], Lr)
                     with prof.stage("unflatten"):
                         intra, planes = unflatten_gop_parts(
-                            dc16[gi], rest, mv8[gi], F, mbw, mbh)
+                            dc16[gi], rest, mv8[gi], F, mbw, mbh,
+                            ships_modes=ships_modes)
                 else:
                     with prof.stage("unflatten"):
-                        intra, planes = unflatten_gop(flat[gi], mv8[gi], F,
-                                                      mbw, mbh)
+                        intra, planes = unflatten_gop(
+                            flat[gi], mv8[gi], F, mbw, mbh,
+                            ships_modes=ships_modes)
                 # gop.num_frames (not F) drops the wave's tail-repeat
                 # padding
                 thunks = gop_slice_thunks_planes(
@@ -827,7 +857,7 @@ class GopShardEncoder:
                           fi: int, qp: int) -> bytes:
         """Pack one all-intra frame's IDR slice (+ SPS/PPS at the GOP
         head) from its flat levels — the intra path's slice-pool unit."""
-        levels = torchcore._unpack_levels(raw, mbw, mbh)
+        levels = torchcore._unpack_levels(raw, mbw, mbh, self.rd)
         nal = pack_slice(levels, mbw, mbh, self.sps, self.pps, qp,
                          idr=True,
                          idr_pic_id=(gop.start_frame + fi) % 65536)
@@ -898,13 +928,16 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
     from `settings`, every other knob from the settings snapshot in the
     GopShardEncoder constructor, as the reference resolves them.
 
+    The RD features resolve inside GopShardEncoder from the process
+    settings snapshot, as the reference's do (it passes no `rd` here).
+
     The reference's other shapes are not ported yet, and each raises
     NotImplementedError naming its ROADMAP item rather than encoding
     something else in its place: a device mesh (multi-GPU waves, A2),
     the ladder form (`rungs`, A9), split-frame bands (`sfe_bands > 0` or
     shape="band", A11) and cross-host band slices (`band_range` /
-    `total_bands`, A12), and any RD feature on (A7). `halo_rows` and
-    `session` belong to the band forms."""
+    `total_bands`, A12). `halo_rows` and `session` belong to the band
+    forms."""
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh (multi-GPU waves) is not ported yet (ROADMAP "
@@ -924,7 +957,6 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
             "(ROADMAP A11)")
     if shape != "gop":
         raise ValueError(f"unknown shard shape {shape!r}")
-    require_rd_off(rd_from_settings(settings))
     qp = int(settings.qp) if qp is None else int(qp)
     return GopShardEncoder(meta, qp=qp,
                            gop_frames=int(settings.gop_frames),

@@ -1,1 +1,1 @@
-"""Host tools: the libavcodec decode oracle."""
+"""Host tools: the libavcodec decode oracle and the quality metrics."""
