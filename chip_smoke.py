@@ -18,7 +18,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
               qp 0 / 27 / 51); time each at 1088x1920 with CUDA events
               around 50 back-to-back launches (eagerly and as one CUDA
               graph), median of 5, plain versions median of 5, beside
-              each kernel's bound.
+              each kernel's bound. Then the banded launch: one launch of
+              each kernel over a stack of 4 halo-extended band planes
+              (B, He, W) against the plain version band by band, the
+              first and last bands at the frame's edges, and its time at
+              the 4K split-frame shape (4 x 608 x 3840) beside a
+              single-frame launch at 2176 x 3840, with the bound over
+              B He W.
 4. main     — the 1080p closed-GOP encode (16 frames, gop 8, qp 27)
               through GopShardEncoder(device="cuda").encode →
               concat_segments, with every kernel's launch count set to 0
@@ -61,6 +67,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
               with every feature on; and the breakdown of the RD parts
               (IDR frame per feature, P frame with the P_Skip bias and
               the filter, the filter alone by CUDA events).
+10. sfe     — split-frame encoding on the card. bench.py's _run_sfe
+              point: 3840x2160, 16 frames, gop 8, qp 27, 4 MB-row bands
+              (34 + 34 + 34 + 33 rows), halo 32, through
+              SfeShardEncoder(device="cuda").encode, with the ME launch
+              counts set to 0 just before and read just after (14 each:
+              one launch per P frame for all bands); every picture has 4
+              slices at first_mb 0, 34*240, 68*240, 102*240; the stream's
+              length and sha256 equal the JAX package's (SFE_POINT_JAX,
+              from scripts/jax_sfe_point.py); then _run_sfe's figures
+              (fps, per-frame latency p50 / p99, bands, halo, stage_ms)
+              over pre-staged waves, a warm-up GOP and the best of the
+              timed passes; and a breakdown (one banded IDR step, one
+              banded P step, the banded search by CUDA events). An RD
+              point (1920x1080, 16 frames, gop 8, qp 25, 4 bands, mode
+              decision + P_Skip bias + deblocking; AQ stripped) must give
+              the JAX package's stream too. Card == CPU (bytes and
+              recon) at 352x288 for 1, 3 and 4 bands, the escape content
+              that reruns dense and the RD features, and at 352x96 for 6
+              one-MB-row bands (halo clamped to 16); bands=1 equals the
+              GopShardEncoder stream.
 
 Before the last line it prints one JSON object of kernel records and the
 card's name and power limit; the last line is the device JSON object.
@@ -109,6 +135,18 @@ RD_POINT_JAX = {
                     "249bf287f1680b3db02b85d15e29ea8b"),
     "on": (737477, "8ff2d64ebc62b36e7b2b37741cf3162e"
                    "869d589cc241577bcea800fd14f59f3b"),
+}
+#: the JAX package's split-frame streams (length, sha256): bench.py's
+#: _run_sfe point (3840x2160, 16 frames, gop 8, qp 27, 4 bands, halo 32)
+#: and an RD point (1920x1080, 16 frames, gop 8, qp 25, 4 bands, halo 32,
+#: mode decision + P_Skip bias + deblocking), as
+#: `XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu
+#: python3 scripts/jax_sfe_point.py` prints them
+SFE_POINT_JAX = {
+    "bench_2160p": (3221421, "2b7fe930ccc0c214c611bb6a8af29add"
+                             "b2fc3ab9a75b6f84fd55ced1ab6e0512"),
+    "rd_1080p": (1034887, "05a4171023492cd939e1ed14cd9ddf77"
+                          "15776fa44e935345013d0cfb10c8d118"),
 }
 #: the RD configs the CPU parity tests hold against the JAX package
 RD_TEST_CONFIGS = {
@@ -302,26 +340,30 @@ def _graph_ms(fn, n: int = 50, reps: int = 5) -> float:
     return ms
 
 
-def me_bounds(h: int, w: int) -> dict:
-    """(operations, bytes) each ME kernel must do and move at h x w.
-    Operations are counted in the instruction the kernel uses: one
-    VABSDIFF4 takes four pixel differences and their sum, so the search
-    needs 227 h w / 4; the prepass one multiply-add per tap of its three
-    6-tap filters (b, h, and j over b's unrounded sums) per plane sample.
-    Bytes: each input read once, each output written once."""
+def me_bounds(h: int, w: int, b: int = 1) -> dict:
+    """(operations, bytes) each ME kernel must do and move at h x w, or
+    over a stack of b planes of h x w (a banded launch: every band is a
+    plane with its own margin). Operations are counted in the
+    instruction the kernel uses: one VABSDIFF4 takes four pixel
+    differences and their sum, so the search needs 227 h w / 4; the
+    prepass one multiply-add per tap of its three 6-tap filters (b, h,
+    and j over b's unrounded sums) per plane sample. Bytes: each input
+    read once, each output written once."""
     hp, wp = h + 2 * torchme.ME_HALO, w + 2 * torchme.ME_HALO
     planes = 4 * hp * wp
     chroma = 2 * (h // 2) * (w // 2) * 2
-    # cur, chroma refs, centres, lam in; mv, pred_y, pred_u, pred_v out
-    rest = (h * w * 2 + chroma + 3 * 2 * 4 + 4
-            + (h // 16) * (w // 16) * 2 * 4 + h * w * 2 + chroma)
+    # cur, chroma refs in; mv, pred_y, pred_u, pred_v out (per plane)
+    rest = (h * w * 2 + chroma + (h // 16) * (w // 16) * 2 * 4 + h * w * 2
+            + chroma)
+    shared = 3 * 2 * 4 + 4             # centres and lam, read once
     pre_ops = 3 * 6 * hp * wp
     search_ops = len(torchme.OFFSET_TABLE) * h * w // 4
     return {
-        "me_halfpel": (pre_ops, h * w * 2 + planes),
-        "me_search": (search_ops, planes + rest),
+        "me_halfpel": (b * pre_ops, b * (h * w * 2 + planes)),
+        "me_search": (b * search_ops, b * (planes + rest) + shared),
         # both kernels as one function: the planes stay inside it
-        "me_total": (pre_ops + search_ops, h * w * 2 + rest),
+        "me_total": (b * (pre_ops + search_ops),
+                     b * (h * w * 2 + rest) + shared),
     }
 
 
@@ -426,6 +468,109 @@ def check_me_kernels(dev) -> list[dict]:
     print(f"ME before the redesign (one kernel; recorded in PERF.md, not "
           f"measured in this run): {ME_SEARCH_PREV_MS} ms")
     return recs
+
+
+def _band_stacks(cur, ref, ru, rv, bands: int, halo: int):
+    """A frame's planes as split-frame encoding hands them to the
+    kernels: (B, Hb + 2 halo, W) stacks of halo-extended bands
+    (torchme.extend_bands of the frame cut into `bands` bands)."""
+    return torchme.extend_bands(
+        *(p.reshape(bands, p.shape[0] // bands, p.shape[1])
+          for p in (cur, ref, ru, rv)), halo)
+
+
+def check_banded_me_kernels(dev) -> dict:
+    """One launch of each kernel over a B = 4 stack of halo-extended band
+    planes against the plain version band by band (halfpel_planes_ref and
+    me_search_ref loop over the bands), bit-exactly; the first and last
+    bands sit at the frame's edges. Then the banded launch's time at the
+    4K split-frame shape (4 x 608 x 3840: 34-MB-row bands, halo 32)
+    beside one single-frame launch at 2176 x 3840, with the bound over
+    B He W."""
+    cases = [("mixed", 128, 80, 4, 16, 1), ("range", 256, 192, 4, 32, 2),
+             ("noise", 128, 176, 4, 32, 3), ("pan", 2176, 3840, 4, 32, 4)]
+    err_planes = err_me = 0
+    for kind, h, w, bands, halo, seed in cases:
+        cur, ref, ru, rv = (torch.from_numpy(a.astype(np.int16)).to(dev)
+                            for a in _me_inputs(kind, h, w, seed))
+        cur_s, ref_s, ru_s, rv_s = _band_stacks(cur, ref, ru, rv, bands,
+                                                halo)
+        Hb = h // bands
+        centers = torchme.banded_centers_from(
+            cur.reshape(bands, Hb, w), ref.reshape(bands, Hb, w),
+            torch.tensor([5, -9], dtype=torch.int32, device=dev),
+            (Hb,) * bands, halo)
+        lam = torchme.lambda_for(27, dev)
+        planes = torchme.halfpel_planes_cuda(ref_s)
+        got = torchme.me_search_cuda(cur_s, ref_s, ru_s, rv_s, centers, lam)
+        torch.cuda.synchronize()
+        want_planes = torchme.halfpel_planes_ref(ref_s)
+        err = int((planes.to(torch.int32) - want_planes.to(torch.int32))
+                  .abs().max())
+        err_planes = max(err_planes, err)
+        check(err == 0, f"banded halfpel planes {kind} {bands}x{h}x{w}: "
+                        f"differ (max |diff| {err})")
+        want = torchme.me_search_ref(cur_s, ref_s, ru_s, rv_s, centers, lam)
+        for name, a, b in zip(("mv", "pred_y", "pred_u", "pred_v"),
+                              got, want):
+            check(a.shape == b.shape and a.shape[0] == bands,
+                  f"banded {name}: shape {tuple(a.shape)} vs "
+                  f"{tuple(b.shape)}")
+            err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+            err_me = max(err_me, err)
+            check(err == 0, f"banded me_search {kind} {bands}x{h}x{w} halo "
+                            f"{halo}: {name} differs (max |diff| {err})")
+        print(f"banded me_search {kind:5s} {bands} bands of "
+              f"{tuple(cur_s.shape[1:])} (frame {h}x{w}, halo {halo}) "
+              f"centres={centers.tolist()}: one launch each, planes and "
+              "outputs bit-exact against the per-band plain version",
+              flush=True)
+
+    # timing at the 4K split-frame shape: the stack of the last case
+    B, He, W = cur_s.shape
+    planes_s = torchme.halfpel_planes_cuda(ref_s)
+    planes_f = torchme.halfpel_planes_cuda(ref)
+    fns = {
+        "me_halfpel": (lambda: torchme.halfpel_planes_cuda(ref_s),
+                       lambda: torchme.halfpel_planes_cuda(ref)),
+        "me_search": (lambda: torchme.me_search_planes_cuda(
+            cur_s, planes_s, ru_s, rv_s, centers, lam),
+            lambda: torchme.me_search_planes_cuda(
+                cur, planes_f, ru, rv, centers, lam)),
+    }
+    graph = {k: ([], []) for k in fns}
+    eager = {k: [] for k in fns}
+    for _ in range(2):
+        for k, (banded, frame) in fns.items():
+            graph[k][0].append(_graph_ms(banded))
+            graph[k][1].append(_graph_ms(frame))
+            eager[k].append(_loop_ms(banded))
+    plain = {"me_halfpel": _median_ms(
+        lambda: torchme.halfpel_planes_ref(ref_s), reps=3),
+        "me_search": _median_ms(lambda: torchme.me_search_ref(
+            cur_s, ref_s, ru_s, rv_s, centers, lam), reps=3)}
+    bounds = me_bounds(He, W, B)
+    out = {}
+    for name in fns:
+        ops, nbytes = bounds[name]
+        bound_ms, bound_by = _bound(ops, nbytes)
+        ms = min(graph[name][0])
+        print(f"{name} banded {B}x{He}x{W}: {ms:.4f} ms a launch (CUDA graph "
+              f"of 50, median of 5; runs {graph[name][0]}), eager loop of 50 "
+              f"{eager[name]} ms; single frame {h}x{w}: "
+              f"{min(graph[name][1]):.4f} ms; plain (band loop) "
+              f"{plain[name]:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({ops / 1e6:.1f} M ops, {nbytes / 1e6:.2f} MB), "
+              f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
+        out[name] = {"shape": [B, He, W], "launches": None,
+                     "max_abs_err": (err_planes if name == "me_halfpel"
+                                     else err_me),
+                     "ms": ms, "eager_ms": min(eager[name]),
+                     "frame_ms": min(graph[name][1]),
+                     "frame_shape": [h, w], "plain_ms": plain[name],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+    return out
 
 
 # ---- phase 4 -----------------------------------------------------------
@@ -950,6 +1095,247 @@ def rd_phase(dev) -> None:
           flush=True)
 
 
+# ---- phase 10 ------------------------------------------------------------
+
+def _slice_firsts(stream: bytes) -> list[list[int]]:
+    """first_mb_in_slice of every slice, grouped per picture (a picture
+    starts at each slice whose first_mb is 0)."""
+    from thinvids_tpu_torch.io.bits import slice_first_mb
+    from thinvids_tpu_torch.io.mp4 import split_annexb as raw_nals
+
+    pics: list[list[int]] = []
+    for nal in raw_nals(stream):
+        if nal[0] & 0x1F in (1, 5):
+            first = slice_first_mb(nal)
+            if first == 0:
+                pics.append([])
+            pics[-1].append(first)
+    return pics
+
+
+def _sfe_encoder(meta, qp, gop, bands, halo, rd=RD_OFF, device="cuda"):
+    from thinvids_tpu_torch.parallel.dispatch import SfeShardEncoder
+
+    return SfeShardEncoder(meta, qp=qp, gop_frames=gop, bands=bands,
+                           halo_rows=halo, rd=rd, device=device)
+
+
+def sfe_point(w: int = 3840, h: int = 2160, n: int = 16, gop: int = 8,
+              qp: int = 27, bands: int = 4, halo: int = 32,
+              budget_s: float = 40.0) -> dict:
+    """bench.py's _run_sfe point on the card: every frame split into 4
+    MB-row bands, each its own slice, through SfeShardEncoder.encode;
+    the stream against the JAX package's; then _run_sfe's figures over
+    pre-staged waves (a warm-up GOP, then the best of as many timed
+    passes as `budget_s` allows, at least two)."""
+    import statistics
+
+    frames = make_frames(n, w, h)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    enc = _sfe_encoder(meta, qp, gop, bands, halo)
+    check(enc.num_bands == bands and enc.halo_rows == halo,
+          f"{enc.num_bands} bands, halo {enc.halo_rows}")
+    _, waves = enc.prepare_waves(frames)
+    concat_segments(enc.encode_waves(waves[:1]))         # warm-up GOP
+    torch.cuda.synchronize()
+
+    _zero_me_counts()
+    enc.stages.reset()
+    t0 = time.perf_counter()
+    stream = concat_segments(enc.encode(frames))
+    t_enc = time.perf_counter() - t0
+    launches = _me_counts()
+    digest = hashlib.sha256(stream).hexdigest()
+    snap = enc.stages.snapshot()
+    p_frames = n - len(enc.plan(n).gops)
+    print(f"sfe point {w}x{h} x{n} gop {gop} qp {qp} bands {bands} halo "
+          f"{halo}: {len(stream)} bytes, sha256 {digest}, {n / t_enc:.3f} fps "
+          f"through encode() (staging included), ME launches {launches}, "
+          f"dense_fallback_waves {snap['dense_fallback_waves']}", flush=True)
+    want_len, want_sha = SFE_POINT_JAX["bench_2160p"]
+    check((len(stream), digest) == (want_len, want_sha),
+          f"SFE point: the card's stream ({len(stream)} bytes, {digest}) is "
+          f"not the JAX package's ({want_len}, {want_sha})")
+    for name, count in launches.items():
+        check(count == p_frames, f"SFE point: {name} launched {count} times, "
+                                 f"want {p_frames} (one per P frame, all "
+                                 "bands in one launch)")
+    mbw = (w + 15) // 16
+    starts = [b.start_mb_row * mbw for b in enc.band_plan.bands]
+    check(starts == [0, 34 * mbw, 68 * mbw, 102 * mbw],
+          f"band slice starts {starts}")
+    pics = _slice_firsts(stream)
+    check(len(pics) == n and all(p == starts for p in pics),
+          f"{len(pics)} pictures; slice starts of the first: {pics[:1]}")
+
+    runs, t_best, lat, stage_ms = 0, float("inf"), [], {}
+    t_start = time.perf_counter()
+    while runs < 2 or (time.perf_counter() - t_start) * (runs + 1) / runs \
+            < budget_s:
+        enc.stages.reset()
+        enc.frame_done_t.clear()
+        t0 = time.perf_counter()
+        s2 = concat_segments(enc.encode_waves(waves))
+        t = time.perf_counter() - t0
+        runs += 1
+        check(s2 == stream, "a repeated SFE pass changed the bytes")
+        if t < t_best:
+            t_best, lat = t, enc.frame_latencies_ms()
+            stage_ms = enc.stages.snapshot()
+    lat_sorted = sorted(lat) or [0.0]
+    fig = {"fps": round(n / t_best, 3),
+           "latency_ms_p50": round(statistics.median(lat_sorted), 3),
+           "latency_ms_p99": round(
+               lat_sorted[int(0.99 * (len(lat_sorted) - 1))], 3),
+           "bands": enc.num_bands, "halo_rows": enc.halo_rows,
+           "bytes": len(stream), "passes": runs}
+    print(f"sfe point figures (bench _run_sfe's, best of {runs} passes over "
+          f"pre-staged waves): {json.dumps(fig)}", flush=True)
+    print(f"sfe stage_ms {json.dumps(stage_ms)}", flush=True)
+    print(f"sfe per-frame latencies ms (best pass, sorted gaps): "
+          f"{[round(x, 3) for x in lat_sorted]}", flush=True)
+    return {"launches": launches, "enc": enc, "waves": waves, "qp": qp}
+
+
+def sfe_breakdown(dev, point: dict) -> dict:
+    """One banded IDR step, one banded P step (host clock around a
+    synchronize, best of 2), and the banded search of that P step by
+    CUDA events: the whole me_search_banded (halo exchange, probe,
+    median) and its two kernel launches alone."""
+    enc, waves, qp = point["enc"], point["waves"], point["qp"]
+    _, ys, us, vs, _ = waves[0]
+    carry = enc._intra_step(ys[0], us[0], vs[0], qp)[6:]
+    ry, ru, rv, pmv = carry
+    cy = ys[1].to(torch.int16)
+    bp = enc.band_plan
+    real = enc._real_rows
+    halo = enc.halo_rows
+    ms = {
+        "idr_step": _sync_ms(lambda: enc._intra_step(ys[0], us[0], vs[0],
+                                                     qp), reps=2),
+        "p_step": _sync_ms(lambda: enc._p_step(ys[1], us[1], vs[1], carry,
+                                               qp), reps=2),
+    }
+    B, Hb, W = cy.shape
+    cur_s, ref_s, ru_s, rv_s = torchme.extend_bands(cy, ry, ru, rv, halo)
+    centers = torchme.banded_centers_from(cy, ry, pmv, real, halo)
+    lam = torchme.lambda_for(qp, dev)
+    events = {
+        "me_search_banded": _median_ms(lambda: torchme.me_search_banded(
+            cy, ry, ru, rv, pmv, qp, halo_rows=halo, real_rows=real)),
+        "me_kernels": _median_ms(lambda: torchme.me_search_cuda(
+            cur_s, ref_s, ru_s, rv_s, centers, lam)),
+    }
+    print(f"sfe breakdown_ms {bp.num_bands} bands of {B}x{Hb}x{W} (host "
+          f"clock, synced, best of 2): {json.dumps({k: round(v, 3) for k, v in ms.items()})}; "
+          f"by CUDA events (median of 5): "
+          f"{json.dumps({k: round(v, 4) for k, v in events.items()})}",
+          flush=True)
+    return {"host_ms": ms, "event_ms": events}
+
+
+def sfe_rd_point(w: int = 1920, h: int = 1080, n: int = 16, gop: int = 8,
+                 qp: int = 25, bands: int = 4, halo: int = 32) -> None:
+    """Split-frame encoding with mode decision, the P_Skip bias and the
+    in-loop filter on (and aq_strength 1.0 asked for, which the encoder
+    strips): the band deblock's halo runs; the stream against the JAX
+    package's."""
+    frames = make_frames(n, w, h)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    enc = _sfe_encoder(meta, qp, gop, bands, halo, rd=RD_ALL)
+    check(enc.rd == RdConfig(mode_decision=True, pskip=True, deblock=True),
+          f"SFE RD config {enc.rd}")
+    _zero_me_counts()
+    t0 = time.perf_counter()
+    stream = concat_segments(enc.encode(frames))
+    t_enc = time.perf_counter() - t0
+    launches = _me_counts()
+    digest = hashlib.sha256(stream).hexdigest()
+    print(f"sfe rd point {w}x{h} x{n} gop {gop} qp {qp} bands {bands} "
+          f"{enc.rd}: {len(stream)} bytes, sha256 {digest}, "
+          f"{n / t_enc:.3f} fps through encode() (one pass), ME launches "
+          f"{launches}", flush=True)
+    want_len, want_sha = SFE_POINT_JAX["rd_1080p"]
+    check((len(stream), digest) == (want_len, want_sha),
+          f"SFE RD point: the card's stream ({len(stream)} bytes, {digest}) "
+          f"is not the JAX package's ({want_len}, {want_sha})")
+    p_frames = n - len(enc.plan(n).gops)
+    check(all(c == p_frames for c in launches.values()),
+          f"SFE RD point: ME launches {launches}, want {p_frames} each")
+
+
+def sfe_card_equals_cpu() -> None:
+    """Card bytes == CPU bytes for the split-frame cases the CPU tests
+    hold against the JAX package: 1, 3 and 4 bands at 352x288 (4 gives a
+    partial last band), 6 one-MB-row bands at 352x96 (halo 32 clamped to
+    the band height, 16), the escape content that forces the dense
+    rerun, and the RD features on; bands=1 also equals the
+    GopShardEncoder stream at the same gop."""
+    w, h, n, gop = 352, 288, 4, 4
+    frames = make_frames(n, w, h, seed=5, pan=2)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    thin = make_frames(n, w, 96, seed=6, pan=2)
+    rng = np.random.default_rng(7)
+    noise = [Frame(y=rng.integers(0, 256, (h, w), dtype=np.uint8),
+                   u=rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+                   v=rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+             for _ in range(4)]
+    cases = {
+        "bands1": (frames, meta, 27, 1, 32, RD_OFF),
+        "bands3": (frames, meta, 27, 3, 32, RD_OFF),
+        "bands4": (frames, meta, 27, 4, 32, RD_OFF),
+        "thin6": (thin, VideoMeta(width=w, height=96, num_frames=n), 27, 6,
+                  32, RD_OFF),
+        "escape": (noise, VideoMeta(width=w, height=h, num_frames=4), 4, 4,
+                   32, RD_OFF),
+        "rd3": (frames, meta, 27, 3, 32,
+                RdConfig(mode_decision=True, pskip=True, deblock=True)),
+    }
+    sizes = {}
+    for name, (fr, m, qp, bands, halo, rd) in cases.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            enc = _sfe_encoder(m, qp, gop, bands, halo, rd=rd, device=dev)
+            enc.keep_recon = True
+            out[dev] = (concat_segments(enc.encode(fr)), enc)
+        (s_card, e_card), (s_cpu, e_cpu) = out["cuda"], out["cpu"]
+        check(s_card == s_cpu, f"SFE {name}: card and CPU streams differ")
+        for i in range(len(fr)):
+            for a, b, plane in zip(e_card.recon_frames[i],
+                                   e_cpu.recon_frames[i], "yuv"):
+                check(np.array_equal(a, b),
+                      f"SFE {name}: card and CPU recon {plane} of frame {i} "
+                      "differ")
+        snap = e_card.stages.snapshot()
+        if name == "thin6":
+            check(e_card.halo_rows == 16 and e_card.num_bands == 6,
+                  f"thin bands: {e_card.num_bands} bands, halo "
+                  f"{e_card.halo_rows}")
+        if name == "escape":
+            check(snap["dense_fallback_waves"] >= 1,
+                  "the escape content did not rerun dense")
+        else:
+            check(snap["dense_fallback_waves"] == 0,
+                  f"SFE {name} fell back to the dense transfer")
+        sizes[name] = len(s_card)
+        if name == "bands1":
+            gop_enc = GopShardEncoder(meta, qp=27, gop_frames=gop,
+                                      device="cuda")
+            check(concat_segments(gop_enc.encode(frames)) == s_card,
+                  "SFE bands=1 differs from the GopShardEncoder stream")
+    print(f"sfe parity: card == CPU (bytes and recon) for "
+          f"{json.dumps(sizes)}; bands=1 == GopShardEncoder", flush=True)
+
+
+def sfe_phase(dev) -> dict:
+    point = sfe_point()
+    sfe_breakdown(dev, point)
+    del point["enc"], point["waves"]
+    sfe_rd_point()
+    sfe_card_equals_cpu()
+    return point
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -960,21 +1346,41 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), using "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    t_run = time.perf_counter()
+
+    def phase(name: str) -> None:
+        print(f"-- phase {name} at {time.perf_counter() - t_run:.1f} s",
+              flush=True)
+
+    phase("2 build")
     build_all()
+    phase("3 kernels")
     print("kernels: me_halfpel, me_search")
     recs = check_me_kernels(dev)
+    banded = check_banded_me_kernels(dev)
+    phase("4 main")
     main = main_path()
     for rec in recs:
         rec["launches"] = main["launches"][rec["name"]]
     time_breakdown(dev)
+    phase("5 parity")
     card_equals_cpu()
     import tempfile
 
+    phase("6-7 job")
     with tempfile.TemporaryDirectory(prefix="tvt-smoke-") as tmp:
         job_path(tmp, main["stream"])
         job_parity(tmp)
+    phase("8 intra")
     intra_wave()
+    phase("9 rd")
     rd_phase(dev)
+    phase("10 sfe")
+    sfe = sfe_phase(dev)
+    for rec in recs:
+        rec["banded"] = dict(banded[rec["name"]],
+                             launches=sfe["launches"][rec["name"]])
+    phase("end")
     print(json.dumps({"kernels": recs}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,12 @@ executor with the port's encoder.
   package's per-GOP `encode_gop` bytes with the compact, sparse2 and
   process pack backends, and the all-intra wave with mode decision + AQ
   gives the JAX wave's bytes;
+- `sfe_bands > 0` or shape="band" builds the port's SfeShardEncoder with
+  the reference's band layout and bytes;
 - a y4m job run by `LocalExecutor` with the port's encoder writes the MP4
   the JAX executor writes (both on one device, RD off and with
-  `TVT_MODE_DECISION=1 TVT_DEBLOCK=1`), and the port-only composition
+  `TVT_MODE_DECISION=1 TVT_DEBLOCK=1`; split-frame with `sfe_bands=3`,
+  the reference's bands on three devices), and the port-only composition
   (port open_video → port encoder → port mux) writes the same bytes.
 
 Every test that starts pack sidecars shuts them down in a `finally`,
@@ -262,15 +265,11 @@ def test_make_shard_encoder_resolves_the_reference_knobs(monkeypatch, env):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("sfe_bands", "A11"), ("shape_band", "A11"), ("rungs", "A9"),
-    ("band_range", "A12"), ("total_bands", "A12"), ("mesh", "A2")])
+    ("rungs", "A9"), ("band_range", "A12"), ("total_bands", "A12"),
+    ("mesh", "A2")])
 def test_make_shard_encoder_refuses_what_is_not_ported(case, item):
     over, kw = {}, {}
-    if case == "sfe_bands":
-        over[case] = 2
-    elif case == "shape_band":
-        kw["shape"] = "band"
-    elif case == "rungs":
+    if case == "rungs":
         kw["rungs"] = [object()]
     elif case == "band_range":
         kw["band_range"] = (0, 1)
@@ -278,10 +277,43 @@ def test_make_shard_encoder_refuses_what_is_not_ported(case, item):
         kw["total_bands"] = 2
     else:
         kw["mesh"] = object()
-    with pytest.raises(NotImplementedError, match=item):
-        tdispatch.make_shard_encoder(TMeta(width=64, height=48),
-                                     _settings(tcfg, **over),
-                                     device="cpu", **kw)
+    for shape in (None, "band"):
+        with pytest.raises(NotImplementedError, match=item):
+            tdispatch.make_shard_encoder(TMeta(width=64, height=48),
+                                         _settings(tcfg, **over),
+                                         shape=shape, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", ["sfe_bands", "shape_band"])
+def test_make_shard_encoder_builds_the_band_shape(case):
+    """`sfe_bands > 0` or shape="band" gives the port's SfeShardEncoder
+    with the reference's band layout, halo and knobs, and its bytes."""
+    over, kw = dict(qp=29, gop_frames=3, sfe_halo_rows=16), {}
+    if case == "sfe_bands":
+        over["sfe_bands"] = 3
+    else:
+        over["sfe_bands"] = 0
+        kw["shape"] = "band"
+    w, h = 64, 96
+    tenc = tdispatch.make_shard_encoder(TMeta(width=w, height=h),
+                                        _settings(tcfg, **over), None,
+                                        device="cpu", **kw)
+    # the reference caps the bands at its devices; bands=0 is one a device
+    jmesh = jdispatch.default_mesh(jax.devices()[:3 if case == "sfe_bands"
+                                                 else 1])
+    jenc = jdispatch.make_shard_encoder(JMeta(width=w, height=h),
+                                        _settings(jcfg, **over), jmesh, **kw)
+    assert type(tenc) is tdispatch.SfeShardEncoder
+    assert tenc.num_bands == jenc.num_bands == (3 if case == "sfe_bands"
+                                                else 1)
+    assert tenc.halo_rows == jenc.halo_rows == 16
+    assert dataclasses.astuple(tenc.band_plan) == \
+        dataclasses.astuple(jenc.band_plan)
+    for k in ("qp", "gop_frames", "max_segments"):
+        assert getattr(tenc, k) == getattr(jenc, k), k
+    clip = _smooth_clip(6, w, h, seed=41)
+    assert tconcat(tenc.encode([TFrame(*f) for f in clip])) == \
+        jconcat(jenc.encode([JFrame(*f) for f in clip]))
 
 
 _RD_ENV = {"mode_decision": ("TVT_MODE_DECISION", "1", True),
@@ -481,9 +513,10 @@ def test_reference_frame_source_passes_the_port_cursor(tmp_path):
 
 # ---- the job -------------------------------------------------------------------
 
-def _make_rig(tmp_path, name, **executor_kw):
+def _make_rig(tmp_path, name, settings=None, **executor_kw):
     snap = jcfg.Settings(values=dict(jcfg.DEFAULT_SETTINGS, gop_frames=4,
-                                     qp=30, heartbeat_throttle_s=0.0))
+                                     qp=30, heartbeat_throttle_s=0.0,
+                                     **(settings or {})))
     reg = WorkerRegistry()
     for i in range(8):
         reg.heartbeat(f"w{i:02d}")
@@ -566,3 +599,39 @@ def test_rd_job_through_the_reference_executor_writes_its_mp4(
                                                    deblock=True)]
     assert port_job.parts_total == ref_job.parts_total == 2
     assert port_mp4 == ref_mp4
+
+
+def test_sfe_job_through_the_reference_executor_writes_its_mp4(tmp_path):
+    """sfe_bands=3: the reference's LocalExecutor with the port's
+    make_shard_encoder runs the split-frame encoder (three band slices
+    a picture, on one device) and writes the MP4 the JAX executor
+    writes with one band on each of three devices."""
+    w, h, n = 64, 96, 8
+    clip = _smooth_clip(n, w, h, seed=43)
+    path = tmp_path / "clip.y4m"
+    write_y4m(path, JMeta(width=w, height=h, fps_num=30, num_frames=n),
+              [JFrame(*f) for f in clip])
+    built = []
+
+    def factory(meta, settings, mesh):
+        enc = tdispatch.make_shard_encoder(meta, settings, None,
+                                           device="cpu")
+        built.append(enc)
+        return enc
+
+    port_job, port_mp4 = _run_job(
+        _make_rig(tmp_path, "port", settings=dict(sfe_bands=3),
+                  encoder_factory=factory),
+        path, w, h, n)
+    ref_job, ref_mp4 = _run_job(
+        _make_rig(tmp_path, "ref", settings=dict(sfe_bands=3)), path, w, h,
+        n)
+    assert [type(e) for e in built] == [tdispatch.SfeShardEncoder]
+    assert built[0].num_bands == 3 and built[0].qp == 30
+    assert port_job.parts_done == port_job.parts_total == 2
+    assert ref_job.parts_total == 2
+    assert port_mp4 == ref_mp4
+    # three slices a picture, in the MP4's samples
+    _, _, samples, keys = tmp4.annexb_to_samples(tconcat(
+        built[0].encode([TFrame(*f) for f in clip])))
+    assert len(samples) == n and keys == [True, False, False, False] * 2

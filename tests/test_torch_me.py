@@ -327,3 +327,92 @@ def test_search_cuda_wrapper_refuses_cpu_tensors():
                                       torch.zeros((3, 2), dtype=torch.int32),
                                       torchme.lambda_for(27, "cpu"))
     assert torchme.ME_KERNEL_LAUNCHES == launches
+
+
+# ---------------------------------------------------------------------------
+# band stacks: split-frame encoding hands both kernels (B, He, W) stacks
+# ---------------------------------------------------------------------------
+
+def _band_stack_inputs(bands=4, halo=16):
+    """A (B, He, W) stack of halo-extended bands of one frame, as
+    me_search_banded builds it, plus a frame's centres and lambda."""
+    cur, ref, ru, rv = (torch.from_numpy(np.asarray(a, np.int16))
+                        for a in CASES["mixed_192x128"]())
+    cur_s, ref_s, ru_s, rv_s = torchme.extend_bands(
+        *(p.reshape(bands, p.shape[0] // bands, p.shape[1])
+          for p in (cur, ref, ru, rv)), halo)
+    centers = torch.tensor([[12, -12], [-4, 6], [0, 0]], dtype=torch.int32)
+    return cur_s, ref_s, ru_s, rv_s, centers, torchme.lambda_for(27, "cpu")
+
+
+def test_plain_banded_search_is_the_per_band_search():
+    # the plain version of a banded launch: me_search_ref and
+    # halfpel_planes_ref over a stack equal them band by band, and each
+    # band equals the JAX package's search on that band's planes
+    cur_s, ref_s, ru_s, rv_s, centers, lam = _band_stack_inputs()
+    got = torchme.me_search_ref(cur_s, ref_s, ru_s, rv_s, centers, lam)
+    planes = torchme.halfpel_planes_ref(ref_s)
+    assert tuple(planes.shape) == (4, 4) + tuple(
+        d + 2 * torchme.ME_HALO for d in ref_s.shape[1:])
+    for b in range(cur_s.shape[0]):
+        want = torchme.me_search_ref(cur_s[b], ref_s[b], ru_s[b], rv_s[b],
+                                     centers, lam)
+        for a, w in zip(got, want):
+            assert torch.equal(a[b], w)
+        assert torch.equal(planes[b], torchme.halfpel_planes_ref(ref_s[b]))
+        jax_band = jax.device_get(_me_search_xla(
+            *(jnp.asarray(t[b].numpy()) for t in (cur_s, ref_s, ru_s, rv_s)),
+            jnp.asarray(centers.numpy()), jnp.asarray(jaxme.LAMBDA_H)[27]))
+        _assert_equal([a[b] for a in got], jax_band,
+                      ["mv", "pred_y", "pred_u", "pred_v"])
+
+
+def test_banded_wrappers_refuse_cpu_stacks():
+    cur_s, ref_s, ru_s, rv_s, centers, lam = _band_stack_inputs()
+    counts = (torchme.ME_PREPASS_LAUNCHES, torchme.ME_KERNEL_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        torchme.halfpel_planes_cuda(ref_s)
+    with pytest.raises(ValueError, match="CUDA"):
+        torchme.me_search_planes_cuda(cur_s, torchme.halfpel_planes_ref(
+            ref_s), ru_s, rv_s, centers, lam)
+    with pytest.raises(ValueError, match="CUDA"):
+        torchme.me_search_cuda(cur_s, ref_s, ru_s, rv_s, centers, lam)
+    assert (torchme.ME_PREPASS_LAUNCHES,
+            torchme.ME_KERNEL_LAUNCHES) == counts
+
+
+@pytest.mark.parametrize("fault", ["bands_planes", "bands_chroma",
+                                   "stride_cur", "stride_planes",
+                                   "stride_ref", "not_a_stack"])
+def test_banded_wrappers_refuse_bad_stacks(fault):
+    # a stack whose band count differs from cur's, or whose bands do not
+    # lie one plane after another, is refused before any launch
+    cur_s, ref_s, ru_s, rv_s, centers, lam = _band_stack_inputs()
+    planes = torchme.halfpel_planes_ref(ref_s)
+    counts = (torchme.ME_PREPASS_LAUNCHES, torchme.ME_KERNEL_LAUNCHES)
+    if fault == "stride_ref":
+        wide = torch.zeros(ref_s.shape[:2] + (ref_s.shape[2] + 16,),
+                           dtype=torch.int16)
+        with pytest.raises(ValueError, match="contiguous"):
+            torchme.halfpel_planes_cuda(wide[:, :, :ref_s.shape[2]])
+    elif fault == "not_a_stack":
+        with pytest.raises(ValueError, match="band"):
+            torchme.halfpel_planes_cuda(ref_s[None])
+    else:
+        args = [cur_s, planes, ru_s, rv_s]
+        match = "bands"
+        if fault == "bands_planes":
+            args[1] = planes[:2]
+        elif fault == "bands_chroma":
+            args[2] = ru_s[1:]
+        elif fault == "stride_cur":
+            # bands interleaved row by row: (B, He, W) view, band stride W
+            args[0] = cur_s.transpose(0, 1).contiguous().transpose(0, 1)
+            match = "contiguous"
+        else:
+            args[1] = planes.transpose(0, 1).contiguous().transpose(0, 1)
+            match = "contiguous"
+        with pytest.raises(ValueError, match=match):
+            torchme.me_search_planes_cuda(*args, centers, lam)
+    assert (torchme.ME_PREPASS_LAUNCHES,
+            torchme.ME_KERNEL_LAUNCHES) == counts

@@ -368,3 +368,204 @@ def encode_gop_planes(ys, us, vs, qp: int, *, mbw: int, mbh: int,
                       for planes in zip(*recons))
         return mv8, torch.cat(parts), recon
     return mv8, torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# split-frame encoding (SFE): per-FRAME step cores over a band stack
+#
+# The GOP program above runs a whole GOP per call; the SFE path instead
+# steps ONE frame at a time so the per-frame glass-to-bitstream latency
+# is a single step + band fetch + band-slice pack
+# (parallel/dispatch.SfeShardEncoder). A frame's B MB-row bands sit on
+# one card as a (B, Hb, W) stack; every band is its own slice. Only
+# MB-local work runs as one call over the stack (the search on its
+# halo-extended planes, the residual's transform, quant and recon); the
+# intra core restarts its slice-local first row per band, and the
+# in-loop filter runs per band on its one-MB-row halo. The recon carry
+# chains between steps on the device.
+# ---------------------------------------------------------------------------
+
+
+def _deblock_band(ry, ru, rv, qp: int, *, intra: bool, nz4, mv, mbw: int,
+                  mbh_band: int, total_mb_rows: int):
+    """Deblock a band stack's recon with a ONE-MB-ROW cross-band halo.
+
+    The §8.7 filter's vertical passes are row-local, and its horizontal
+    passes read/write at most 4 rows across an MB edge — so extending
+    each band by 16 raw recon rows of its neighbours (plus the
+    neighbour MB row's bS metadata: nz map and MVs; QP is flat in SFE)
+    and running the full shifted-plane schedule on the extended planes
+    reproduces the FULL-FRAME filter exactly: halo rows V-filter to the
+    same values the neighbour band computes for its own rows, the
+    boundary H edge is computed identically on both sides, and each
+    band's slice backs out byte-identical to the unbanded program.
+    Frame edges and the last band's padding rows are masked via the
+    global (mb_row0, total_mb_rows) coordinates of each band."""
+    B = ry.shape[0]
+    ry_e = torchme.band_halo_exchange(ry, 16)
+    ru_e = torchme.band_halo_exchange(ru, 8)
+    rv_e = torchme.band_halo_exchange(rv, 8)
+    qp_map = torch.full((mbh_band + 2, mbw), int(qp), dtype=torch.int32,
+                        device=ry.device)
+    nz_e = mv_e = None
+    if not intra:
+        nz_e = torchme.band_halo_exchange(nz4.to(torch.int16), 4) != 0
+        mv_e = torchme.band_halo_exchange(
+            mv.reshape(B, mbh_band, 2 * mbw), 1).reshape(
+                B, mbh_band + 2, mbw, 2)
+    outs = []
+    for b in range(B):
+        y2, u2, v2 = deblock_frame_torch(
+            ry_e[b], ru_e[b], rv_e[b], qp_map, intra=intra,
+            nz4=None if intra else nz_e[b], mv=None if intra else mv_e[b],
+            mb_row0=b * mbh_band - 1,       # extended: 1 MB row above
+            total_mb_rows=total_mb_rows)
+        outs.append((y2[16:16 + 16 * mbh_band], u2[8:8 + 8 * mbh_band],
+                     v2[8:8 + 8 * mbh_band]))
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _fixup_band_recon(stack, real_rows, scale: int = 1):
+    """Maintain the SFE recon invariant on a band stack: rows at/past a
+    band's real content (the last band's MB padding) are the
+    edge-replication of its last REAL row. The full-frame search pads
+    its reference with edge replication below the frame; without this
+    fixup the padding rows would instead hold the recon of replicated
+    SOURCE rows — close, but not the bits the full-frame program (or a
+    conformant decoder's edge clamp) sees. `real_rows`: pixel rows per
+    band (host ints), counted in units of `scale` rows."""
+    H = stack.shape[1]
+    reals = [max(int(r) // scale, 1) for r in real_rows]
+    if all(r >= H for r in reals):
+        return stack
+    out = stack.clone()
+    for b, r in enumerate(reals):
+        if r < H:
+            out[b, r:] = stack[b, r - 1:r]
+    return out
+
+
+def _fixup_carry(ry, ru, rv, real_rows):
+    return (_fixup_band_recon(ry, real_rows),
+            _fixup_band_recon(ru, real_rows, 2),
+            _fixup_band_recon(rv, real_rows, 2))
+
+
+def _sfe_intra_common(ys, us, vs, qp: int, real_rows, *, mbw: int,
+                      mbh_band: int, rd, total_mb_rows: int):
+    """Shared intra compute of a band stack: the slice-local core per
+    band + recon fixup + (with rd.deblock) the cross-band-halo in-loop
+    filter on the carry. Returns (per-band core outputs, (ry, ru, rv,
+    zero_mv))."""
+    outs = [_intra_core(ys[b], us[b], vs[b], qp, mbw=mbw, mbh=mbh_band,
+                        rd=rd) for b in range(ys.shape[0])]
+    ry, ru, rv = (torch.stack([o[i] for o in outs]).to(torch.int16)
+                  for i in (4, 5, 6))
+    ry, ru, rv = _fixup_carry(ry, ru, rv, real_rows)
+    if rd.deblock:
+        # SFE runs AQ-free (enforced at encoder construction), so the
+        # band qp map is flat and no qp metadata crosses bands
+        ry, ru, rv = _fixup_carry(*_deblock_band(
+            ry, ru, rv, qp, intra=True, nz4=None, mv=None, mbw=mbw,
+            mbh_band=mbh_band, total_mb_rows=total_mb_rows), real_rows)
+    zero_mv = torch.zeros(2, dtype=torch.int32, device=ys.device)
+    return outs, (ry, ru, rv, zero_mv)
+
+
+def sfe_intra_band(ys, us, vs, qp: int, real_rows, *, mbw: int,
+                   mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0):
+    """The IDR step of a band stack: slice-local intra prediction — each
+    band's first MB row predicts like a frame's row 0 because the MBs
+    above live in ANOTHER slice and are unavailable to intra prediction
+    (§8.3: exactly what a conformant decoder reconstructs), so no
+    cross-band exchange is needed on intra frames (the in-loop filter,
+    when enabled, is the one cross-band consumer — _deblock_band).
+
+    Returns (dense (B, Ld), rest (B, Lr), (ry, ru, rv, pred_mv)): dense
+    is each band's hadamard-DC prefix [il_dc | ic_dc] shipped
+    uncompressed (the only levels that exceed int8 at practical QPs)
+    plus, when rd.ships_modes, the per-MB [mode16 | dqp16] side channel;
+    rest is [il_ac | ic_ac] for the sparse transfer, and the carry
+    holds the fixed-up recon stack + a zero median MV (each GOP's
+    temporal predictor restarts at its IDR)."""
+    outs, carry = _sfe_intra_common(
+        ys, us, vs, int(qp), real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
+        total_mb_rows=total_mb_rows)
+    dense, rest = [], []
+    for o in outs:
+        il_dc, il_ac, ic_dc, ic_ac = o[:4]
+        parts = [il_dc.reshape(-1).to(torch.int16),
+                 ic_dc.reshape(-1).to(torch.int16)]
+        if rd.ships_modes:
+            parts.append(_mode_tail(o[7], o[8], o[9]))
+        dense.append(torch.cat(parts))
+        rest.append(torch.cat([il_ac.reshape(-1).to(torch.int16),
+                               ic_ac.reshape(-1).to(torch.int16)]))
+    return torch.stack(dense), torch.stack(rest), carry
+
+
+def sfe_intra_band_dense(ys, us, vs, qp: int, real_rows, *, mbw: int,
+                         mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0):
+    """Dense-transfer variant of :func:`sfe_intra_band`: one flat int16
+    vector per band in the standard intra layout (layout.unflatten_intra's
+    inverse, mode/dqp tail appended when rd.ships_modes) — the escape
+    fallback path. Returns ((B, L), carry)."""
+    outs, carry = _sfe_intra_common(
+        ys, us, vs, int(qp), real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
+        total_mb_rows=total_mb_rows)
+    flats = []
+    for o in outs:
+        parts = [a.reshape(-1).to(torch.int16) for a in o[:4]]
+        if rd.ships_modes:
+            parts.append(_mode_tail(o[7], o[8], o[9]))
+        flats.append(torch.cat(parts))
+    return torch.stack(flats), carry
+
+
+def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,
+               mbh_band: int, halo_rows: int, rd=RD_OFF,
+               total_mb_rows: int = 0):
+    """The P step of a band stack: the banded motion search (halo
+    exchange + band-summed global centers/median,
+    torchme.me_search_banded) + the shared residual core over the whole
+    stack at once (per-MB math, so the bands stacked as one tall plane
+    give each band's own levels and recon), emitting PLANE-layout levels
+    for the per-frame sparse transfer.
+
+    Returns (mv8 (B, nmb_b, 2) int8, flat (B, L) int16 [luma plane | u
+    dc | v dc | u ac | v ac] — per band a single-frame slice of
+    encode_gop_planes' P layout, so layout.unflatten_p_planes(flat[b],
+    mv8[b], 2, ...) is the host inverse), plus the chained (ry, ru, rv,
+    med_mv) carry."""
+    if 2 * SEARCH_RANGE > 127:
+        raise ValueError("SEARCH_RANGE exceeds the int8 MV transfer")
+    ry, ru, rv, pred_mv = carry
+    qp = int(qp)
+    qpc = chroma_qp(qp)
+    B, Hb, W = ys.shape
+    cy16 = ys.to(torch.int16)
+    cu16 = us.to(torch.int16)
+    cv16 = vs.to(torch.int16)
+    mv, py, pu, pv, med = torchme.me_search_banded(
+        cy16, ry, ru, rv, pred_mv, qp, halo_rows=halo_rows,
+        real_rows=real_rows)
+    nmb = mbw * mbh_band
+    (lp, cdc, cac, ry2, ru2, rv2, nz4) = _residual_p(
+        cy16.reshape(B * Hb, W), cu16.reshape(B * Hb // 2, W // 2),
+        cv16.reshape(B * Hb // 2, W // 2), py.reshape(B * Hb, W),
+        pu.reshape(B * Hb // 2, W // 2), pv.reshape(B * Hb // 2, W // 2),
+        qp, qpc, mbw=mbw, mbh=B * mbh_band, rd=rd)
+    ry2, ru2, rv2 = _fixup_carry(ry2.reshape(B, Hb, W),
+                                 ru2.reshape(B, Hb // 2, W // 2),
+                                 rv2.reshape(B, Hb // 2, W // 2), real_rows)
+    if rd.deblock:
+        ry2, ru2, rv2 = _fixup_carry(*_deblock_band(
+            ry2, ru2, rv2, qp, intra=False,
+            nz4=nz4.reshape(B, 4 * mbh_band, 4 * mbw), mv=mv, mbw=mbw,
+            mbh_band=mbh_band, total_mb_rows=total_mb_rows), real_rows)
+    cdc = cdc.reshape(2, B, nmb * 4)
+    cac = cac.reshape(2, B, -1)
+    flat = torch.cat([lp.reshape(B, -1), cdc[0], cdc[1], cac[0], cac[1]],
+                     dim=1)
+    mv8 = mv.reshape(B, nmb, 2).to(torch.int8)
+    return mv8, flat, (ry2, ru2, rv2, med)

@@ -16,6 +16,16 @@ the kernels are held against on the card (`halfpel_planes_ref` is the
 prepass's own, for the tests). `me_search` launches the kernels for
 CUDA tensors and never falls back to the plain version there.
 
+Split-frame encoding searches B MB-row bands of one frame at once
+(`me_search_banded`): the bands sit in a (B, Hb, W) stack on one card,
+each is extended by `halo_rows` reference rows of its neighbours
+(`band_halo_exchange`: slices of the stack where the reference moves
+rows between devices with `lax.ppermute`), the global-motion probe and
+the carried median sum their per-band parts over the band dimension
+(the reference's `lax.psum`), and both kernels run once over the whole
+stack. Every plain and kernel entry takes a (H, W) frame or a (B, H, W)
+stack.
+
 MV units are HALF-PEL throughout (the entropy packers scale mvd by 2
 to quarter-pel units).
 """
@@ -23,6 +33,7 @@ to quarter-pel units).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import subprocess
 import threading
@@ -146,7 +157,10 @@ def halfpel_planes_ref(ref_y):
     planes of `ref_y` (int16 (H, W), values in [0, 255]) as uint8
     (4, H + 2 ME_HALO, W + 2 ME_HALO); [p, r, c] is the value at pel
     (r - ME_HALO, c - ME_HALO), reads outside the frame clamped. Same
-    roundings as `_halfpel_planes`, written without rolls."""
+    roundings as `_halfpel_planes`, written without rolls. A (B, H, W)
+    band stack gives (B, 4, ...), band by band."""
+    if ref_y.dim() == 3:
+        return torch.stack([halfpel_planes_ref(b) for b in ref_y])
     h = ME_HALO
     r = _edge_pad(ref_y, h + 2, h + 3, h + 2, h + 3).to(torch.int32)
 
@@ -176,7 +190,13 @@ def me_search_ref(cur_y, ref_y, ref_u, ref_v, centers, lam):
 
     The centers are read on the host (the shifts they drive are
     Python ints), so this version synchronizes with the device; it is
-    never the CUDA main path."""
+    never the CUDA main path. (B, H, W) band stacks (chroma (B, H/2,
+    W/2)) search band by band, every band at the same centers and lam,
+    and give each output with a leading band dimension."""
+    if cur_y.dim() == 3:
+        outs = [me_search_ref(*band, centers, lam)
+                for band in zip(cur_y, ref_y, ref_u, ref_v)]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
     H, W = cur_y.shape
     mbh, mbw = H // 16, W // 16
     dev = cur_y.device
@@ -361,12 +381,12 @@ def load_me_library() -> ctypes.CDLL:
         lib.me_search_halo.argtypes = []
         lib.me_halfpel_launch.restype = ctypes.c_int
         lib.me_halfpel_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]   # ref, H, W
+            [ctypes.c_void_p] + [ctypes.c_int] * 3         # ref, B, H, W
             + [ctypes.c_void_p] * 2)                        # planes, stream
         lib.me_search_launch.restype = ctypes.c_int
         lib.me_search_launch.argtypes = (
             [ctypes.c_void_p] * 6            # cur, planes, ru, rv, cent, lam
-            + [ctypes.c_int, ctypes.c_int]        # H, W
+            + [ctypes.c_int] * 3                  # B, H, W
             + [ctypes.c_void_p] * 4               # mv, py, pu, pv
             + [ctypes.c_void_p])                  # stream
         if lib.me_search_halo() != ME_HALO:
@@ -394,41 +414,66 @@ def _ensure_table(lib, device: torch.device) -> None:
         _table_ready.add(idx)
 
 
-def _frame_shape(name: str, t) -> tuple[int, int]:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: the ME kernels need CUDA tensors, got "
-                         f"{t.device}")
-    if t.dim() != 2:
-        raise ValueError(f"{name}: want a 2-D plane, got {tuple(t.shape)}")
-    H, W = t.shape
-    if H % 16 or W % 16 or H <= 0 or W <= 0:
-        raise ValueError(f"frame {H}x{W} is not a multiple of 16")
-    return H, W
+def _frame_shape(name: str, t) -> tuple[int, int, int, bool]:
+    """(B, H, W, banded) of a (H, W) frame plane (B = 1) or a (B, H, W)
+    band stack."""
+    if t.dim() not in (2, 3):
+        raise ValueError(f"{name}: want a (H, W) plane or a (B, H, W) band "
+                         f"stack, got {tuple(t.shape)}")
+    banded = t.dim() == 3
+    B = int(t.shape[0]) if banded else 1
+    H, W = (int(d) for d in t.shape[-2:])
+    if H % 16 or W % 16 or H <= 0 or W <= 0 or B <= 0:
+        raise ValueError(f"{name}: {B} x {H}x{W} is not a stack of planes "
+                         "whose sides are multiples of 16")
+    return B, H, W, banded
 
 
-def _check(name: str, t, device, shape, dtype) -> None:
-    if (t.device != device or t.dtype != dtype
-            or tuple(t.shape) != shape or not t.is_contiguous()):
-        raise ValueError(
-            f"{name}: want contiguous {dtype} {shape} on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+def _check(name: str, t, shape, dtype) -> None:
+    """`t` must be a contiguous `dtype` tensor of `shape`; a band stack's
+    count and stride are named when they are what is wrong."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        if (t.dim() == len(shape) and t.dim() >= 3
+                and tuple(t.shape[1:]) == tuple(shape[1:])):
+            raise ValueError(f"{name}: {t.shape[0]} bands, the stack has "
+                             f"{shape[0]}")
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous tensor (strides "
+                         f"{t.stride()}: a band stack's planes must lie one "
+                         "after another, band stride = one plane)")
+
+
+def _on_card(*named) -> torch.device:
+    """The one CUDA device every (name, tensor) pair lives on."""
+    dev = named[0][1].device
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: the ME kernels need CUDA tensors, "
+                             f"got {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, the frame is on {dev}")
+    return dev
 
 
 def halfpel_planes_cuda(ref_y):
     """The prepass kernel (csrc/me_search.cu, halfpel_kernel) on a CUDA
     int16 (H, W) plane: same result as :func:`halfpel_planes_ref`, into
-    a new uint8 (4, H + 2 ME_HALO, W + 2 ME_HALO) tensor. Launches on the
+    a new uint8 (4, H + 2 ME_HALO, W + 2 ME_HALO) tensor; a (B, H, W)
+    band stack gives (B, 4, ...) from ONE launch. Launches on the
     current stream and never synchronizes."""
     global ME_PREPASS_LAUNCHES
-    H, W = _frame_shape("ref_y", ref_y)
-    dev = ref_y.device
-    _check("ref_y", ref_y, dev, (H, W), torch.int16)
+    B, H, W, banded = _frame_shape("ref_y", ref_y)
+    _check("ref_y", ref_y, tuple(ref_y.shape), torch.int16)
+    dev = _on_card(("ref_y", ref_y))
     lib = load_me_library()
-    planes = torch.empty((4, H + 2 * ME_HALO, W + 2 * ME_HALO),
+    shape = (4, H + 2 * ME_HALO, W + 2 * ME_HALO)
+    planes = torch.empty(((B,) if banded else ()) + shape,
                          dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.me_halfpel_launch(ref_y.data_ptr(), H, W,
+        rc = lib.me_halfpel_launch(ref_y.data_ptr(), B, H, W,
                                    planes.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ME prepass launch failed (cuda error {rc})")
@@ -441,40 +486,44 @@ def me_search_planes_cuda(cur_y, planes, ref_u, ref_v, centers, lam):
     """The search kernel (csrc/me_search.cu, search_kernel) on CUDA
     tensors, over `planes`, the :func:`halfpel_planes_cuda` output of the
     frame's reference luma: same outputs as :func:`me_search_ref` on that
-    reference. Launches on the current stream and never synchronizes:
+    reference. A (B, H, W) band stack (planes (B, 4, ...), chroma (B,
+    H/2, W/2)) searches every band in ONE launch, at the same centers
+    and lam. Launches on the current stream and never synchronizes:
     centers and lam stay on the device.
 
     Precondition, as for the TPU kernel: every sample of cur_y lies in
     [0, 255] (the search packs four samples a 32-bit word; a value
     outside gives wrong SADs, not an error)."""
     global ME_KERNEL_LAUNCHES
-    H, W = _frame_shape("cur_y", cur_y)
-    dev = cur_y.device
+    B, H, W, banded = _frame_shape("cur_y", cur_y)
+    lead = (B,) if banded else ()
     for name, t, shape, dtype in (
-            ("cur_y", cur_y, (H, W), torch.int16),
-            ("planes", planes, (4, H + 2 * ME_HALO, W + 2 * ME_HALO),
-             torch.uint8),
-            ("ref_u", ref_u, (H // 2, W // 2), torch.int16),
-            ("ref_v", ref_v, (H // 2, W // 2), torch.int16),
+            ("cur_y", cur_y, lead + (H, W), torch.int16),
+            ("planes", planes,
+             lead + (4, H + 2 * ME_HALO, W + 2 * ME_HALO), torch.uint8),
+            ("ref_u", ref_u, lead + (H // 2, W // 2), torch.int16),
+            ("ref_v", ref_v, lead + (H // 2, W // 2), torch.int16),
             ("centers", centers, (3, 2), torch.int32)):
-        _check(name, t, dev, shape, dtype)
+        _check(name, t, shape, dtype)
+    if lam.dtype != torch.int32 or lam.numel() != 1:
+        raise ValueError("lam: want one int32 value")
+    dev = _on_card(("cur_y", cur_y), ("planes", planes), ("ref_u", ref_u),
+                   ("ref_v", ref_v), ("centers", centers), ("lam", lam))
     if cur_y.data_ptr() % 8:
         raise ValueError("cur_y: want a start aligned to 8 bytes")
-    if (lam.device != dev or lam.dtype != torch.int32
-            or lam.numel() != 1):
-        raise ValueError("lam: want one int32 value on the frame's device")
     lib = load_me_library()
     _ensure_table(lib, dev)
-    mv = torch.empty((H // 16, W // 16, 2), dtype=torch.int32, device=dev)
-    py = torch.empty((H, W), dtype=torch.int16, device=dev)
-    pu = torch.empty((H // 2, W // 2), dtype=torch.int16, device=dev)
-    pv = torch.empty((H // 2, W // 2), dtype=torch.int16, device=dev)
+    mv = torch.empty(lead + (H // 16, W // 16, 2), dtype=torch.int32,
+                     device=dev)
+    py = torch.empty(lead + (H, W), dtype=torch.int16, device=dev)
+    pu = torch.empty(lead + (H // 2, W // 2), dtype=torch.int16, device=dev)
+    pv = torch.empty(lead + (H // 2, W // 2), dtype=torch.int16, device=dev)
     lam = lam.contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.me_search_launch(
             cur_y.data_ptr(), planes.data_ptr(), ref_u.data_ptr(),
-            ref_v.data_ptr(), centers.data_ptr(), lam.data_ptr(), H, W,
+            ref_v.data_ptr(), centers.data_ptr(), lam.data_ptr(), B, H, W,
             mv.data_ptr(), py.data_ptr(), pu.data_ptr(), pv.data_ptr(),
             stream)
     if rc != 0:
@@ -486,9 +535,10 @@ def me_search_planes_cuda(cur_y, planes, ref_u, ref_v, centers, lam):
 
 def me_search_cuda(cur_y, ref_y, ref_u, ref_v, centers, lam):
     """Both ME kernels on CUDA tensors, with the contract of
-    :func:`me_search_ref`: the prepass on `ref_y`, then the search over
-    its planes. Precondition: every sample of cur_y and ref_y lies in
-    [0, 255], as for the TPU kernel."""
+    :func:`me_search_ref` (a frame or a band stack): the prepass on
+    `ref_y`, then the search over its planes — one launch each.
+    Precondition: every sample of cur_y and ref_y lies in [0, 255], as
+    for the TPU kernel."""
     _frame_shape("cur_y", cur_y)
     return me_search_planes_cuda(cur_y, halfpel_planes_cuda(ref_y), ref_u,
                                  ref_v, centers, lam)
@@ -522,3 +572,228 @@ def me_search(cur_y16, ref_y16, ref_u16, ref_v16, pred_mv_h, qp: int):
             cur_y16, ref_y16, ref_u16, ref_v16, centers, lam)
     med = hist_median(mv.reshape(-1, 2), 2 * SEARCH_RANGE)
     return mv, pred_y, pred_u, pred_v, med
+
+
+# ---------------------------------------------------------------------------
+# split-frame encoding (SFE): the banded search over a band stack
+#
+# One frame is split into B horizontal MB-row bands of equal padded height
+# (parallel/planner.plan_bands), held on one card as a (B, Hb, W) stack.
+# The search is the SAME kernel pair as the full-frame path, run once over
+# the stack of bands extended by `halo` reference rows from each
+# neighbour; the global-motion probe and the carried median sum their
+# per-band parts over the band dimension, so every band searches exactly
+# the centres the full-frame search would. With a halo that covers the
+# candidate reach (SEARCH_RANGE + window + 6-tap interpolation =
+# halo_clamp's bound) the per-MB (mv, pred) results are bit-identical to
+# full-frame `me_search`; a smaller halo clamps the VERTICAL centre
+# magnitude so no candidate reads past the halo.
+# ---------------------------------------------------------------------------
+
+def halo_clamp(halo_rows: int) -> int:
+    """Largest even vertical center magnitude (pel) whose candidate
+    window (± _WR pel) plus 6-tap interpolation reach (3 rows) stays
+    inside a `halo_rows`-row halo. >= _CLIM means the banded search is
+    unclamped (bit-identical to full-frame)."""
+    return max(0, min(_CLIM, ((halo_rows - _WR - 3) // 2) * 2))
+
+
+def band_halo_exchange(stack, halo: int):
+    """(B, Hb, W) band stack → (B, Hb + 2 halo, W): each band extended
+    with `halo` REAL rows of its neighbour bands (slices of the stack);
+    the first band's top and the last band's bottom edge-replicate their
+    own boundary row, exactly matching the full-frame search's edge
+    padding. One band is pure edge replication."""
+    B, H, W = stack.shape
+    if halo > H and B > 1:
+        # a neighbour band holds H rows: a deeper halo would need rows
+        # from two bands away (SfeShardEncoder caps halo_rows at the
+        # band height, shrinking the vertical search bound instead)
+        raise ValueError(f"halo {halo} exceeds band height {H}")
+    top = stack[:, :1].expand(B, halo, W)
+    bot = stack[:, H - 1:].expand(B, halo, W)
+    if B > 1:
+        # band b's top halo = band b-1's bottom rows; bottom halo = band
+        # b+1's top rows
+        top = torch.cat([top[:1], stack[:-1, H - halo:]])
+        bot = torch.cat([stack[1:, :halo], bot[-1:]])
+    return torch.cat([top, stack, bot], dim=1)
+
+
+@functools.lru_cache(maxsize=64)
+def _band_row_masks(real_rows: tuple, rows: int, scale: int, device):
+    """(B, rows) bool, True on rows below each band's real content
+    (`real_rows` pixel rows, counted in units of `scale` rows), and the
+    (B, rows) int64 index of each row clamped to its band's last real
+    row — device tensors cached by shape, so no frame copies them to the
+    card."""
+    real = np.maximum(np.asarray(real_rows, np.int64) // scale, 1)
+    r = np.arange(rows)[None]
+    return (torch.as_tensor(r < real[:, None], device=device),
+            torch.as_tensor(np.minimum(r, real[:, None] - 1),
+                            device=device))
+
+
+def banded_probe_cost(cur_stack, ref_stack, real_rows,
+                      sr: int = SEARCH_RANGE):
+    """The global-motion probe's per-window cost vector, summed over
+    the bands: each band contributes the partial SAD of its REAL rows
+    for every candidate window (halo cells come from the neighbour
+    bands at quarter-res granularity, so the window slices see exactly
+    the full-frame probe's padded plane). `real_rows` (one int per band,
+    pixel rows) masks the last band's padding rows out of the cost,
+    keeping the sum equal to the full-frame probe's. int32, wrapping as
+    the reference's int32 sums do."""
+    qs = _COARSE
+    qsr = sr // qs
+    B, H, W = cur_stack.shape
+    cq = _box_sum(cur_stack.reshape(B * H, W), qs).reshape(B, H // qs, -1)
+    rq = _box_sum(ref_stack.reshape(B * H, W), qs).reshape(B, H // qs, -1)
+    hc, wc = cq.shape[1:]
+    mask, clamp = _band_row_masks(tuple(real_rows), hc, qs, cq.device)
+    # cells at/past a band's real content hold padding: clamp them to
+    # the last real cell row so (a) this band's cost rows are masked
+    # anyway and (b) the halo cells it lends (and its own bottom edge
+    # replication) equal the full-frame probe's bottom edge padding
+    rq = torch.gather(rq, 1, clamp[:, :, None].expand(B, hc, wc))
+    rq_ext = band_halo_exchange(rq, qsr)
+    cols = torch.arange(-qsr, wc + qsr, device=rq.device).clamp(0, wc - 1)
+    rq_ext = rq_ext[:, :, cols]
+    n = 2 * qsr + 1
+    wins = torch.stack([rq_ext[:, oy:oy + hc, ox:ox + wc]
+                        for oy in range(n) for ox in range(n)], dim=1)
+    diff = torch.abs(cq[:, None] - wins) * mask[:, None, :, None]
+    return diff.sum(dim=(0, 2, 3), dtype=torch.int32)
+
+
+def banded_coarse_probe(cur_stack, ref_stack, real_rows,
+                        sr: int = SEARCH_RANGE):
+    """`coarse_probe` decomposed over the bands: the summed per-window
+    cost (banded_probe_cost) argmin'd (first minimum) — the SAME
+    global-motion center for every band."""
+    qs = _COARSE
+    qsr = sr // qs
+    n = 2 * qsr + 1
+    cost = banded_probe_cost(cur_stack, ref_stack, real_rows, sr=sr)
+    bi = torch.argmin(cost).to(torch.int32)
+    return torch.stack([bi // n - qsr, bi % n - qsr]) * qs
+
+
+def probe_center_from_cost(cost, sr: int = SEARCH_RANGE):
+    """Host-side tail of a split probe (numpy): argmin the summed
+    per-window costs into the (2,) pel center — the exact mirror of
+    banded_coarse_probe's device argmin (both resolve ties to the first
+    minimum)."""
+    qs = _COARSE
+    qsr = sr // qs
+    n = 2 * qsr + 1
+    bi = int(np.argmin(np.asarray(cost)))
+    return np.asarray([bi // n - qsr, bi % n - qsr], np.int32) * qs
+
+
+def banded_centers_from(cur_stack, ref_stack, pred_mv_h, real_rows,
+                        halo_rows: int):
+    """(3, 2) even-pel centers shared by every band: the summed probe,
+    the carried global median, zero — the banded mirror of
+    `centers_from`, with the vertical component additionally clamped to
+    `halo_clamp(halo_rows)` so every candidate read stays inside the
+    halo."""
+    probe = banded_coarse_probe(cur_stack, ref_stack, real_rows)
+    med_pel = torch.clamp((pred_mv_h.to(torch.int32) + 2) >> 2,
+                          -(_CLIM // 2), _CLIM // 2) * 2
+    lims = (min(halo_clamp(halo_rows), _CLIM), _CLIM)
+    probe = torch.stack([torch.clamp(probe[i], -lims[i], lims[i])
+                         for i in range(2)])
+    med_pel = torch.stack([torch.clamp(med_pel[i], -lims[i], lims[i])
+                           for i in range(2)])
+    zero = torch.zeros(2, dtype=torch.int32, device=cur_stack.device)
+    return torch.stack([probe, med_pel, zero]).to(torch.int32)
+
+
+def hist_counts_banded(mv, mb_mask, lim: int):
+    """MV histogram counts over the REAL macroblocks of every band,
+    summed over the bands: mv (B, n, 2), mb_mask (B, n) bool →
+    ((2 lim + 1, 2) counts, the masked MB count)."""
+    bins = torch.arange(-lim, lim + 1, device=mv.device)
+    hit = ((mv[:, :, None, :] == bins[None, None, :, None])
+           & mb_mask[:, :, None, None])
+    return hit.sum(dim=(0, 1)), mb_mask.sum()
+
+
+def hist_median_banded(mv, mb_mask, lim: int):
+    """`hist_median` decomposed over the bands: the per-band histogram
+    counts over the REAL macroblocks sum before the cumsum/argmax, so
+    every band carries the same global median (the next frame's
+    temporal search center)."""
+    cnt, n = hist_counts_banded(mv, mb_mask, lim)
+    cum = torch.cumsum(cnt, dim=0)
+    hit = (cum >= (n + 1) // 2).to(torch.int32)
+    return (torch.argmax(hit, dim=0) - lim).to(torch.int32)
+
+
+def median_from_counts(cnt, n, lim: int):
+    """Host-side tail of a split median (numpy): the exact mirror of
+    hist_median_banded's cumsum/argmax over summed counts."""
+    cum = np.cumsum(np.asarray(cnt, np.int64), axis=0)
+    return (np.argmax(cum >= (int(n) + 1) // 2, axis=0)
+            - lim).astype(np.int32)
+
+
+def extend_bands(cur_y16, ref_y16, ref_u16, ref_v16, halo: int):
+    """The kernels' inputs for a band stack: each plane extended by
+    `halo` rows a side (chroma halo / 2), the references with their
+    neighbour bands' rows (:func:`band_halo_exchange`), cur by edge
+    replication — its halo rows only feed the discarded extension MBs'
+    SADs and stay in range. Contiguous (B, Hb + 2 halo, W) stacks."""
+    B, Hb, W = cur_y16.shape
+    cur_ext = torch.cat([cur_y16[:, :1].expand(B, halo, W), cur_y16,
+                         cur_y16[:, Hb - 1:].expand(B, halo, W)], dim=1)
+    return (cur_ext, band_halo_exchange(ref_y16, halo),
+            band_halo_exchange(ref_u16, halo // 2),
+            band_halo_exchange(ref_v16, halo // 2))
+
+
+def me_search_banded(cur_y16, ref_y16, ref_u16, ref_v16, pred_mv_h,
+                     qp: int, *, halo_rows: int, real_rows):
+    """Full ME+MC for one P frame of a band stack (the SFE search).
+
+    cur/ref planes are (B, Hb, W) stacks (Hb a multiple of 16), chroma
+    (B, Hb/2, W/2); `halo_rows` (a multiple of 16) reference rows per
+    side come from the neighbour bands (:func:`band_halo_exchange`);
+    `real_rows` holds each band's count of real pixel rows (the last
+    band may carry padding rows — masked out of the probe and median;
+    the host never entropy-codes their MBs). The search runs the
+    UNCHANGED kernels on the extended stack — one launch of each for all
+    bands — and slices each band's MB rows back out; per-MB selection is
+    independent, so the extension rows' results are simply discarded.
+    CUDA tensors go through the kernels, CPU tensors through the plain
+    version, band by band.
+
+    Returns (mv (B, Hb/16, mbw, 2) int32 half-pel, pred_y, pred_u,
+    pred_v int16 band stacks, med_mv_h (2,) int32 — the GLOBAL
+    median)."""
+    B, Hb, _ = cur_y16.shape
+    if halo_rows <= 0 or halo_rows % 16:
+        raise ValueError("halo_rows must be a positive multiple of 16")
+    if len(real_rows) != B:
+        raise ValueError(f"{len(real_rows)} real-row counts for {B} bands")
+    halo = halo_rows
+    ext = extend_bands(cur_y16, ref_y16, ref_u16, ref_v16, halo)
+    centers = banded_centers_from(cur_y16, ref_y16, pred_mv_h, real_rows,
+                                  halo)
+    lam = lambda_for(qp, cur_y16.device)
+    if cur_y16.device.type == "cuda":
+        mv_e, py_e, pu_e, pv_e = me_search_cuda(*ext, centers, lam)
+    else:
+        mv_e, py_e, pu_e, pv_e = me_search_ref(*ext, centers, lam)
+    hm = halo // 16
+    mbh_b = Hb // 16
+    mv = mv_e[:, hm:hm + mbh_b]
+    py = py_e[:, halo:halo + Hb]
+    pu = pu_e[:, halo // 2:(halo + Hb) // 2]
+    pv = pv_e[:, halo // 2:(halo + Hb) // 2]
+    mb_rows, _ = _band_row_masks(tuple(real_rows), mbh_b, 16, mv.device)
+    mb_mask = mb_rows.repeat_interleave(mv.shape[2], dim=1)
+    med = hist_median_banded(mv.reshape(B, -1, 2), mb_mask,
+                             2 * SEARCH_RANGE)
+    return mv, py, pu, pv, med

@@ -223,6 +223,44 @@ class SegmentPlan:
         return math.ceil(self.num_gops / max(1, self.num_devices))
 
 
+@dataclasses.dataclass(frozen=True)
+class BandSpec:
+    """One horizontal MB-row band of a frame — the split-frame-encoding
+    (SFE) unit of intra-frame parallel work. Each band is entropy-coded
+    as its own H.264 slice (`first_mb_in_slice = start_mb_row * mbw`),
+    so the concat of a frame's band slices is a legal picture."""
+
+    index: int            # band index, top to bottom (slice order)
+    start_mb_row: int     # first REAL MB row of this band
+    mb_rows: int          # REAL MB rows entropy-coded from this band
+
+    @property
+    def end_mb_row(self) -> int:
+        return self.start_mb_row + self.mb_rows
+
+
+@dataclasses.dataclass(frozen=True)
+class BandPlan:
+    """Pinned per-job SFE band layout: every band owns `band_mb_rows`
+    padded MB rows (equal shapes, so the bands stack as one batch on a
+    card); only the last band's tail may be padding (encoded then
+    discarded — never entropy-coded). Boundaries are a pure function of
+    the frame's MB height and the band count, so the slice layout of a
+    job never depends on arrival timing or device count."""
+
+    bands: tuple[BandSpec, ...]
+    band_mb_rows: int     # padded MB rows per band
+    mb_width: int
+
+    @property
+    def num_bands(self) -> int:
+        return len(self.bands)
+
+    @property
+    def padded_mb_height(self) -> int:
+        return self.num_bands * self.band_mb_rows
+
+
 @dataclasses.dataclass
 class EncodedSegment:
     """One encoded GOP's bitstream + bookkeeping (the analog of an encoded

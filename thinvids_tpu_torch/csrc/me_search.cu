@@ -47,12 +47,21 @@
 //   3. The winner's luma prediction is read from the staged window; the
 //      chroma prediction is the bilinear of the winner only.
 //
+// Bands: both kernels take a stack of B planes of one shape (a frame is
+// B = 1; split-frame encoding passes its B halo-extended MB-row bands,
+// each (Hb + 2 halo) x W) and run them in one launch, blockIdx.z being
+// the band. Every pointer moves to its band's slab first and every read
+// clamps to that band's own plane, so a band never reads its neighbour's
+// memory in the stack: the clamp equals the plain version's edge
+// replication of each band plane, as for a frame. All bands share the
+// centres and lam.
+//
 // C interface (loaded with ctypes): me_search_set_table copies the
 // candidate table to the current device; me_search_halo returns kHalo
 // (the wrapper checks it against its own constant); me_halfpel_launch and
-// me_search_launch enqueue one kernel each on the given stream and return
-// cudaGetLastError(). Centres and lam are device pointers, read by the
-// kernel, so no launch synchronizes.
+// me_search_launch enqueue one kernel each, over all B planes, on the
+// given stream and return cudaGetLastError(). Centres and lam are device
+// pointers, read by the kernel, so no launch synchronizes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -123,9 +132,10 @@ __device__ __forceinline__ int align_off(int cx) {
   return (cx + kHalo - kReach) & 15;
 }
 
-// Planes: 4 x (H + 2 kHalo) x (W + 2 kHalo) bytes, plane p at row r, col c
-// holds the value at pel (r - kHalo, c - kHalo): p = 0 full pel, 1 = b
-// (horizontal half), 2 = h (vertical half), 3 = j (diagonal).
+// Planes of band z: 4 x (H + 2 kHalo) x (W + 2 kHalo) bytes, plane p at
+// row r, col c holds the value at pel (r - kHalo, c - kHalo) of the band:
+// p = 0 full pel, 1 = b (horizontal half), 2 = h (vertical half), 3 = j
+// (diagonal).
 __global__ void __launch_bounds__(kPreThreads)
 halfpel_kernel(const int16_t* __restrict__ ref, int H, int W,
                uint32_t* __restrict__ planes) {
@@ -134,6 +144,8 @@ halfpel_kernel(const int16_t* __restrict__ ref, int H, int W,
   __shared__ __align__(4) uint8_t s_out[4][kPreRows][kPreCols];
   const int t = threadIdx.x;
   const int Hp = H + 2 * kHalo, Wp = W + 2 * kHalo;
+  ref += (size_t)blockIdx.z * H * W;
+  planes += (size_t)blockIdx.z * 4 * Hp * (Wp / 4);
   const int r0 = blockIdx.y * kPreRows, c0 = blockIdx.x * kPreCols;
   // s_ref[i][j] = ref at plane (r0 - 2 + i, c0 - 2 + j), clamped
   for (int i = t; i < (kPreRows + 5) * (kPreCols + 5); i += kPreThreads) {
@@ -202,6 +214,17 @@ search_kernel(const int16_t* __restrict__ cur,
   const int x0 = blockIdx.x * kMbs * 16, y0 = blockIdx.y * 16;
   const int Wq = (W + 2 * kHalo) >> 2;                 // words a plane row
   const size_t plane = (size_t)(H + 2 * kHalo) * Wq;
+  {  // band z's slab of every input and output
+    const size_t z = blockIdx.z, hw = (size_t)H * W, hw4 = hw / 4;
+    cur += z * hw;
+    planes += z * 4 * plane;
+    ru += z * hw4;
+    rv += z * hw4;
+    mv += z * (hw / 128);            // (H / 16) (W / 16) MBs, 2 words each
+    py += z * hw;
+    pu += z * hw4;
+    pv += z * hw4;
+  }
 
   // ---- stage: windows of the planes around each centre, current MBs ----
   // window row i, chunk k <- plane row y0 + cy - kReach + kHalo + i, 16-byte
@@ -358,10 +381,10 @@ extern "C" int me_search_set_table(const void* tab, int n) {
 
 extern "C" int me_search_halo() { return kHalo; }
 
-extern "C" int me_halfpel_launch(const void* ref, int H, int W, void* planes,
-                                 void* stream) {
+extern "C" int me_halfpel_launch(const void* ref, int B, int H, int W,
+                                 void* planes, void* stream) {
   const dim3 grid((W + 2 * kHalo + kPreCols - 1) / kPreCols,
-                  (H + 2 * kHalo) / kPreRows);
+                  (H + 2 * kHalo) / kPreRows, B);
   halfpel_kernel<<<grid, kPreThreads, 0, (cudaStream_t)stream>>>(
       (const int16_t*)ref, H, W, (uint32_t*)planes);
   return (int)cudaGetLastError();
@@ -369,10 +392,10 @@ extern "C" int me_halfpel_launch(const void* ref, int H, int W, void* planes,
 
 extern "C" int me_search_launch(const void* cur, const void* planes,
                                 const void* ru, const void* rv,
-                                const void* centers, const void* lam, int H,
-                                int W, void* mv, void* py, void* pu, void* pv,
-                                void* stream) {
-  const dim3 grid((W / 16 + kMbs - 1) / kMbs, H / 16);
+                                const void* centers, const void* lam, int B,
+                                int H, int W, void* mv, void* py, void* pu,
+                                void* pv, void* stream) {
+  const dim3 grid((W / 16 + kMbs - 1) / kMbs, H / 16, B);
   search_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int16_t*)cur, (const uint32_t*)planes, (const int16_t*)ru,
       (const int16_t*)rv, (const int32_t*)centers, (const int32_t*)lam, H, W,

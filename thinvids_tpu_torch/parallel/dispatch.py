@@ -33,6 +33,11 @@ Ingest is a pipelined stage: `stage_waves` accepts a streaming source
 the current wave's decoded frames (a sliding _FrameCursor window), and
 :func:`background_stage` runs the decode→stack→upload chain on a staging
 thread up to `decode_ahead` waves ahead of dispatch.
+
+Split-frame encoding (:class:`SfeShardEncoder`, ``sfe_bands > 0``) is
+the single-stream latency mode: every frame is cut into MB-row bands,
+each band its own slice, held on the card as one band stack and stepped
+one frame at a time.
 """
 
 from __future__ import annotations
@@ -50,16 +55,19 @@ import torch
 
 from ..core.config import as_bool, get_settings
 from ..core.devices import resolve_device
-from ..core.types import (EncodedSegment, Frame, GopSpec, SegmentPlan,
-                          VideoMeta, is_yuv420)
+from ..core.types import (BandPlan, EncodedSegment, Frame, GopSpec,
+                          SegmentPlan, VideoMeta, is_yuv420)
 from ..codecs.h264 import torchcore, torchinter
-from ..codecs.h264.encoder import gop_slice_thunks_planes, pack_slice
+from ..codecs.h264.encoder import (FrameLevels, _mode_policy,
+                                   gop_slice_thunks_planes, pack_slice,
+                                   unpack_mode16)
 from ..codecs.h264.headers import PPS, SPS
 from ..codecs.h264.layout import _INTRA_FLAT_MB as _INTRA_MB
 from ..codecs.h264.layout import (_P_FLAT_MB, unflatten_gop,
-                                  unflatten_gop_parts, unpack_compact_auto)
+                                  unflatten_gop_parts, unflatten_intra,
+                                  unflatten_p_planes, unpack_compact_auto)
 from ..codecs.h264.rdo import RD_OFF, RdConfig, rd_from_settings
-from .planner import plan_segments
+from .planner import plan_bands, plan_fixed_segments, plan_segments
 
 _LOG = logging.getLogger(__name__)
 
@@ -917,6 +925,508 @@ class GopShardEncoder:
         return np.stack(arrs)
 
 
+
+# ---------------------------------------------------------------------------
+# split-frame encoding (SFE): one frame as MB-row bands on one card
+#
+# All parallelism above is GOP-level — ideal for farm throughput, useless
+# for the latency of a single stream. SFE instead splits every frame into
+# horizontal MB-row bands (parallel/planner.plan_bands) and steps ONE
+# FRAME per device step: the recon carry chains between steps on the
+# card, motion estimation reads a halo of reference rows from the
+# neighbour bands (torchme.band_halo_exchange: the bands are one stack,
+# so a halo is a slice), and every band entropy-codes as its own H.264
+# slice (first_mb_in_slice = band start) so the concat of a frame's band
+# slices is a legal picture with no host-side re-mux.
+#
+# The reference puts one band on each device of a ("band",) mesh and caps
+# the band count at the device count; here every band lives on the one
+# card as a leading band dimension, and the layout is plan_bands(mbh,
+# mbw, sfe_bands) whatever the device count — the reference's streams on
+# as many devices as there are bands, byte for byte.
+# ---------------------------------------------------------------------------
+
+
+def _sfe_pack_band(flat):
+    """Per-band compact transfer pack of a (B, L) stack: two-tier sparse
+    + byte-payload fold with UNIT budget divisors — the buffers are
+    per-frame-band sized, the fetch moves only the used prefix, and the
+    only overflow left is an int8 escape (n_esc > 0 → the GOP reruns
+    dense, the wave path's fallback contract). Returns (nblk, nval,
+    n_esc, used, payload), each with a leading band dimension."""
+    outs = []
+    for row in flat:
+        nblk, nval, n_esc, bitmap, bmask16, vals = \
+            torchcore._block_sparse_pack2(row, 1, 1)
+        used, payload = torchcore._compact_stream(nblk, nval, bitmap,
+                                                  bmask16, vals)
+        outs.append((nblk, nval, n_esc, used, payload))
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _sfe_intra_step(ys, us, vs, qp: int, real_rows, *, mbw: int,
+                    mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0):
+    """One IDR frame of a band stack (ys (B, Hb, W)): the slice-local
+    intra core per band and the compact pack of each band's levels.
+    Returns (dense, nblk, nval, n_esc, used, payload) with a leading band
+    dimension, then the recon carry (ry, ru, rv, pred_mv)."""
+    dense, rest, carry = torchinter.sfe_intra_band(
+        ys, us, vs, qp, real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
+        total_mb_rows=total_mb_rows)
+    return (dense,) + _sfe_pack_band(rest) + carry
+
+
+def _sfe_p_step(ys, us, vs, ry, ru, rv, pmv, qp: int, real_rows, *,
+                mbw: int, mbh_band: int, halo_rows: int, rd=RD_OFF,
+                total_mb_rows: int = 0):
+    """One P frame of a band stack: the banded search, the residual and
+    the compact pack of each band's levels. Returns (mv8, nblk, nval,
+    n_esc, used, payload) with a leading band dimension, then the carry
+    (ry, ru, rv, med_mv)."""
+    mv8, flat, carry = torchinter.sfe_p_band(
+        ys, us, vs, (ry, ru, rv, pmv), qp, real_rows, mbw=mbw,
+        mbh_band=mbh_band, halo_rows=halo_rows, rd=rd,
+        total_mb_rows=total_mb_rows)
+    return (mv8,) + _sfe_pack_band(flat) + carry
+
+
+def _sfe_intra_step_dense(ys, us, vs, qp: int, real_rows, *, mbw: int,
+                          mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0):
+    """Escape fallback: the same intra step emitting each band's flat
+    int16 levels uncompressed (layout.unflatten_intra's inverse)."""
+    flat, carry = torchinter.sfe_intra_band_dense(
+        ys, us, vs, qp, real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
+        total_mb_rows=total_mb_rows)
+    return (flat,) + carry
+
+
+def _sfe_p_step_dense(ys, us, vs, ry, ru, rv, pmv, qp: int, real_rows, *,
+                      mbw: int, mbh_band: int, halo_rows: int, rd=RD_OFF,
+                      total_mb_rows: int = 0):
+    mv8, flat, carry = torchinter.sfe_p_band(
+        ys, us, vs, (ry, ru, rv, pmv), qp, real_rows, mbw=mbw,
+        mbh_band=mbh_band, halo_rows=halo_rows, rd=rd,
+        total_mb_rows=total_mb_rows)
+    return (mv8, flat) + carry
+
+
+class SfeShardEncoder(GopShardEncoder):
+    """Split-frame encoding: ONE frame cut into horizontal MB-row bands,
+    each entropy-coded as its own H.264 slice, all bands held on one
+    card as a band stack.
+
+    The GOP walk is sequential (this is the single-stream latency mode —
+    GOP-level parallelism is the parent class); within a GOP, frames
+    step one at a time with the recon carry resident on the card, and
+    the collect path is PER FRAME: a frame's band levels are fetched and
+    its band slices packed (concurrently on the pack pool) as soon as
+    its step completes — `frame_done_t` records each frame's
+    bitstream-ready timestamp (`frame_latencies_ms`).
+
+    A "wave" for the executor's retry/progress machinery is one GOP
+    (closed: an IDR step resets the carry, so a failed GOP re-dispatches
+    from its retained staged frames like any wave).
+
+    Output contract: byte-stream-legal multi-slice pictures — the concat
+    of a GOP's frames is a closed GOP exactly like the parent's, just
+    with `num_bands` slices per picture; downstream (MP4 mux) groups
+    slices into access units by first_mb_in_slice.
+
+    Not ported yet: the cross-host band slice (`total_bands`,
+    `band_range`; ROADMAP A12)."""
+
+    def __init__(self, meta: VideoMeta, qp: int = 27, gop_frames: int = 32,
+                 max_segments: int = 200, bands: int = 0,
+                 halo_rows: int | None = None,
+                 pack_workers: int | None = None,
+                 pipeline_window: int | None = None,
+                 decode_ahead: int | None = None,
+                 total_bands: int = 0,
+                 band_range: tuple[int, int] | None = None,
+                 rd: RdConfig | None = None, device="cuda"):
+        if total_bands or band_range is not None:
+            raise NotImplementedError(
+                "cross-host band slices (total_bands / band_range) are not "
+                "ported yet (ROADMAP A12)")
+        snap = get_settings()
+        mbh = (meta.height + 15) // 16
+        mbw = (meta.width + 15) // 16
+        #: pinned band layout: a pure function of (mbh, mbw, bands). The
+        #: reference caps `bands` at its device count; one card holds
+        #: every band here (bands=0 = one band per device = one)
+        self.band_plan: BandPlan = plan_bands(mbh, mbw,
+                                              max(1, int(bands) or 1))
+        super().__init__(meta, qp=qp, gop_frames=gop_frames,
+                         max_segments=max_segments, inter=True,
+                         gops_per_wave=1, pack_workers=pack_workers,
+                         pipeline_window=pipeline_window,
+                         decode_ahead=decode_ahead, pack_backend="thread",
+                         rd=rd, device=device)
+        if halo_rows is None:
+            halo_rows = int(snap.get("sfe_halo_rows", 32) or 32)
+        #: reference rows exchanged per side (multiple of 16). >= 23
+        #: (SEARCH_RANGE + window + taps) keeps the banded search
+        #: bit-identical to full-frame; smaller clamps the vertical
+        #: search range (torchme.halo_clamp) — bounded, not drifting.
+        #: Capped at the band height: a halo comes from ONE neighbour, so
+        #: very thin bands trade vertical range for width.
+        self.halo_rows = max(16, (int(halo_rows) // 16) * 16)
+        self.halo_rows = min(self.halo_rows,
+                             self.band_plan.band_mb_rows * 16)
+        #: per-frame bitstream-ready timestamps (time.perf_counter), in
+        #: encode order — the latency source. Bounded: a long-running
+        #: job appends one entry per frame.
+        self.frame_done_t: deque = deque(maxlen=4096)
+        #: previous frame's bitstream-ready perf_counter
+        self._last_frame_done: float | None = None
+        #: test hook: fetch each frame's recon carry into `recon_frames`
+        #: (absolute frame index → display-cropped y/u/v uint8) — keyed,
+        #: not appended: pipelined GOPs collect on concurrent threads
+        self.keep_recon = False
+        self.recon_frames: dict[int, tuple] = {}
+        # perceptual AQ would make the activity mean band-local (a
+        # different map than the unbanded program): strip it with a log
+        # line rather than encode something byte-different per band count
+        if self.rd.aq_q:
+            _LOG.warning("perceptual AQ is not supported by split-frame "
+                         "encoding; encoding this job with aq off")
+            import dataclasses as _dc
+
+            self.rd = _dc.replace(self.rd, aq_q=0)
+        #: the picture's REAL MB rows (band-grid padding rows beyond it
+        #: carry no coded MBs): the deblock masks key off this
+        self._total_mb_rows = mbh
+        #: each band's real pixel rows (the last band may hold padding)
+        self._real_rows = tuple(b.mb_rows * 16 for b in self.band_plan.bands)
+
+    @property
+    def num_bands(self) -> int:
+        return self.band_plan.num_bands
+
+    def plan(self, num_frames: int) -> SegmentPlan:
+        if self.plan_override is not None:
+            return self.plan_override
+        # fixed grid: GOP boundaries are a pure function of (num_frames,
+        # gop_frames, max_segments); max_segments is honored by growing
+        # the GOP length once up front
+        gop = max(self.gop_frames,
+                  -(-num_frames // max(1, self.max_segments)))
+        return plan_fixed_segments(num_frames, gop, self.num_bands)
+
+    # -- staging --------------------------------------------------------
+
+    @staticmethod
+    def _pad_rows(plane: np.ndarray, rows: int) -> np.ndarray:
+        if plane.shape[0] == rows:
+            return plane
+        pad = rows - plane.shape[0]
+        return np.concatenate([plane, np.repeat(plane[-1:], pad, axis=0)])
+
+    def stage_waves(self, frames):
+        """One GOP per staged wave: its frames padded to the band grid's
+        height (edge replication — the padding rows are computed and
+        discarded), stacked and uploaded as (F, B, Hb, W) band stacks."""
+        plan = self.plan(len(frames))
+        cursor = _FrameCursor(frames, self.stages, require_420=True,
+                              stats=self.staging_stats)
+        bp = self.band_plan
+        B, Hb = bp.num_bands, bp.band_mb_rows * 16
+        Hg = B * Hb
+        for gop in plan.gops:
+            cursor.get(gop.end_frame - 1)   # decode outside "stage"
+            with self.stages.stage("stage"):
+                planes = []
+                for name, rows in (("y", Hg), ("u", Hg // 2),
+                                   ("v", Hg // 2)):
+                    a = np.stack([
+                        self._pad_rows(getattr(cursor.get(i), name), rows)
+                        for i in range(gop.start_frame, gop.end_frame)])
+                    planes.append(a.reshape(a.shape[0], B, rows // B,
+                                            a.shape[2]))
+                self.stages.bump("h2d_bytes", sum(a.nbytes for a in planes))
+                ys, us, vs = (self._upload(a) for a in planes)
+                qp = int(self.gop_qp.get(gop.index, self.qp))
+            yield (gop, ys, us, vs, qp)
+            cursor.release_below(gop.end_frame)
+
+    # -- device steps ---------------------------------------------------
+
+    def encode_waves(self, waves, window: int | None = None
+                     ) -> list[EncodedSegment]:
+        # fresh latency baseline per encode pass: the idle gap since a
+        # previous pass's last frame is not a per-frame latency
+        self._last_frame_done = None
+        return super().encode_waves(waves, window=window)
+
+    def _intra_step(self, ys, us, vs, qp: int, dense: bool = False):
+        bp = self.band_plan
+        step = _sfe_intra_step_dense if dense else _sfe_intra_step
+        return step(ys, us, vs, qp, self._real_rows, mbw=bp.mb_width,
+                    mbh_band=bp.band_mb_rows, rd=self.rd,
+                    total_mb_rows=self._total_mb_rows)
+
+    def _p_step(self, ys, us, vs, carry, qp: int, dense: bool = False):
+        bp = self.band_plan
+        step = _sfe_p_step_dense if dense else _sfe_p_step
+        return step(ys, us, vs, *carry, qp, self._real_rows,
+                    mbw=bp.mb_width, mbh_band=bp.band_mb_rows,
+                    halo_rows=self.halo_rows, rd=self.rd,
+                    total_mb_rows=self._total_mb_rows)
+
+    def _frame_event(self):
+        """An event recorded after the frame's last kernel (CUDA), for the
+        collector thread to wait on before it copies."""
+        if self.device.type != "cuda":
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return done
+
+    def dispatch_wave(self, staged: tuple) -> tuple:
+        """Enqueue one GOP's per-frame steps (the card runs them in order
+        as the recon carry chains). Returns the per-frame outputs, each
+        frame's carry (the keep_recon hook only) and each frame's done
+        event."""
+        with self.stages.stage("dispatch"):
+            gop, ys, us, vs, qp = staged
+            outs: list[tuple] = []
+            carries: list = []
+            events: list = []
+            carry = None
+            for fi in range(gop.num_frames):
+                if fi == 0:
+                    r = self._intra_step(ys[0], us[0], vs[0], qp)
+                else:
+                    r = self._p_step(ys[fi], us[fi], vs[fi], carry, qp)
+                carry = r[6:]
+                outs.append(r[:6])
+                # per-frame carries stay alive ONLY for the test hook:
+                # each is a full set of band recon planes
+                carries.append(carry if self.keep_recon else None)
+                events.append(self._frame_event())
+            return (gop, staged, outs, carries, events)
+
+    # -- per-frame collect ---------------------------------------------
+
+    def _band_sizes(self, intra: bool) -> tuple[int, int]:
+        """(nmb_band, L) of one band's sparse transfer vector."""
+        bp = self.band_plan
+        nmb = bp.mb_width * bp.band_mb_rows
+        L = nmb * (_INTRA_MB - 24) if intra else nmb * _P_FLAT_MB
+        return nmb, L
+
+    def _pack_intra_levels(self, intra, bi: int, qp: int,
+                           idr_pic_id: int) -> bytes:
+        """Shared tail of the sparse and dense-fallback intra band packs
+        (which must stay bit-identical): truncate to the band's REAL MB
+        rows and emit its IDR band slice. The mode raster — shipped per
+        MB when rd.ships_modes, the slice-local _mode_policy otherwise —
+        is BAND-relative either way: the band's first MB row is its
+        slice's row 0."""
+        bp = self.band_plan
+        band = bp.bands[bi]
+        mbw = bp.mb_width
+        n_real = band.mb_rows * mbw
+        if len(intra) == 6:
+            il_dc, il_ac, ic_dc, ic_ac, mode16, _dqp = intra
+            luma_mode, chroma_mode = unpack_mode16(mode16[:n_real])
+        else:
+            il_dc, il_ac, ic_dc, ic_ac = intra
+            luma_mode, chroma_mode = _mode_policy(mbw, band.mb_rows)
+        levels = FrameLevels(
+            luma_mode=luma_mode, chroma_mode=chroma_mode,
+            luma_dc=il_dc[:n_real], luma_ac=il_ac[:n_real],
+            chroma_dc=ic_dc[:n_real], chroma_ac=ic_ac[:n_real])
+        return pack_slice(levels, mbw, band.mb_rows, self.sps, self.pps,
+                          qp, frame_num=0, idr=True,
+                          idr_pic_id=idr_pic_id,
+                          first_mb=band.start_mb_row * mbw,
+                          deblock=self.rd.deblock)
+
+    def _pack_intra_band(self, dense_b, rest, bi: int, qp: int,
+                         idr_pic_id: int) -> bytes:
+        bp = self.band_plan
+        intra = unflatten_gop_parts(dense_b, rest,
+                                    np.empty((0, 0, 2), np.int8), 1,
+                                    bp.mb_width, bp.band_mb_rows,
+                                    ships_modes=self.rd.ships_modes)[0]
+        return self._pack_intra_levels(intra, bi, qp, idr_pic_id)
+
+    def _pack_intra_band_dense(self, flat_b, bi: int, qp: int,
+                               idr_pic_id: int) -> bytes:
+        bp = self.band_plan
+        nmb = bp.mb_width * bp.band_mb_rows
+        flat_b = np.asarray(flat_b)
+        intra = unflatten_intra(flat_b[:nmb * _INTRA_MB], nmb)
+        if self.rd.ships_modes:
+            t = nmb * _INTRA_MB
+            intra = intra + (flat_b[t:t + nmb], flat_b[t + nmb:])
+        return self._pack_intra_levels(intra, bi, qp, idr_pic_id)
+
+    def _pack_p_band(self, mv8_b, rest, bi: int, qp: int,
+                     frame_num: int) -> bytes:
+        from ..codecs.h264 import inter as inter_mod
+
+        bp = self.band_plan
+        band = bp.bands[bi]
+        mbw = bp.mb_width
+        mv, lp, udc, vdc, uac, vac = unflatten_p_planes(
+            rest, mv8_b, 2, mbw, bp.band_mb_rows)
+        rr = band.mb_rows * 16
+        n_real = band.mb_rows * mbw
+        return inter_mod.pack_p_slice_plane(
+            mv[:n_real], lp[0][:rr], udc[0][:n_real], vdc[0][:n_real],
+            uac[0][:rr // 2], vac[0][:rr // 2], mbw, band.mb_rows,
+            self.sps, self.pps, qp, frame_num=frame_num,
+            first_mb=band.start_mb_row * mbw, deblock=self.rd.deblock)
+
+    def _gather_frame(self, thunks: list) -> list[bytes]:
+        pool = self._pack_pool
+        if pool is None:
+            return [t() for t in thunks]
+        return [f.result() for f in [pool.submit(t) for t in thunks]]
+
+    def _note_frame_done(self) -> None:
+        """One SFE frame's bitstream is ready: stamp frame_done_t (the
+        latency source) and count it."""
+        now = time.perf_counter()
+        self._last_frame_done = now
+        self.stages.bump("sfe_frames")
+        self.frame_done_t.append(now)
+
+    def _keep_recon(self, carry, frame_index: int) -> None:
+        h, w = self.meta.height, self.meta.width
+        self.recon_frames[frame_index] = tuple(
+            _to_host(p.reshape(-1, p.shape[-1]))[:rows, :cols].astype(
+                np.uint8)
+            for p, rows, cols in zip(carry[:3], (h, h // 2, h // 2),
+                                     (w, w // 2, w // 2)))
+
+    def _frame_nal(self, thunks: list, fi: int) -> bytes:
+        frame_nal = b"".join(self._gather_frame(thunks))
+        if fi == 0:
+            frame_nal = self.sps.to_nal() + self.pps.to_nal() + frame_nal
+        return frame_nal
+
+    def collect_wave(self, pending: tuple) -> list[EncodedSegment]:
+        """Per-FRAME collect: wait for frame fi's step, fetch its tiny
+        counts, then its band payloads' used prefixes, entropy-pack its
+        band slices on the pack pool, and emit the frame's bytes — while
+        the card runs the frames after it. An int8 escape in any band
+        reruns the whole GOP through the dense-transfer steps
+        (bit-identical levels, wider fetch), the wave path's fallback
+        contract."""
+        gop, staged, outs, carries, events = pending
+        prof = self.stages
+        bp = self.band_plan
+        qp = staged[4]
+        if self.gop_index_offset or self.frame_offset:
+            import dataclasses as _dc
+
+            gop = _dc.replace(gop, index=gop.index + self.gop_index_offset,
+                              start_frame=(gop.start_frame
+                                           + self.frame_offset))
+        idr_pic_id = gop.index % 65536
+        nals: list[bytes] = []
+        dense_from = None
+        for fi, out in enumerate(outs):
+            head, nblk, nval, n_esc, used, payload = out
+            with prof.stage("device_wait"):
+                if events[fi] is not None:
+                    events[fi].synchronize()
+                tiny = [_to_host(t) for t in (nblk, nval, n_esc, used)]
+            prof.bump("d2h_bytes", sum(int(a.nbytes) for a in tiny))
+            nblk_h, nval_h, nesc_h, used_h = tiny
+            if int(nesc_h.max()) > 0:
+                dense_from = fi         # escape: rerun the GOP dense
+                break
+            _, L = self._band_sizes(intra=(fi == 0))
+            with prof.stage("fetch"):
+                (head_h,) = self._fetch_bulk([head])
+                rows = self._fetch_payload_rows(payload, used_h)
+            with prof.stage("sfe"):
+                thunks = []
+                for bi in range(bp.num_bands):
+                    rest = functools.partial(
+                        unpack_compact_auto, rows[bi][:int(used_h[bi])],
+                        int(nblk_h[bi]), int(nval_h[bi]), L)
+                    if fi == 0:
+                        thunks.append(functools.partial(
+                            lambda r, b: self._pack_intra_band(
+                                head_h[b], r(), b, qp, idr_pic_id),
+                            rest, bi))
+                    else:
+                        thunks.append(functools.partial(
+                            lambda r, b, fn: self._pack_p_band(
+                                head_h[b], r(), b, qp, fn),
+                            rest, bi, fi % 256))
+                nals.append(self._frame_nal(thunks, fi))
+            self._note_frame_done()
+            if self.keep_recon:
+                self._keep_recon(carries[fi], gop.start_frame + fi)
+        if dense_from is not None:
+            nals = self._collect_dense(gop, staged, nals, dense_from)
+        with prof.stage("concat"):
+            seg = EncodedSegment(gop=gop, payload=b"".join(nals),
+                                 frame_sizes=tuple(len(n) for n in nals))
+        prof.count_wave()
+        return [seg]
+
+    def _collect_dense(self, gop: GopSpec, staged: tuple,
+                       nals: list[bytes], dense_from: int) -> list[bytes]:
+        """Escape fallback: rerun the GOP through the dense-transfer
+        steps (same compute, uncompressed int16 levels) and pack every
+        frame from `dense_from` on. Frames already packed from the sparse
+        path are kept — levels are identical either way."""
+        prof = self.stages
+        bp = self.band_plan
+        _, ys, us, vs, qp = staged
+        idr_pic_id = gop.index % 65536
+        prof.bump("dense_fallback_waves")
+        with prof.stage("dense_retry"):
+            carry = None
+            for fi in range(gop.num_frames):
+                if fi == 0:
+                    r = self._intra_step(ys[0], us[0], vs[0], qp,
+                                         dense=True)
+                    head, flat, carry = None, r[0], r[1:]
+                else:
+                    r = self._p_step(ys[fi], us[fi], vs[fi], carry, qp,
+                                     dense=True)
+                    head, flat, carry = r[0], r[1], r[2:]
+                if fi < dense_from:
+                    continue            # already packed from sparse
+                if head is None:
+                    (flat_h,) = self._fetch_bulk([flat])
+                else:
+                    head_h, flat_h = self._fetch_bulk([head, flat])
+                thunks = []
+                for bi in range(bp.num_bands):
+                    if fi == 0:
+                        thunks.append(functools.partial(
+                            self._pack_intra_band_dense, flat_h[bi], bi,
+                            qp, idr_pic_id))
+                    else:
+                        thunks.append(functools.partial(
+                            self._pack_p_band, head_h[bi], flat_h[bi], bi,
+                            qp, fi % 256))
+                nals.append(self._frame_nal(thunks, fi))
+                self._note_frame_done()
+                if self.keep_recon:
+                    self._keep_recon(carry, gop.start_frame + fi)
+        return nals
+
+    def frame_latencies_ms(self) -> list[float]:
+        """Per-frame pipeline latency: the gap between consecutive
+        frames' bitstream-ready timestamps within the steady state — at
+        the live edge each frame exits the (device step → fetch → band
+        pack) pipeline one such gap after entering it. The first frame
+        of the run (cold: includes dispatch of the whole first GOP) is
+        excluded. Sorted first: overlapping collector threads append
+        near-, not strictly-, in order."""
+        ts = sorted(self.frame_done_t)
+        return [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
+
 def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
                        shape: str | None = None, rungs=None,
                        qp: int | None = None, total_bands: int = 0,
@@ -931,13 +1441,15 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
     The RD features resolve inside GopShardEncoder from the process
     settings snapshot, as the reference's do (it passes no `rd` here).
 
+    `shape=None` resolves from settings (`sfe_bands > 0` → the band
+    shape, :class:`SfeShardEncoder`, with `sfe_halo_rows` unless
+    `halo_rows` is given; else GOP waves).
+
     The reference's other shapes are not ported yet, and each raises
     NotImplementedError naming its ROADMAP item rather than encoding
     something else in its place: a device mesh (multi-GPU waves, A2),
-    the ladder form (`rungs`, A9), split-frame bands (`sfe_bands > 0` or
-    shape="band", A11) and cross-host band slices (`band_range` /
-    `total_bands`, A12). `halo_rows` and `session` belong to the band
-    forms."""
+    the ladder form (`rungs`, A9) and cross-host band slices
+    (`band_range` / `total_bands` / `session`, A12)."""
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh (multi-GPU waves) is not ported yet (ROADMAP "
@@ -951,13 +1463,17 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
     if shape is None:
         shape = "band" if int(settings.get("sfe_bands", 0) or 0) > 0 \
             else "gop"
+    qp = int(settings.qp) if qp is None else int(qp)
     if shape == "band":
-        raise NotImplementedError(
-            "split-frame encoding (sfe_bands > 0) is not ported yet "
-            "(ROADMAP A11)")
+        if halo_rows is None:
+            halo_rows = int(settings.get("sfe_halo_rows", 32) or 32)
+        return SfeShardEncoder(
+            meta, qp=qp, gop_frames=int(settings.gop_frames),
+            max_segments=int(settings.max_segments),
+            bands=int(settings.get("sfe_bands", 0) or 0),
+            halo_rows=halo_rows, device=device)
     if shape != "gop":
         raise ValueError(f"unknown shard shape {shape!r}")
-    qp = int(settings.qp) if qp is None else int(qp)
     return GopShardEncoder(meta, qp=qp,
                            gop_frames=int(settings.gop_frames),
                            max_segments=int(settings.max_segments),

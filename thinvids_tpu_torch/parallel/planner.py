@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 
-from ..core.types import GopSpec, SegmentPlan
+from ..core.types import BandPlan, BandSpec, GopSpec, SegmentPlan
 
 
 def plan_segments(num_frames: int, gop_frames: int, num_devices: int,
@@ -49,3 +49,57 @@ def plan_segments(num_frames: int, gop_frames: int, num_devices: int,
     assert start == num_frames
     return SegmentPlan(gops=tuple(gops), num_devices=num_devices,
                        frames_per_gop=gop_frames)
+
+
+def plan_fixed_segments(num_frames: int, gop_frames: int,
+                        num_devices: int = 1) -> SegmentPlan:
+    """Fixed GOP grid: exactly `gop_frames` per GOP (short tail at the
+    end), indices from 0 — boundaries a pure function of the frame
+    index, never of device count or batch size. The split-frame path
+    (parallel/dispatch.SfeShardEncoder) pins its latency-ordered GOP
+    walk with it: the bands parallelize WITHIN a frame and must not
+    reshape the GOP grid."""
+    if num_frames <= 0:
+        raise ValueError("num_frames must be positive")
+    if gop_frames <= 0:
+        raise ValueError("gop_frames must be positive")
+    gops = []
+    start = 0
+    while start < num_frames:
+        n = min(gop_frames, num_frames - start)
+        gops.append(GopSpec(index=len(gops), start_frame=start,
+                            num_frames=n))
+        start += n
+    return SegmentPlan(gops=tuple(gops), num_devices=num_devices,
+                       frames_per_gop=gop_frames)
+
+
+def plan_bands(mb_height: int, mb_width: int, num_bands: int) -> BandPlan:
+    """Pin the split-frame-encoding band layout for one job.
+
+    Each of the (at most) `num_bands` bands owns an EQUAL
+    `band_mb_rows = ceil(mb_height / num_bands)` MB-row slab and
+    entropy-codes only its REAL rows. When `band_mb_rows` covers
+    `mb_height` in fewer than `num_bands` bands (short frames, many
+    bands), the plan shrinks to the bands that hold at least one real
+    MB row: a fully-padded band would have no real edge row to source
+    halo pixels from, and would only ever encode discarded rows.
+
+    Boundaries are MB-aligned by construction and a pure function of
+    (mb_height, num_bands): the slice layout of a stream never depends
+    on which frame or wave is being encoded.
+    """
+    if mb_height <= 0 or mb_width <= 0:
+        raise ValueError("mb_height and mb_width must be positive")
+    if num_bands <= 0:
+        raise ValueError("num_bands must be positive")
+    rows = math.ceil(mb_height / num_bands)
+    n = math.ceil(mb_height / rows)          # bands with >= 1 real row
+    bands = []
+    for i in range(n):
+        start = i * rows
+        bands.append(BandSpec(index=i, start_mb_row=start,
+                              mb_rows=min(rows, mb_height - start)))
+    assert bands[-1].end_mb_row == mb_height
+    return BandPlan(bands=tuple(bands), band_mb_rows=rows,
+                    mb_width=mb_width)
