@@ -15,7 +15,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
               version on the card, bit-exactly, at the main path's shapes
               and on small ones (MB rows that fill the search's MB strips
               partly, coinciding centres, content at the search's edge,
-              qp 0 / 27 / 51); time each at 1088x1920 with CUDA events
+              qp 0 / 27 / 51, the ladder point's lower rungs at 720x1280,
+              480x864 and 368x640); time each at 1088x1920 with CUDA events
               around 50 back-to-back launches (eagerly and as one CUDA
               graph), median of 5, plain versions median of 5, beside
               each kernel's bound. Then the banded launch: one launch of
@@ -61,12 +62,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
               sha256 must equal the JAX package's (RD_POINT_JAX, from
               scripts/jax_rd_point.py). Then GopShardEncoder(rd=RD_ALL,
               gop_frames=8) over the same frames must equal the per-GOP
-              encode_gop streams; at 352x288 the card's bytes and recon
-              equal the CPU's for every RD config the CPU tests use, the
-              all-intra wave with mode decision + AQ, and the process pack
-              with every feature on; and the breakdown of the RD parts
-              (IDR frame per feature, P frame with the P_Skip bias and
-              the filter, the filter alone by CUDA events).
+              encode_gop streams; the breakdown of the RD parts (IDR
+              frame per feature, P frame with the P_Skip bias and the
+              filter, one timed round after a warm-up; the filter alone
+              by CUDA events; a profiler count of three of them). Each
+              sub-step's seconds are printed.
 10. sfe     — split-frame encoding on the card. bench.py's _run_sfe
               point: 3840x2160, 16 frames, gop 8, qp 27, 4 MB-row bands
               (34 + 34 + 34 + 33 rows), halo 32, through
@@ -82,11 +82,47 @@ Phases, in order; any failed check raises and the script exits non-zero:
               banded P step, the banded search by CUDA events). An RD
               point (1920x1080, 16 frames, gop 8, qp 25, 4 bands, mode
               decision + P_Skip bias + deblocking; AQ stripped) must give
-              the JAX package's stream too. Card == CPU (bytes and
-              recon) at 352x288 for 1, 3 and 4 bands, the escape content
-              that reruns dense and the RD features, and at 352x96 for 6
-              one-MB-row bands (halo clamped to 16); bands=1 equals the
-              GopShardEncoder stream.
+              the JAX package's stream too.
+11. rc      — two-pass VBR on the card: 1920x1080, 32 frames, gop 8, base
+              qp 27, target 8000 kbps, through make_shard_encoder(...,
+              device="cuda") → rc.encode_vbr2pass → concat_segments →
+              mux_mp4; the ME launch counts are set to 0 before the
+              analysis pass and before each encode pass and read after
+              (none in the analysis, 28 each a pass); the shares, per-GOP
+              QPs, passes, pass-1 and final bits and every pass's seconds;
+              the stream's length and sha256 and the QPs equal the JAX
+              package's (RC_POINT_JAX, from scripts/jax_rc_point.py).
+12. ladder  — bench.py's _run_ladder point on the card: 1920x1080, 16
+              frames, gop 8, qp 27, rungs 1080,720,480,360 through
+              make_shard_encoder(rungs=plan_ladder(...), device="cuda"),
+              with the ME launch counts set to 0 just before and read just
+              after (4 x 14 each); the top rung equals phase 4's stream and
+              h2d_bytes phase 4's upload; every scaled plane is within 1
+              LSB of scale_plane_np on the same padded source; each lower
+              rung equals a GopShardEncoder run over the ladder's own
+              planes; each rung's stream and planes beside the JAX
+              package's (LADDER_POINT_JAX, from
+              scripts/jax_ladder_point.py: where the planes hash alike the
+              streams must be equal); the scaler refuses TF32; bench's
+              figures (fps through encode() in a second pass without the
+              plane recording, aggregate fps over pre-staged waves,
+              bits/frame per rung, stage_ms.scale); and a ladder job with
+              port modules only (y4m → open_video → plan_ladder →
+              make_shard_encoder(rungs=) → encode → rung_segments →
+              hls.package_ladder → lint_ladder).
+13. card = CPU — after every timed section, the 352x288 card == CPU
+              checks of phases 9, 10 and 12, the CPU port's side of
+              phases 9 and 10 in two worker processes (spawned, CPU only)
+              while the card runs its side. Phase 9's: the card's bytes
+              and recon equal the CPU's for every RD config the CPU tests
+              use, the all-intra wave with mode decision + AQ, and the
+              process pack with every feature on. Phase 10's: bytes and
+              recon for 1, 3 and 4 bands, the escape content that reruns
+              dense and the RD features, and at 352x96 for 6 one-MB-row
+              bands (halo clamped to 16); bands=1 equals the
+              GopShardEncoder stream. Phase 12's: at rungs 240, 144 the
+              CPU port's rung encoders, fed the card's scaled planes,
+              give the card's rung bytes.
 
 Before the last line it prints one JSON object of kernel records and the
 card's name and power limit; the last line is the device JSON object.
@@ -147,6 +183,34 @@ SFE_POINT_JAX = {
                              "b2fc3ab9a75b6f84fd55ced1ab6e0512"),
     "rd_1080p": (1034887, "05a4171023492cd939e1ed14cd9ddf77"
                           "15776fa44e935345013d0cfb10c8d118"),
+}
+#: the JAX package's two-pass VBR result at the rc point (1920x1080, 32
+#: frames, gop 8, base qp 27, 8000 kbps, bench content), as
+#: `JAX_PLATFORMS=cpu python3 scripts/jax_rc_point.py` prints it
+RC_POINT_JAX = {"bytes": 1015895,
+                "sha256": "f0106f962a6a647791843dc5749fa4de"
+                          "d1c2263af222c9cd24b841ba684fb246",
+                "gop_qps": [33, 33, 33, 33], "passes": 4}
+#: the JAX package's ladder at bench.py's _run_ladder point (1920x1080, 16
+#: frames, gop 8, qp 27, rungs 1080,720,480,360): rung → (length, sha256,
+#: sha256 of the rung's scaled y, u, v wave stacks; None for the top
+#: rung), as `JAX_PLATFORMS=cpu python3 scripts/jax_ladder_point.py`
+#: prints them
+LADDER_POINT_JAX = {
+    "1080p": (856516, "1e1ae9ce6e4cc11a6bb20993345f779e"
+                      "b39edb78987907913e02d77d534b59ee", None),
+    "720p": (219434, "fa3691133c90ac6a033cdd09eb42d155"
+                     "0cbf745ec757c533716e078d5d0510bc",
+             "2a0ec853739df6f6338e9fb16e4ae561"
+             "51dc4256fb8c64649c93b1b0eb7fa8f1"),
+    "480p": (144427, "bfabae809c7c3bc71adb8d0edf8ceed9"
+                     "84f86dedb7a39c8160139247a6508f30",
+             "22a02da14abecff7231214b397893850"
+             "48b6673115bddf51f511fdc02ef290fe"),
+    "360p": (84370, "9f1005563570a2e16abdb6efe54293ac"
+                    "bfaf7bae2a82129888d25fd0efbd6fb8",
+             "a3e0d99dacebc4663a9f636d5b1e7681"
+             "6dfa2d55f3fe7efdb4e9e079711c26d4"),
 }
 #: the RD configs the CPU parity tests hold against the JAX package
 RD_TEST_CONFIGS = {
@@ -378,8 +442,10 @@ def check_me_kernels(dev) -> list[dict]:
     """The prepass against halfpel_planes_ref and me_search_cuda against
     me_search_ref on the card, bit-exact; then their times at 1080p."""
     cases = []
-    # 80 and 176 columns are 5 and 11 MBs: strips of 4 MBs run past them
-    for (h, w) in [(48, 64), (48, 80), (128, 192), (144, 176), (1088, 1920)]:
+    # 80 and 176 columns are 5 and 11 MBs: strips of 4 MBs run past them;
+    # 720x1280, 480x864 (54 MBs) and 368x640 are the ladder's lower rungs
+    for (h, w) in [(48, 64), (48, 80), (128, 192), (144, 176), (1088, 1920),
+                   (720, 1280), (480, 864), (368, 640)]:
         for i, kind in enumerate(("mixed", "pan", "noise", "range")):
             cases.append((kind, h, w, i, None, 27))
     # coinciding centres: probe = median = zero
@@ -639,7 +705,8 @@ def main_path(w: int = 1920, h: int = 1080, n: int = 16, qp: int = 27,
     print(f"main path bench-style: e2e {n / t_e2e:.3f} fps, device-only "
           f"{n / t_dev:.3f} fps (best of 3, waves pre-staged)")
     print(f"stage_ms {json.dumps(stage_ms)}", flush=True)
-    return {"launches": launches, "stream": stream}
+    return {"launches": launches, "stream": stream,
+            "h2d_bytes": snap["h2d_bytes"]}
 
 
 def _sync_ms(fn, reps: int = 3) -> float:
@@ -771,7 +838,11 @@ def job_path(tmp: str, main_stream: bytes, w: int = 1920, h: int = 1080,
 
 
 def _shutdown_sidecars(enc) -> None:
-    pool = enc._proc_pool
+    _shutdown_pool(enc._proc_pool)
+
+
+def _shutdown_pool(pool) -> None:
+    """Stop a process pool, waiting at most 30 s for each process."""
     if pool is None:
         return
     procs = list((getattr(pool, "_processes", None) or {}).values())
@@ -932,31 +1003,39 @@ def rd_shard_encoder(point: dict, gop: int = 8) -> None:
           f"{len(frames) / t_enc:.3f} fps through encode()", flush=True)
 
 
-def rd_card_equals_cpu(w: int = 352, h: int = 288, n: int = 8) -> None:
+def _rd_parity_clip(w: int = 352, h: int = 288, n: int = 8):
+    frames = make_frames(n, w, h, seed=7, pan=2)
+    return frames, VideoMeta(width=w, height=h, fps_num=30, fps_den=1,
+                             num_frames=n)
+
+
+def _rd_parity_outputs(device: str) -> dict:
+    """Phase 9's 352x288 parity encodes on one device: (stream, recon)
+    of encode_gop for every RD config the CPU tests use, the all-intra
+    wave with mode decision + AQ, and (on the CPU) the RD_ALL shard
+    encoder with the thread pack."""
     from thinvids_tpu_torch.codecs.h264.encoder import encode_gop
 
-    frames = make_frames(n, w, h, seed=7, pan=2)
-    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
-    sizes = {}
-    for name, rd in RD_TEST_CONFIGS.items():
-        got = {dev: encode_gop(frames, meta, qp=27, return_recon=True, rd=rd,
-                               device=dev) for dev in ("cuda", "cpu")}
-        check(got["cuda"][0] == got["cpu"][0],
-              f"RD {name}: card and CPU streams differ")
-        for a, b, plane in zip(got["cuda"][1], got["cpu"][1], "yuv"):
-            check(np.array_equal(a, b),
-                  f"RD {name}: card and CPU recon {plane} differ")
-        sizes[name] = len(got["cuda"][0])
-    md_aq = RdConfig(mode_decision=True, aq_q=4)
-    intra = {}
-    for dev in ("cuda", "cpu"):
-        enc = GopShardEncoder(meta, qp=27, gop_frames=4, inter=False,
-                              rd=md_aq, device=dev)
-        intra[dev] = concat_segments(enc.encode(frames))
-    check(intra["cuda"] == intra["cpu"],
-          "all-intra wave with mode decision + AQ: card and CPU differ")
-    base = concat_segments(GopShardEncoder(
-        meta, qp=27, gop_frames=4, rd=RD_ALL, device="cpu").encode(frames))
+    frames, meta = _rd_parity_clip()
+    out = {name: encode_gop(frames, meta, qp=27, return_recon=True, rd=rd,
+                            device=device)
+           for name, rd in RD_TEST_CONFIGS.items()}
+    enc = GopShardEncoder(meta, qp=27, gop_frames=4, inter=False,
+                          rd=RdConfig(mode_decision=True, aq_q=4),
+                          device=device)
+    out["intra_md_aq4"] = concat_segments(enc.encode(frames))
+    if device == "cpu":
+        out["rd_all_thread_pack"] = concat_segments(GopShardEncoder(
+            meta, qp=27, gop_frames=4, rd=RD_ALL, device="cpu").encode(frames))
+    return out
+
+
+def rd_card_equals_cpu(cpu_side) -> None:
+    """The card's side of phase 9's 352x288 parity, each result against
+    the CPU port's (`cpu_side()`: computed in a worker process while the
+    card runs its side), bytes and recon."""
+    frames, meta = _rd_parity_clip()
+    card = _rd_parity_outputs("cuda")
     enc = GopShardEncoder(meta, qp=27, gop_frames=4, rd=RD_ALL,
                           pack_backend="process", device="cuda")
     try:
@@ -965,21 +1044,33 @@ def rd_card_equals_cpu(w: int = 352, h: int = 288, n: int = 8) -> None:
         gops = enc.stages.snapshot()["proc_pack_gops"]
     finally:
         _shutdown_sidecars(enc)
-    check(got == base, "RD_ALL process pack on the card differs from the "
-                       "CPU's thread pack")
+    cpu = cpu_side()
+    sizes = {}
+    for name in RD_TEST_CONFIGS:
+        (s_card, r_card), (s_cpu, r_cpu) = card[name], cpu[name]
+        check(s_card == s_cpu, f"RD {name}: card and CPU streams differ")
+        for a, b, plane in zip(r_card, r_cpu, "yuv"):
+            check(np.array_equal(a, b),
+                  f"RD {name}: card and CPU recon {plane} differ")
+        sizes[name] = len(s_card)
+    check(card["intra_md_aq4"] == cpu["intra_md_aq4"],
+          "all-intra wave with mode decision + AQ: card and CPU differ")
+    check(got == cpu["rd_all_thread_pack"],
+          "RD_ALL process pack on the card differs from the CPU's thread "
+          "pack")
     check(gops == 2, f"the sidecars packed {gops} RD_ALL GOPs, want 2")
-    print(f"rd parity {w}x{h} x{n}: card == CPU (bytes and recon) for "
-          f"{json.dumps(sizes)}; all-intra md+aq4 card == CPU "
-          f"({len(intra['cuda'])} bytes); RD_ALL process pack on the card "
-          f"== CPU ({len(got)} bytes, {gops} GOPs on the sidecars)",
-          flush=True)
+    print(f"rd parity {meta.width}x{meta.height} x{meta.num_frames}: card "
+          f"== CPU (bytes and recon) for {json.dumps(sizes)}; all-intra "
+          f"md+aq4 card == CPU ({len(card['intra_md_aq4'])} bytes); RD_ALL "
+          f"process pack on the card == CPU ({len(got)} bytes, {gops} GOPs "
+          "on the sidecars)", flush=True)
 
 
 def rd_breakdown(dev, w: int = 1920, h: int = 1080, qp: int = 25) -> dict:
     """Where the RD features' time goes at 1080p: the IDR frame per
     feature set, one P frame with the P_Skip bias and the filter, and the
-    filter alone (host clock around a synchronize, best of 3; the filter
-    also by CUDA events, median of 5)."""
+    filter alone (host clock around a synchronize, one timed round after
+    a warm-up round; the filter also by CUDA events, median of 5)."""
     from thinvids_tpu_torch.codecs.h264 import torchcore, torchinter
     from thinvids_tpu_torch.codecs.h264.torchdeblock import \
         deblock_frame_torch
@@ -1033,24 +1124,28 @@ def rd_breakdown(dev, w: int = 1920, h: int = 1080, qp: int = 25) -> dict:
         "deblock_intra": deb_i,
         "deblock_p": deb_p,
     }
-    # in turns: every part once per round, best of 3 rounds, so a drift
-    # of the shared host's speed during the phase spreads over all parts
-    ms = {k: float("inf") for k in parts}
-    for _ in range(3):
+    # in turns: every part once per round, a warm-up round then one timed
+    # round, so a drift of the shared host's speed spreads over all parts
+    ms = {}
+    for timed in (False, True):
         for k, fn in parts.items():
-            ms[k] = min(ms[k], _sync_ms(fn, reps=1))
-    ms = {k: round(v, 3) for k, v in ms.items()}
+            t = _sync_ms(fn, reps=1)
+            if timed:
+                ms[k] = round(t, 3)
     events = {"deblock_intra": round(_median_ms(deb_i), 3),
               "deblock_p": round(_median_ms(deb_p), 3)}
-    print(f"rd breakdown_ms {w}x{h} qp {qp} (host clock, synced, best of 3 "
-          f"rounds in turns): {json.dumps(ms)}", flush=True)
+    print(f"rd breakdown_ms {w}x{h} qp {qp} (host clock, synced, one round "
+          f"in turns after a warm-up round): {json.dumps(ms)}", flush=True)
     print(f"rd deblock_frame_torch {w}x{h} by CUDA events (median of 5, one "
           f"call each): {json.dumps(events)}", flush=True)
+    # the RD_ALL IDR frame (177,539 kernels, PERF.md) is not traced again
+    t0 = time.perf_counter()
     busy = {k: _device_busy(parts[k]) for k in
-            ("idr_rd_off", "idr_rd_all", "p_rd_off", "p_pskip_deblock")}
+            ("idr_rd_off", "p_rd_off", "p_pskip_deblock")}
     print(f"rd device busy {w}x{h} (torch.profiler, one call each: kernels "
           f"launched, their summed device ms, the call's wall ms under the "
-          f"profiler): {json.dumps(busy)}", flush=True)
+          f"profiler): {json.dumps(busy)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return {"host_ms": ms, "event_ms": events, "busy": busy}
 
 
@@ -1061,9 +1156,10 @@ def _device_busy(fn) -> dict | str:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # the call itself must not fail quietly: only the profiler is optional
+    fn()
+    torch.cuda.synchronize()
     try:
-        fn()
-        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1084,10 +1180,18 @@ def _device_busy(fn) -> dict | str:
 
 
 def rd_phase(dev) -> None:
-    point = rd_point()
-    rd_shard_encoder(point)
-    rd_card_equals_cpu()
-    rd_breakdown(dev)
+    secs = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    point = timed("rd_point", rd_point)
+    timed("rd_shard_encoder", rd_shard_encoder, point)
+    timed("rd_breakdown", rd_breakdown, dev)
+    print(f"rd phase seconds {json.dumps(secs)}", flush=True)
     on, off = point["point"]["on"], point["point"]["off"]
     print(f"rd point summary: on {on['bits_per_frame']} bits/frame at "
           f"{on['psnr_y']} dB, off {off['bits_per_frame']} at "
@@ -1264,14 +1368,13 @@ def sfe_rd_point(w: int = 1920, h: int = 1080, n: int = 16, gop: int = 8,
           f"SFE RD point: ME launches {launches}, want {p_frames} each")
 
 
-def sfe_card_equals_cpu() -> None:
-    """Card bytes == CPU bytes for the split-frame cases the CPU tests
-    hold against the JAX package: 1, 3 and 4 bands at 352x288 (4 gives a
-    partial last band), 6 one-MB-row bands at 352x96 (halo 32 clamped to
-    the band height, 16), the escape content that forces the dense
-    rerun, and the RD features on; bands=1 also equals the
-    GopShardEncoder stream at the same gop."""
-    w, h, n, gop = 352, 288, 4, 4
+def _sfe_parity_cases() -> dict:
+    """The split-frame cases the CPU tests hold against the JAX package:
+    1, 3 and 4 bands at 352x288 (4 gives a partial last band), 6
+    one-MB-row bands at 352x96 (halo 32 clamped to the band height, 16),
+    the escape content that forces the dense rerun, and the RD features
+    on. name → (frames, meta, qp, bands, halo, rd)."""
+    w, h, n = 352, 288, 4
     frames = make_frames(n, w, h, seed=5, pan=2)
     meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
     thin = make_frames(n, w, 96, seed=6, pan=2)
@@ -1280,7 +1383,7 @@ def sfe_card_equals_cpu() -> None:
                    u=rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
                    v=rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
              for _ in range(4)]
-    cases = {
+    return {
         "bands1": (frames, meta, 27, 1, 32, RD_OFF),
         "bands3": (frames, meta, 27, 3, 32, RD_OFF),
         "bands4": (frames, meta, 27, 4, 32, RD_OFF),
@@ -1291,40 +1394,60 @@ def sfe_card_equals_cpu() -> None:
         "rd3": (frames, meta, 27, 3, 32,
                 RdConfig(mode_decision=True, pskip=True, deblock=True)),
     }
+
+
+def _sfe_parity_outputs(device: str, gop: int = 4) -> dict:
+    """Every SFE parity case on one device: name → (stream, recon frames,
+    bands, halo rows, dense_fallback_waves)."""
+    out = {}
+    for name, (fr, m, qp, bands, halo, rd) in _sfe_parity_cases().items():
+        enc = _sfe_encoder(m, qp, gop, bands, halo, rd=rd, device=device)
+        enc.keep_recon = True
+        stream = concat_segments(enc.encode(fr))
+        out[name] = (stream, [enc.recon_frames[i] for i in range(len(fr))],
+                     enc.num_bands, enc.halo_rows,
+                     enc.stages.snapshot()["dense_fallback_waves"])
+    return out
+
+
+def sfe_card_equals_cpu(cpu_side, gop: int = 4) -> None:
+    """Card bytes == CPU bytes (`cpu_side()`: the CPU port's, computed in
+    a worker process while the card runs) and recon for every SFE parity
+    case; bands=1 also equals the GopShardEncoder stream at the same
+    gop."""
+    card = _sfe_parity_outputs("cuda", gop)
+    frames, meta = _sfe_parity_cases()["bands1"][:2]
+    gop_enc = GopShardEncoder(meta, qp=27, gop_frames=gop, device="cuda")
+    gop_stream = concat_segments(gop_enc.encode(frames))
+    cpu = cpu_side()
     sizes = {}
-    for name, (fr, m, qp, bands, halo, rd) in cases.items():
-        out = {}
-        for dev in ("cuda", "cpu"):
-            enc = _sfe_encoder(m, qp, gop, bands, halo, rd=rd, device=dev)
-            enc.keep_recon = True
-            out[dev] = (concat_segments(enc.encode(fr)), enc)
-        (s_card, e_card), (s_cpu, e_cpu) = out["cuda"], out["cpu"]
+    for name, (s_card, r_card, bands, halo, dense) in card.items():
+        s_cpu, r_cpu = cpu[name][:2]
         check(s_card == s_cpu, f"SFE {name}: card and CPU streams differ")
-        for i in range(len(fr)):
-            for a, b, plane in zip(e_card.recon_frames[i],
-                                   e_cpu.recon_frames[i], "yuv"):
+        for i, (fa, fb) in enumerate(zip(r_card, r_cpu, strict=True)):
+            for a, b, plane in zip(fa, fb, "yuv"):
                 check(np.array_equal(a, b),
                       f"SFE {name}: card and CPU recon {plane} of frame {i} "
                       "differ")
-        snap = e_card.stages.snapshot()
         if name == "thin6":
-            check(e_card.halo_rows == 16 and e_card.num_bands == 6,
-                  f"thin bands: {e_card.num_bands} bands, halo "
-                  f"{e_card.halo_rows}")
+            check(halo == 16 and bands == 6,
+                  f"thin bands: {bands} bands, halo {halo}")
         if name == "escape":
-            check(snap["dense_fallback_waves"] >= 1,
-                  "the escape content did not rerun dense")
+            check(dense >= 1, "the escape content did not rerun dense")
         else:
-            check(snap["dense_fallback_waves"] == 0,
-                  f"SFE {name} fell back to the dense transfer")
+            check(dense == 0, f"SFE {name} fell back to the dense transfer")
         sizes[name] = len(s_card)
-        if name == "bands1":
-            gop_enc = GopShardEncoder(meta, qp=27, gop_frames=gop,
-                                      device="cuda")
-            check(concat_segments(gop_enc.encode(frames)) == s_card,
-                  "SFE bands=1 differs from the GopShardEncoder stream")
+    check(gop_stream == card["bands1"][0],
+          "SFE bands=1 differs from the GopShardEncoder stream")
     print(f"sfe parity: card == CPU (bytes and recon) for "
           f"{json.dumps(sizes)}; bands=1 == GopShardEncoder", flush=True)
+
+
+def _cpu_side(name: str) -> dict:
+    """The CPU port's outputs of one card == CPU check (a worker process's
+    job: it never touches the card)."""
+    torch.set_num_threads(2)
+    return {"rd": _rd_parity_outputs, "sfe": _sfe_parity_outputs}[name]("cpu")
 
 
 def sfe_phase(dev) -> dict:
@@ -1332,8 +1455,412 @@ def sfe_phase(dev) -> dict:
     sfe_breakdown(dev, point)
     del point["enc"], point["waves"]
     sfe_rd_point()
-    sfe_card_equals_cpu()
     return point
+
+
+# ---- phase 11 ------------------------------------------------------------
+
+def rc_point(w: int = 1920, h: int = 1080, n: int = 32, gop: int = 8,
+             qp: int = 27, kbps: float = 8000.0) -> dict:
+    """Two-pass VBR through the job's seam: make_shard_encoder builds the
+    encoder from the job's settings, rc.encode_vbr2pass runs the analysis
+    pass and the encode passes on it, concat_segments and mux_mp4 finish
+    the job. The ME launches and seconds of every pass, each counted from
+    0; the stream and QPs against the JAX package's."""
+    from thinvids_tpu_torch.core.config import DEFAULT_SETTINGS, Settings
+    from thinvids_tpu_torch.io.mp4 import mux_mp4
+    from thinvids_tpu_torch.parallel import rc
+    from thinvids_tpu_torch.parallel.dispatch import make_shard_encoder
+
+    frames = make_frames(n, w, h)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    settings = Settings(values=dict(DEFAULT_SETTINGS, gop_frames=gop, qp=qp,
+                                    rc_mode="vbr2pass",
+                                    target_bitrate_kbps=kbps))
+    enc = make_shard_encoder(meta, settings, None, device="cuda")
+    marks: list = []            # (pass label, seconds, ME launches)
+    t_mark = [0.0]
+
+    def mark(label: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        marks.append((label, round(now - t_mark[0], 3), _me_counts()))
+        _zero_me_counts()
+        t_mark[0] = now
+
+    def on_pass(pass_no, gop_qps) -> None:
+        if pass_no == 1:
+            torch.cuda.synchronize()
+            _zero_me_counts()
+            t_mark[0] = time.perf_counter()
+
+    def encode_fn(e):
+        if not marks:
+            mark("analysis")
+        segs = e.encode(frames)
+        mark(f"pass {len(marks)}")
+        return segs
+
+    segs, stats = rc.encode_vbr2pass(
+        frames, meta, kbps, base_qp=int(settings.qp), enc=enc,
+        encode_fn=encode_fn, on_pass=on_pass)
+    stream = concat_segments(segs)
+    mp4 = mux_mp4(stream, meta)
+    digest = hashlib.sha256(stream).hexdigest()
+    print(f"rc point {w}x{h} x{n} gop {gop} base qp {qp} target {kbps} kbps: "
+          f"shares {stats['complexity_shares']}, gop_qps {stats['gop_qps']}, "
+          f"passes {stats['passes']}, pass-1 bits {stats['pass1_bits']}, "
+          f"final bits {stats['pass2_bits']} (target "
+          f"{stats['target_bits']}); stream {len(stream)} bytes, sha256 "
+          f"{digest}; MP4 {len(mp4)} bytes", flush=True)
+    print(f"rc passes (seconds, ME launches): {json.dumps(marks)}",
+          flush=True)
+    check(marks[0][0] == "analysis" and not any(marks[0][2].values()),
+          f"the analysis pass launched ME kernels: {marks[0]}")
+    p_frames = n - len(enc.plan(n).gops)
+    check(len(marks) == stats["passes"] + 1
+          and all(c == p_frames for m in marks[1:] for c in m[2].values()),
+          f"ME launches per pass {marks}, want {p_frames} each")
+    check((len(stream), digest) == (RC_POINT_JAX["bytes"],
+                                    RC_POINT_JAX["sha256"]),
+          f"rc point: the card's stream ({len(stream)} bytes, {digest}) is "
+          f"not the JAX package's {RC_POINT_JAX}")
+    check(stats["gop_qps"] == RC_POINT_JAX["gop_qps"]
+          and stats["passes"] == RC_POINT_JAX["passes"],
+          f"rc point: gop_qps {stats['gop_qps']} / passes {stats['passes']} "
+          f"are not the JAX package's {RC_POINT_JAX}")
+    check(mp4[4:8] == b"ftyp", "the rc job's MP4 does not start with ftyp")
+    return {"launches_per_pass": marks[1][2]}
+
+
+# ---- phase 12 ------------------------------------------------------------
+
+def _record_planes(ladder) -> dict:
+    """Wrap every scaler of `ladder` to keep, per wave, the padded source
+    planes it was given and the planes it returned, on the host:
+    {rung name: [((ys, us, vs), (sy, su, sv)) per wave]}."""
+    seen = {}
+    for rung, scaler in zip(ladder.rungs, ladder.scalers):
+        if scaler is None:
+            continue
+        seen[rung.name] = []
+
+        def record(ys, us, vs, _scale=scaler.scale_wave,
+                   _out=seen[rung.name]):
+            planes = _scale(ys, us, vs)
+            _out.append((tuple(p.cpu().numpy() for p in (ys, us, vs)),
+                         tuple(p.cpu().numpy() for p in planes)))
+            return planes
+
+        scaler.scale_wave = record
+    return seen
+
+
+def _wave_frames(waves, planes) -> list:
+    """Frames (in frame order) out of per-wave (G, F, H, W) plane stacks,
+    each GOP cut to its own frame count."""
+    out = []
+    for wave, (sy, su, sv) in zip(waves, planes):
+        for gi, g in enumerate(wave):
+            for f in range(g.num_frames):
+                out.append((g.start_frame + f,
+                            Frame(y=sy[gi, f], u=su[gi, f], v=sv[gi, f])))
+    return [f for _, f in sorted(out, key=lambda t: t[0])]
+
+
+def ladder_point(main: dict, w: int = 1920, h: int = 1080, n: int = 16,
+                 gop: int = 8, qp: int = 27,
+                 spec: str = "1080,720,480,360") -> dict:
+    """bench.py's _run_ladder point on the card, through the job's seam
+    (make_shard_encoder(rungs=)): the top rung against phase 4, the
+    upload once per wave, the ME launches, every scaled plane against
+    scale_plane_np, every lower rung against a plain encoder over the
+    ladder's own planes, the rungs beside the JAX package's; then
+    bench's figures."""
+    from thinvids_tpu_torch.abr.ladder import plan_ladder, rung_segments
+    from thinvids_tpu_torch.abr.scale import scale_plane_np
+    from thinvids_tpu_torch.core.config import DEFAULT_SETTINGS, Settings
+    from thinvids_tpu_torch.parallel.dispatch import make_shard_encoder
+
+    frames = make_frames(n, w, h)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    settings = Settings(values=dict(DEFAULT_SETTINGS, qp=qp, gop_frames=gop,
+                                    ladder_rungs=spec))
+    rungs = plan_ladder(meta, settings)
+    check([r.name for r in rungs] == list(LADDER_POINT_JAX),
+          f"ladder rungs {rungs}")
+    lad = make_shard_encoder(meta, settings, None, rungs=rungs,
+                             device="cuda")
+    check(type(lad).__name__ == "LadderShardEncoder",
+          f"make_shard_encoder(rungs=) built {type(lad).__name__}")
+    seen = _record_planes(lad)
+    torch.cuda.synchronize()
+    _zero_me_counts()
+    lad.stages.reset()
+    bundles = lad.encode(frames)
+    launches = _me_counts()
+    snap = lad.stages.snapshot()
+    streams = {r.name: concat_segments(rung_segments(bundles, r.name))
+               for r in rungs}
+    p_frames = n - len(lad.plan(n).gops)
+    print(f"ladder point {w}x{h} x{n} gop {gop} qp {qp} rungs {spec} "
+          f"(qps {[r.qp for r in rungs]}): ME launches {launches}, "
+          f"h2d_bytes {snap['h2d_bytes']} (phase 4: {main['h2d_bytes']})",
+          flush=True)
+    check(streams[rungs[0].name] == main["stream"],
+          "the ladder's top rung differs from phase 4's stream")
+    check(snap["h2d_bytes"] == main["h2d_bytes"],
+          f"the ladder uploaded {snap['h2d_bytes']} bytes, phase 4 "
+          f"{main['h2d_bytes']}")
+    for name, count in launches.items():
+        check(count == len(rungs) * p_frames,
+              f"ladder: {name} launched {count} times, want "
+              f"{len(rungs)} x {p_frames}")
+    check(snap["dense_fallback_waves"] == 0,
+          "the ladder fell back to the dense transfer")
+
+    waves = [b.gop for b in bundles]
+    wave_groups = [waves[i:i + lad.gops_per_wave]
+                   for i in range(0, len(waves), lad.gops_per_wave)]
+    for rung, scaler in zip(rungs, lad.scalers):
+        if scaler is None:
+            continue
+        stream = streams[rung.name]
+        digest = hashlib.sha256()
+        counts = [0, 0, 0]
+        for src, got in seen[rung.name]:
+            for pi, (a, b) in enumerate(zip(src, got)):
+                digest.update(np.ascontiguousarray(b).tobytes())
+                mv, mh = ((scaler.y_v, scaler.y_h) if pi == 0
+                          else (scaler.c_v, scaler.c_h))
+                for gi in range(a.shape[0]):
+                    for fi in range(a.shape[1]):
+                        want = scale_plane_np(a[gi, fi], mv, mh)
+                        d = np.abs(want.astype(np.int16)
+                                   - b[gi, fi].astype(np.int16))
+                        check(int(d.max()) <= 1,
+                              f"rung {rung.name} plane {'yuv'[pi]}: "
+                              f"{int(d.max())} LSB from scale_plane_np")
+                        counts[pi] += int((d != 0).sum())
+        # the rung against a plain encoder over the ladder's own planes
+        rmeta = VideoMeta(width=rung.width, height=rung.height, fps_num=30,
+                          fps_den=1, num_frames=n)
+        plain = GopShardEncoder(rmeta, qp=rung.qp, gop_frames=gop,
+                                device="cuda")
+        rframes = _wave_frames(wave_groups, [got for _, got in
+                                             seen[rung.name]])
+        check(concat_segments(plain.encode(rframes)) == stream,
+              f"rung {rung.name} differs from GopShardEncoder(qp "
+              f"{rung.qp}) over the ladder's own planes")
+        jlen, jsha, jplanes = LADDER_POINT_JAX[rung.name]
+        sha = hashlib.sha256(stream).hexdigest()
+        planes_sha = digest.hexdigest()
+        same_planes = planes_sha == jplanes
+        print(f"ladder rung {rung.name} {rung.width}x{rung.height} qp "
+              f"{rung.qp}: {len(stream)} bytes, sha256 {sha}; JAX "
+              f"{jlen}, {jsha}; planes sha256 {planes_sha}, JAX {jplanes}: "
+              + ("the same planes, so the stream must be JAX's"
+                 if same_planes else
+                 "planes differ from JAX's (within 1 LSB), so the stream "
+                 "may too")
+              + f"; samples off scale_plane_np by 1 LSB "
+              f"{dict(zip('yuv', counts))}; == GopShardEncoder over the "
+              "ladder's planes", flush=True)
+        if same_planes:
+            check((len(stream), sha) == (jlen, jsha),
+                  f"rung {rung.name}: the planes are JAX's, the stream is "
+                  "not")
+    jtop = LADDER_POINT_JAX[rungs[0].name]
+    check((len(main["stream"]), hashlib.sha256(main["stream"]).hexdigest())
+          == jtop[:2], "the top rung is not the JAX package's")
+    _check_tf32_refused()
+
+    for scaler in lad.scalers:
+        if scaler is not None:
+            del scaler.scale_wave             # drop the recording wrapper
+    # encode() again, timed without the recording's copies to the host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = lad.encode(frames)
+    t_enc = time.perf_counter() - t0
+    check(all(concat_segments(rung_segments(again, r.name))
+              == streams[r.name] for r in rungs),
+          "a second encode() of the ladder changed the bytes")
+    print(f"ladder point: {n * len(rungs) / t_enc:.3f} rung-frames/s "
+          "through encode() (staging included; a second pass, without "
+          "the plane recording)", flush=True)
+
+    # bench's figures (bench.py _run_ladder): depth 1 over pre-staged
+    # waves, best of 2 after a warm-up
+    _, staged = lad._stager.prepare_waves(frames)
+    torch.cuda.synchronize()
+
+    def encode_staged():
+        out = []
+        for wv in staged:
+            out.extend(lad.collect_wave(lad.dispatch_wave(wv)))
+        return out
+
+    encode_staged()
+    t_best, stage_ms = float("inf"), {}
+    for _ in range(2):
+        lad.stages.reset()
+        t0 = time.perf_counter()
+        out = encode_staged()
+        t = time.perf_counter() - t0
+        check(all(concat_segments(rung_segments(out, r.name))
+                  == streams[r.name] for r in rungs),
+              "a repeated ladder pass changed the bytes")
+        if t < t_best:
+            t_best, stage_ms = t, lad.stages.snapshot()
+    bits = {r.name: round(len(streams[r.name]) * 8 / n) for r in rungs}
+    fig = {"fps": round(n * len(rungs) / t_best, 3), "rungs": len(rungs),
+           "rung_bits_per_frame": bits, "h2d_bytes": main["h2d_bytes"],
+           "scale_ms": stage_ms.get("scale")}
+    print(f"ladder figures (bench _run_ladder's: aggregate rung-frames/s "
+          f"over pre-staged waves, depth 1, best of 2 after a warm-up): "
+          f"{json.dumps(fig)}", flush=True)
+    print(f"ladder stage_ms {json.dumps(stage_ms)}", flush=True)
+    return {"launches": launches}
+
+
+def _check_tf32_refused() -> None:
+    """The scaler refuses to run its products with TF32 allowed."""
+    from thinvids_tpu_torch.abr.scale import PlaneScaler
+
+    sc = PlaneScaler(64, 48, 32, 24, device="cuda")
+    x = torch.zeros((48, 64), dtype=torch.uint8, device="cuda")
+    c = torch.zeros((24, 32), dtype=torch.uint8, device="cuda")
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        sc.scale_wave(x, c, c)
+    except RuntimeError as exc:
+        check("allow_tf32" in str(exc), f"the scaler refused with {exc}")
+    else:
+        raise RuntimeError("check failed: the scaler ran with TF32 allowed")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    print("ladder scaler: refuses TF32 products (allow_tf32 on)", flush=True)
+
+
+def ladder_job(tmp: str, main_stream: bytes, w: int = 1920, h: int = 1080,
+               n: int = 16) -> None:
+    """A ladder job with port modules only: y4m → open_video →
+    plan_ladder → make_shard_encoder(rungs=) → encode → rung_segments →
+    hls.package_ladder → lint_ladder."""
+    from thinvids_tpu_torch.abr import hls
+    from thinvids_tpu_torch.abr.ladder import plan_ladder, rung_segments
+    from thinvids_tpu_torch.core.config import DEFAULT_SETTINGS, Settings
+    from thinvids_tpu_torch.ingest.decode import open_video
+    from thinvids_tpu_torch.parallel.dispatch import make_shard_encoder
+
+    path = os.path.join(tmp, "ladder1080.ladder.y4m")
+    _write_clip(path, make_frames(n, w, h), w, h)
+    settings = Settings(values=dict(DEFAULT_SETTINGS, gop_frames=8))
+    out_dir = os.path.join(tmp, "ladder1080.hls")
+    t0 = time.perf_counter()
+    with open_video(path) as src:
+        rungs = plan_ladder(src.meta, settings)
+        enc = make_shard_encoder(src.meta, settings, None, rungs=rungs,
+                                 device="cuda")
+        bundles = enc.encode(src)
+        streams = [hls.RungStream(r.name, r.width, r.height,
+                                  rung_segments(bundles, r.name),
+                                  audio=src.audio) for r in rungs]
+        hls.package_ladder(out_dir, streams, src.meta.fps_num,
+                           src.meta.fps_den,
+                           segment_s=float(settings.get("segment_s", 6.0)))
+        info = hls.lint_ladder(out_dir, expected_duration_s=n / 30)
+    t_job = time.perf_counter() - t0
+    files = [os.path.join(d, f) for d, _, fs in os.walk(out_dir) for f in fs]
+    total = sum(os.path.getsize(f) for f in files)
+    print(f"ladder job {w}x{h} x{n} (y4m → open_video → plan_ladder → "
+          f"make_shard_encoder(rungs=) → encode → package_ladder → "
+          f"lint_ladder): {len(files)} files, {total} bytes, lint "
+          f"{json.dumps(info)}, {t_job:.3f} s", flush=True)
+    check(info["rungs"] == len(rungs) == 4, f"lint saw {info['rungs']} rungs")
+    check(concat_segments(rung_segments(bundles, rungs[0].name))
+          == main_stream, "the ladder job's top rung differs from phase 4's")
+
+
+class _FixedPlanes:
+    """A scaler that hands a ladder the planes another run recorded."""
+
+    def __init__(self, waves: list):
+        self._waves = list(waves)
+
+    def scale_wave(self, ys, us, vs):
+        return tuple(torch.from_numpy(p) for p in self._waves.pop(0))
+
+
+def ladder_card_equals_cpu(w: int = 352, h: int = 288, n: int = 16,
+                           gop: int = 8) -> None:
+    """At 352x288 (rungs 240, 144) the CPU port's rung encoders, fed the
+    card's scaled planes through the ladder's own dispatch, give the
+    card's rung bytes (and the top rung the card's too)."""
+    from thinvids_tpu_torch.abr.ladder import (LadderShardEncoder,
+                                               plan_ladder, rung_segments)
+    from thinvids_tpu_torch.core.config import DEFAULT_SETTINGS, Settings
+
+    frames = make_frames(n, w, h, seed=5, pan=2)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    rungs = plan_ladder(meta, Settings(values=dict(
+        DEFAULT_SETTINGS, qp=27, ladder_rungs="240,144")))
+    card = LadderShardEncoder(meta, rungs, gop_frames=gop, device="cuda")
+    seen = _record_planes(card)
+    want = card.encode(frames)
+    cpu = LadderShardEncoder(meta, rungs, gop_frames=gop, device="cpu")
+    cpu.scalers = [None if s is None else
+                   _FixedPlanes(got for _, got in seen[r.name])
+                   for r, s in zip(rungs, card.scalers)]
+    got = cpu.encode(frames)
+    sizes = {}
+    for r in rungs:
+        a = concat_segments(rung_segments(want, r.name))
+        b = concat_segments(rung_segments(got, r.name))
+        check(a == b, f"rung {r.name}: the card's and the CPU's bytes "
+                      "differ given the same planes")
+        sizes[r.name] = len(a)
+    print(f"ladder parity {w}x{h} x{n} rungs {[r.name for r in rungs]}: card "
+          f"== CPU given the card's planes {json.dumps(sizes)}", flush=True)
+
+
+def ladder_phase(main: dict) -> dict:
+    import tempfile
+
+    point = ladder_point(main)
+    with tempfile.TemporaryDirectory(prefix="tvt-ladder-") as tmp:
+        ladder_job(tmp, main["stream"])
+    return point
+
+
+# ---- phase 13 ------------------------------------------------------------
+
+def parity_phase() -> None:
+    """The 352x288 card == CPU checks of phases 9, 10 and 12, after every
+    timed section: the CPU port's side of phases 9 and 10 runs in two
+    worker processes while the card runs its side, so no timed figure
+    shares the host with them."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    secs = {}
+    workers = cf.ProcessPoolExecutor(2, mp_context=mp.get_context("spawn"))
+    try:
+        cpu = {k: workers.submit(_cpu_side, k) for k in ("rd", "sfe")}
+        # the ladder's check first: its CPU side runs in this process
+        for name, fn in (("ladder_card_equals_cpu", ladder_card_equals_cpu),
+                         ("rd_card_equals_cpu",
+                          lambda: rd_card_equals_cpu(cpu["rd"].result)),
+                         ("sfe_card_equals_cpu",
+                          lambda: sfe_card_equals_cpu(cpu["sfe"].result))):
+            t0 = time.perf_counter()
+            fn()
+            secs[name] = round(time.perf_counter() - t0, 1)
+    finally:
+        _shutdown_pool(workers)
+    print(f"card == CPU seconds {json.dumps(secs)}", flush=True)
 
 
 def main() -> int:
@@ -1377,9 +1904,17 @@ def main() -> int:
     rd_phase(dev)
     phase("10 sfe")
     sfe = sfe_phase(dev)
+    phase("11 rc")
+    rc = rc_point()
+    phase("12 ladder")
+    ladder = ladder_phase(main)
+    phase("13 card = CPU")
+    parity_phase()
     for rec in recs:
         rec["banded"] = dict(banded[rec["name"]],
                              launches=sfe["launches"][rec["name"]])
+        rec["rc_launches_per_pass"] = rc["launches_per_pass"][rec["name"]]
+        rec["ladder_launches"] = ladder["launches"][rec["name"]]
     phase("end")
     print(json.dumps({"kernels": recs}))
     print(f"card: {card}")

@@ -97,7 +97,11 @@ def test_scan_sees_the_whole_port(tmp_path):
                  "thinvids_tpu_torch/tools/metrics.py",
                  "thinvids_tpu_torch/codecs/h264/deblock.py",
                  "thinvids_tpu_torch/codecs/h264/torchdeblock.py",
-                 "thinvids_tpu_torch/native/__init__.py"):
+                 "thinvids_tpu_torch/native/__init__.py",
+                 "thinvids_tpu_torch/parallel/rc.py",
+                 "thinvids_tpu_torch/abr/scale.py",
+                 "thinvids_tpu_torch/abr/ladder.py",
+                 "thinvids_tpu_torch/abr/hls.py"):
         assert want in rel
     # the scan catches both spellings, at module level and in a function,
     # and lets relative imports and the port's own name through
@@ -110,3 +114,34 @@ def test_scan_sees_the_whole_port(tmp_path):
     found = [n.split(".")[0] for n in _top_level_imports(probe)]
     assert sorted(set(found) & set(_FORBIDDEN)) == ["jax", "thinvids_tpu"]
     assert "thinvids_tpu_torch" in found
+
+
+_TORCH_FREE_IMPORT = r"""
+import importlib, sys
+
+for name in ("torch", "jax", "jaxlib"):
+    sys.modules[name] = None
+for name in ("thinvids_tpu_torch.abr.ladder", "thinvids_tpu_torch.abr.hls"):
+    importlib.import_module(name)
+from thinvids_tpu_torch.abr.ladder import parse_rung_heights, rung_width
+
+assert parse_rung_heights("360p; junk, 720 ,720") == [720, 360]
+assert rung_width(1920, 1080, 480) == 854
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("torch", "jax", "jaxlib")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_ladder_planning_and_hls_import_without_torch():
+    """abr.ladder and abr.hls run on a control plane that loads no device
+    backend: they import (and plan rung widths) with torch and jax
+    unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _TORCH_FREE_IMPORT],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"

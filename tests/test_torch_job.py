@@ -265,13 +265,10 @@ def test_make_shard_encoder_resolves_the_reference_knobs(monkeypatch, env):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("rungs", "A9"), ("band_range", "A12"), ("total_bands", "A12"),
-    ("mesh", "A2")])
+    ("band_range", "A12"), ("total_bands", "A12"), ("mesh", "A2")])
 def test_make_shard_encoder_refuses_what_is_not_ported(case, item):
     over, kw = {}, {}
-    if case == "rungs":
-        kw["rungs"] = [object()]
-    elif case == "band_range":
+    if case == "band_range":
         kw["band_range"] = (0, 1)
     elif case == "total_bands":
         kw["total_bands"] = 2
@@ -282,6 +279,37 @@ def test_make_shard_encoder_refuses_what_is_not_ported(case, item):
             tdispatch.make_shard_encoder(TMeta(width=64, height=48),
                                          _settings(tcfg, **over),
                                          shape=shape, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("shape", [None, "band"])
+def test_make_shard_encoder_builds_the_ladder(shape):
+    """`rungs` gives the port's LadderShardEncoder (whatever the shape, as
+    the reference's seam does) with the settings' gop_frames and
+    max_segments on every rung encoder, and the reference's rung set."""
+    from thinvids_tpu.abr import ladder as jladder
+    from thinvids_tpu_torch.abr import ladder as tladder
+
+    over = dict(qp=31, gop_frames=5, max_segments=7, ladder_rungs="32,24")
+    tmeta, jmeta = TMeta(width=64, height=48), JMeta(width=64, height=48)
+    trungs = tladder.plan_ladder(tmeta, _settings(tcfg, **over))
+    tenc = tdispatch.make_shard_encoder(tmeta, _settings(tcfg, **over), None,
+                                        shape=shape, rungs=trungs,
+                                        device="cpu")
+    jenc = jdispatch.make_shard_encoder(
+        jmeta, _settings(jcfg, **over), _one_device_mesh(), shape=shape,
+        rungs=jladder.plan_ladder(jmeta, _settings(jcfg, **over)))
+    assert type(tenc) is tladder.LadderShardEncoder
+    assert [dataclasses.astuple(r) for r in tenc.rungs] == \
+        [dataclasses.astuple(r) for r in jenc.rungs]
+    assert len(tenc.encoders) == len(jenc.encoders) == 3
+    for te, je in zip(tenc.encoders, jenc.encoders):
+        for k in ("qp", "gop_frames", "max_segments", "gops_per_wave"):
+            assert getattr(te, k) == getattr(je, k), k
+        assert dataclasses.asdict(te.sps) == dataclasses.asdict(je.sps)
+        assert te.device.type == "cpu"
+    assert [s is None for s in tenc.scalers] == [True, False, False]
+    assert [dataclasses.astuple(g) for g in tenc.plan(23).gops] == \
+        [dataclasses.astuple(g) for g in jenc.plan(23).gops]
 
 
 @pytest.mark.parametrize("case", ["sfe_bands", "shape_band"])
@@ -635,3 +663,150 @@ def test_sfe_job_through_the_reference_executor_writes_its_mp4(tmp_path):
     _, _, samples, keys = tmp4.annexb_to_samples(tconcat(
         built[0].encode([TFrame(*f) for f in clip])))
     assert len(samples) == n and keys == [True, False, False, False] * 2
+
+
+def test_vbr2pass_job_through_the_reference_executor_writes_its_mp4(
+        tmp_path, monkeypatch):
+    """rc_mode=vbr2pass with a bitrate target: an executor whose
+    `_encode_vbr2pass` runs the port's rc.encode_vbr2pass (the reference's
+    loop, the executor's retry wrapper around every pass) with the port's
+    encoder writes the JAX executor's MP4. The reference's complexity
+    program raises during the port's run, so the port's analysis ran."""
+    from thinvids_tpu.parallel import rc as jrc
+    from thinvids_tpu_torch.parallel import rc as trc
+
+    w, h, n = 64, 48, 16
+    clip = _smooth_clip(n, w, h, seed=29)
+    path = tmp_path / "clip.y4m"
+    write_y4m(path, JMeta(width=w, height=h, fps_num=30, num_frames=n),
+              [JFrame(*f) for f in clip])
+    runs = []
+
+    class PortRcExecutor(LocalExecutor):
+        def _encode_vbr2pass(self, job, token, enc, frames, settings, meta,
+                             target_kbps):
+            segments, stats = trc.encode_vbr2pass(
+                frames, meta, target_kbps, base_qp=int(settings.qp),
+                enc=enc, encode_fn=lambda e: self._encode_with_retry(
+                    job, token, e, frames, settings, allow_replan=False),
+                aq_strength=float(settings.get("aq_strength", 0.0) or 0.0))
+            runs.append((enc, stats))
+            return segments
+
+    def refuse(*a, **k):
+        raise AssertionError("the reference's complexity program ran")
+
+    rc_settings = dict(rc_mode="vbr2pass", target_bitrate_kbps=150.0)
+    coord = _make_rig(tmp_path, "port", settings=rc_settings)
+    execu = PortRcExecutor(
+        coord, output_dir=str(tmp_path / "port"), sync=True,
+        encoder_factory=lambda m, s, mesh: tdispatch.make_shard_encoder(
+            m, s, None, device="cpu"))
+    coord._launcher = execu.launch
+    with monkeypatch.context() as mp:
+        mp.setattr(jrc, "_complexity_stats", refuse)
+        port_job, port_mp4 = _run_job(coord, path, w, h, n)
+    ref_job, ref_mp4 = _run_job(
+        _make_rig(tmp_path, "ref", settings=rc_settings,
+                  mesh=_one_device_mesh()), path, w, h, n)
+    (enc, stats), = runs
+    assert type(enc) is tdispatch.GopShardEncoder
+    assert stats["passes"] >= 3 and stats["gop_qps"] != [30] * 4
+    assert enc.gop_qp == dict(enumerate(stats["gop_qps"]))
+    assert port_job.parts_done == port_job.parts_total == ref_job.parts_total
+    assert port_mp4 == ref_mp4
+
+
+def test_ladder_job_through_the_reference_executor_writes_its_hls(
+        tmp_path, monkeypatch):
+    """A `.ladder.y4m` job: an executor whose `_encode_ladder` plans with
+    the port's plan_ladder and encodes with the port's
+    make_shard_encoder(rungs=) writes the JAX executor's HLS tree, names
+    and bytes. The reference's LadderShardEncoder.dispatch_wave raises
+    during the port's run, so the port's fan-out ran. Precondition,
+    asserted first: on this clip the port's scaled planes equal the JAX
+    package's (a sample that lands exactly on a half may round the other
+    way in another summation order; tests/test_torch_abr.py holds the
+    rungs given the same planes)."""
+    from thinvids_tpu.abr import ladder as jladder
+    from thinvids_tpu.abr.scale import PlaneScaler as JScaler
+    from thinvids_tpu_torch.abr import ladder as tladder
+    from thinvids_tpu_torch.abr.scale import PlaneScaler as TScaler
+
+    w, h, n = 64, 48, 16
+    clip = _smooth_clip(n, w, h, seed=3)
+    padded = [TFrame(*f).padded(16) for f in clip]
+    planes = [np.stack([getattr(f, p) for f in padded]) for p in "yuv"]
+    for dw, dh in ((42, 32), (32, 24)):
+        got = TScaler(w, h, dw, dh, device="cpu").scale_wave(
+            *(torch.from_numpy(p) for p in planes))
+        want = JScaler(w, h, dw, dh).scale_wave(*planes)
+        for g, j in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+
+    path = tmp_path / "clip.ladder.y4m"
+    write_y4m(path, JMeta(width=w, height=h, fps_num=30, num_frames=n),
+              [JFrame(*f) for f in clip])
+    built = []
+
+    class PortLadderExecutor(LocalExecutor):
+        def _encode_ladder(self, job, token, frames, settings, meta, stage):
+            stage[0] = "segment"
+            rungs = tladder.plan_ladder(meta, settings)
+            enc = tdispatch.make_shard_encoder(meta, settings, None,
+                                               rungs=rungs, device="cpu")
+            built.append(enc)
+            self.coordinator.update_progress(
+                job.id, token, parts_total=enc.plan(len(frames)).num_gops,
+                segment_progress=100.0)
+            stage[0] = "encode"
+            bundles = self._encode_with_retry(job, token, enc, frames,
+                                              settings, allow_replan=False)
+            self._emit_stage_breakdown(job, enc)
+            return rungs, {r.name: tladder.rung_segments(bundles, r.name)
+                           for r in rungs}
+
+    def refuse(*a, **k):
+        raise AssertionError("the reference's ladder fan-out ran")
+
+    ladder_settings = dict(segment_s=0.25, ladder_rungs="32,24")
+    coord = _make_rig(tmp_path, "port", settings=ladder_settings)
+    execu = PortLadderExecutor(coord, output_dir=str(tmp_path / "port"),
+                               sync=True)
+    coord._launcher = execu.launch
+    with monkeypatch.context() as mp:
+        mp.setattr(jladder.LadderShardEncoder, "dispatch_wave", refuse)
+        port_job = _run_ladder_job(coord, path, w, h, n)
+    ref_job = _run_ladder_job(
+        _make_rig(tmp_path, "ref", settings=ladder_settings,
+                  mesh=_one_device_mesh()), path, w, h, n)
+    (enc,) = built
+    assert type(enc) is tladder.LadderShardEncoder
+    assert [r.name for r in enc.rungs] == ["48p", "32p", "24p"]
+    assert enc.stages.snapshot()["scale"] > 0
+    assert port_job.parts_done == port_job.parts_total == \
+        ref_job.parts_total == 4
+    port_tree = _tree(os.path.dirname(port_job.output_path))
+    ref_tree = _tree(os.path.dirname(ref_job.output_path))
+    assert sorted(port_tree) == sorted(ref_tree) and len(ref_tree) > 6
+    for name in ref_tree:
+        assert port_tree[name] == ref_tree[name], name
+
+
+def _run_ladder_job(coord, path, w, h, n):
+    job = coord.add_job(str(path), JMeta(width=w, height=h, num_frames=n))
+    job = coord.store.get(job.id)
+    assert job.job_type == "ladder"
+    assert job.status is Status.DONE, job.failure_reason
+    assert job.output_path.endswith("master.m3u8")
+    return job
+
+
+def _tree(root):
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            full = os.path.join(dirpath, name)
+            with open(full, "rb") as fp:
+                out[os.path.relpath(full, root)] = fp.read()
+    return out

@@ -1,0 +1,825 @@
+"""HLS packaging: closed-GOP-aligned fMP4 segments + playlists.
+
+torch-FREE by contract (like parallel/packproc.py): the packager
+consumes the entropy-packed Annex-B segments the encoders already
+produced, so it can run on the coordinator's control plane, on a worker
+sidecar, or in a test process that never loads a device backend.
+
+Segmentation rides the GOP plan: every ladder rung shares the same GOP
+boundaries (ladder.LadderShardEncoder's invariant), and a media segment
+is a run of whole closed GOPs totalling ~`segment_s` seconds — so
+segment boundaries are IDENTICAL across rungs and every segment opens
+on an IDR, which is exactly what lets a player switch renditions at any
+segment edge. Output per rung is an `init.mp4` (moov + mvex, no
+samples) plus `seg_%05d.m4s` fragments (moof + mdat, one trun per
+track) referenced by a media playlist; the master playlist carries
+measured BANDWIDTH / AVERAGE-BANDWIDTH, RESOLUTION, CODECS (from the
+rung's SPS bytes, plus the audio codec on muxed variants) and
+FRAME-RATE per rung. The source's audio track passes through bit-exact
+as a second fragment track (the same passthrough contract
+io/mp4.mux_mp4 keeps) — the executor attaches it to EVERY rung so all
+variants share one codec set and an adaptive switch never drops sound;
+a RungStream with audio=None simply packages video-only.
+
+`lint_ladder` is the conformance gate the tests (and the executor,
+cheaply, right after packaging) run: EXTINF sums vs stream duration,
+the target-duration bound, monotonic master BANDWIDTH, and identical
+segment boundaries across rungs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import re
+import struct
+from typing import Iterable
+
+from ..core.types import EncodedSegment
+from ..io.mp4 import (Mp4Track, _box, _find_box, _full, _iter_boxes,
+                      _matrix, annexb_to_samples, avc1_sample_entry)
+
+#: fragment MOVIE timescale (mvhd); the video TRACK timescale is
+#: derived per stream as fps_num·1000 so the per-frame tick is exactly
+#: fps_den·1000 — integer-exact for 1001-denominator rates (23.976,
+#: 29.97, 59.94) where a fixed 90 kHz grid would truncate and drift
+#: the tfdt timeline off the playlist over long VOD assets
+MOVIE_TIMESCALE = 90000
+
+
+def video_timescale(fps_num: int, fps_den: int) -> tuple[int, int]:
+    """(track timescale, per-frame tick) — exact for any rational rate:
+    timescale fps_num·1000, tick fps_den·1000."""
+    return max(1, fps_num) * 1000, max(1, fps_den) * 1000
+
+SEGMENT_PATTERN = "seg_%05d.m4s"
+INIT_NAME = "init.mp4"
+MEDIA_PLAYLIST = "media.m3u8"
+MASTER_PLAYLIST = "master.m3u8"
+
+_SYNC_FLAGS = 0x02000000        # sample_depends_on=2 (I)
+_NONSYNC_FLAGS = 0x01010000     # depends=1, is_non_sync_sample
+
+
+def codecs_string(sps: bytes) -> str:
+    """RFC 6381 codec string from a raw SPS NAL:
+    avc1.<profile><constraints><level> in hex."""
+    if len(sps) < 4:
+        raise ValueError("SPS too short for a codecs string")
+    return f"avc1.{sps[1]:02X}{sps[2]:02X}{sps[3]:02X}"
+
+
+def audio_codecs_string(stsd_entry: bytes) -> str:
+    """RFC 6381 codec string for a passthrough audio sample entry.
+    mp4a maps to AAC-LC's registered form (the overwhelmingly common
+    case; the object type rides inside esds which passthrough never
+    parses); anything else reports its fourcc verbatim — a master
+    playlist must name EVERY codec in a muxed variant (RFC 8216
+    §4.3.4.2) or players won't bring up the audio decoder."""
+    fourcc = stsd_entry[4:8].decode("ascii", "replace").strip()
+    return "mp4a.40.2" if fourcc == "mp4a" else fourcc
+
+
+# ---------------------------------------------------------------------------
+# fMP4 boxes
+# ---------------------------------------------------------------------------
+
+
+def _init_trak(track_id: int, handler: bytes, hdlr_name: bytes,
+               media_header: bytes, stsd_entry: bytes, timescale: int,
+               tkhd_dims: bytes) -> bytes:
+    """One sample-less trak for the init segment (tables live in the
+    fragments' truns)."""
+    stsd = _full(b"stsd", 0, 0, struct.pack(">I", 1), stsd_entry)
+    stts = _full(b"stts", 0, 0, struct.pack(">I", 0))
+    stsc = _full(b"stsc", 0, 0, struct.pack(">I", 0))
+    stsz = _full(b"stsz", 0, 0, struct.pack(">II", 0, 0))
+    stco = _full(b"stco", 0, 0, struct.pack(">I", 0))
+    stbl = _box(b"stbl", stsd, stts, stsc, stsz, stco)
+    dinf = _box(b"dinf", _full(b"dref", 0, 0, struct.pack(">I", 1),
+                               _full(b"url ", 0, 1)))
+    minf = _box(b"minf", media_header, dinf, stbl)
+    mdhd = _full(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, timescale,
+                                            0, 0x55C4, 0))
+    hdlr = _full(b"hdlr", 0, 0, struct.pack(">I", 0), handler,
+                 b"\x00" * 12, hdlr_name)
+    mdia = _box(b"mdia", mdhd, hdlr, minf)
+    volume = 0x0100 if handler == b"soun" else 0
+    tkhd = _full(b"tkhd", 0, 3,
+                 struct.pack(">IIIII", 0, 0, track_id, 0, 0),
+                 struct.pack(">IIHHHH", 0, 0, 0, 0, volume, 0),
+                 _matrix(), tkhd_dims)
+    return _box(b"trak", tkhd, mdia)
+
+
+@dataclasses.dataclass
+class _FragTrack:
+    """One track of a fragmented stream."""
+
+    track_id: int
+    handler: bytes                  # b"vide" | b"soun"
+    stsd_entry: bytes
+    timescale: int
+
+    def trak(self, dims: tuple[int, int] | None) -> bytes:
+        if self.handler == b"vide":
+            w, h = dims or (0, 0)
+            media_header = _full(b"vmhd", 0, 1,
+                                 struct.pack(">4H", 0, 0, 0, 0))
+            tkhd_dims = struct.pack(">II", w << 16, h << 16)
+            name = b"VideoHandler\x00"
+        else:
+            media_header = _full(b"smhd", 0, 0, struct.pack(">HH", 0, 0))
+            tkhd_dims = struct.pack(">II", 0, 0)
+            name = b"SoundHandler\x00"
+        return _init_trak(self.track_id, self.handler, name,
+                          media_header, self.stsd_entry, self.timescale,
+                          tkhd_dims)
+
+
+def init_segment(tracks: list[_FragTrack],
+                 dims: tuple[int, int]) -> bytes:
+    """ftyp + moov(mvhd, trak*, mvex(trex*)) — the EXT-X-MAP target."""
+    ftyp = _box(b"ftyp", b"iso5", struct.pack(">I", 0x200),
+                b"iso5iso6mp41")
+    traks = [t.trak(dims if t.handler == b"vide" else None)
+             for t in tracks]
+    trexs = [_full(b"trex", 0, 0,
+                   struct.pack(">5I", t.track_id, 1, 0, 0, 0))
+             for t in tracks]
+    mvhd = _full(b"mvhd", 0, 0,
+                 struct.pack(">IIII", 0, 0, MOVIE_TIMESCALE, 0),
+                 struct.pack(">IH", 0x00010000, 0x0100), b"\x00" * 10,
+                 _matrix(), b"\x00" * 24,
+                 struct.pack(">I", max(t.track_id for t in tracks) + 1))
+    moov = _box(b"moov", mvhd, *traks, _box(b"mvex", *trexs))
+    return ftyp + moov
+
+
+@dataclasses.dataclass
+class _FragRun:
+    """One track's samples within one media segment."""
+
+    track_id: int
+    base_decode_time: int           # in the track's timescale
+    samples: list[tuple[bytes, int, bool]]   # (data, duration, sync)
+
+    @property
+    def data_size(self) -> int:
+        return sum(len(d) for d, _dur, _sync in self.samples)
+
+    @property
+    def data(self) -> bytes:
+        return b"".join(d for d, _dur, _sync in self.samples)
+
+
+def _traf(run: _FragRun, data_offset: int) -> bytes:
+    tfhd = _full(b"tfhd", 0, 0x020000,          # default-base-is-moof
+                 struct.pack(">I", run.track_id))
+    tfdt = _full(b"tfdt", 1, 0, struct.pack(">Q", run.base_decode_time))
+    trun_flags = 0x000001 | 0x000100 | 0x000200 | 0x000400
+    body = [struct.pack(">Ii", len(run.samples), data_offset)]
+    for data, dur, sync in run.samples:
+        body.append(struct.pack(
+            ">III", dur, len(data),
+            _SYNC_FLAGS if sync else _NONSYNC_FLAGS))
+    trun = _full(b"trun", 0, trun_flags, b"".join(body))
+    return _box(b"traf", tfhd, tfdt, trun)
+
+
+def media_segment(seq: int, runs: list[_FragRun]) -> bytes:
+    """moof + mdat for one segment. trun data offsets are relative to
+    the moof start (default-base-is-moof); per-track data concatenates
+    in run order inside the one mdat."""
+
+    def build(offsets: list[int]) -> bytes:
+        trafs = [_traf(run, off) for run, off in zip(runs, offsets)]
+        return _box(b"moof",
+                    _full(b"mfhd", 0, 0, struct.pack(">I", seq)), *trafs)
+
+    # moof size is offset-independent (fixed-width trun fields):
+    # measure with zeros, then rebuild with the real offsets
+    moof_len = len(build([0] * len(runs)))
+    offsets, acc = [], moof_len + 8     # + mdat header
+    for run in runs:
+        offsets.append(acc)
+        acc += run.data_size            # size only: join payloads once
+    moof = build(offsets)
+    assert len(moof) == moof_len
+    return moof + _box(b"mdat", *[run.data for run in runs])
+
+
+# ---------------------------------------------------------------------------
+# segment grouping + audio allocation
+# ---------------------------------------------------------------------------
+
+
+def segment_groups(gop_frame_counts: Iterable[int], fps_num: int,
+                   fps_den: int, segment_s: float) -> list[list[int]]:
+    """Group GOP indices into media segments of ~`segment_s` seconds.
+
+    Pure function of the GOP plan — every rung shares the plan, so
+    every rung gets byte-for-byte identical grouping (the cross-rung
+    boundary-alignment invariant the lint asserts). Greedy: a segment
+    closes once it reaches the target; every segment holds ≥ 1 whole
+    closed GOP.
+    """
+    fps = fps_num / max(1, fps_den)
+    target = max(0.05, float(segment_s))
+    groups: list[list[int]] = []
+    cur: list[int] = []
+    cur_s = 0.0
+    for gi, nf in enumerate(gop_frame_counts):
+        cur.append(gi)
+        cur_s += nf / max(fps, 1e-9)
+        if cur_s >= target - 1e-9:
+            groups.append(cur)
+            cur, cur_s = [], 0.0
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def _expand_stts(stts: list[tuple[int, int]]) -> list[int]:
+    out: list[int] = []
+    for count, delta in stts:
+        out.extend([int(delta)] * int(count))
+    return out
+
+
+def _allocate_audio(audio: Mp4Track, seg_ends_s: list[float]
+                    ) -> list[tuple[int, list[tuple[bytes, int, bool]]]]:
+    """Split the passthrough audio track at the video segment ends:
+    segment k takes every sample whose start time lands before the
+    segment's end (a running pointer, so all samples land exactly
+    once). Returns (base_decode_time, samples) per segment."""
+    durs = _expand_stts(audio.stts)
+    if len(durs) < len(audio.samples):          # defensive: pad tail
+        last = durs[-1] if durs else 1024
+        durs = durs + [last] * (len(audio.samples) - len(durs))
+    ts = audio.timescale or 1
+    out: list[tuple[int, list[tuple[bytes, int, bool]]]] = []
+    ai = 0
+    t = 0                                        # in audio timescale
+    for k, end_s in enumerate(seg_ends_s):
+        base = t
+        samples: list[tuple[bytes, int, bool]] = []
+        last = k == len(seg_ends_s) - 1
+        while ai < len(audio.samples) and (last or t < end_s * ts):
+            samples.append((audio.samples[ai], durs[ai], True))
+            t += durs[ai]
+            ai += 1
+        out.append((base, samples))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# packaging
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RungStream:
+    """One rendition's encoded output, ready to package."""
+
+    name: str
+    width: int
+    height: int
+    segments: list[EncodedSegment]       # ordered closed GOPs
+    audio: Mp4Track | None = None        # passthrough track, or video-only
+
+
+@dataclasses.dataclass
+class RungInfo:
+    """Packaging result for one rung (master-playlist inputs)."""
+
+    name: str
+    width: int
+    height: int
+    codecs: str
+    bandwidth: int
+    avg_bandwidth: int
+    durations: list[float]
+    bytes_total: int
+
+
+def _package_rung(rung_dir: str, stream: RungStream,
+                  groups: list[list[int]], fps_num: int,
+                  fps_den: int) -> RungInfo:
+    os.makedirs(rung_dir, exist_ok=True)
+    timescale, sample_dur = video_timescale(fps_num, fps_den)
+    segs = sorted(stream.segments, key=lambda s: s.gop.index)
+
+    # per-GOP AVCC samples (one coded picture per sample)
+    sps = pps = b""
+    gop_samples: list[list[tuple[bytes, bool]]] = []
+    for seg in segs:
+        s, p, samples, keys = annexb_to_samples(seg.payload)
+        sps, pps = sps or s, pps or p
+        if not samples or not keys[0]:
+            raise ValueError(
+                f"GOP {seg.gop.index} of rung {stream.name} does not "
+                f"open on an IDR — not segmentable")
+        gop_samples.append(list(zip(samples, keys)))
+
+    tracks = [_FragTrack(1, b"vide",
+                         avc1_sample_entry(stream.width, stream.height,
+                                           sps, pps), timescale)]
+    audio = stream.audio
+    if audio is not None:
+        tracks.append(_FragTrack(2, b"soun", audio.stsd_entry,
+                                 audio.timescale))
+    with open(os.path.join(rung_dir, INIT_NAME), "wb") as fp:
+        fp.write(init_segment(tracks, (stream.width, stream.height)))
+
+    # audio split points = video segment end times
+    seg_frames = [sum(segs[gi].gop.num_frames for gi in grp)
+                  for grp in groups]
+    fps = fps_num / max(1, fps_den)
+    ends, acc = [], 0
+    for nf in seg_frames:
+        acc += nf
+        ends.append(acc / fps)
+    audio_runs = _allocate_audio(audio, ends) if audio is not None \
+        else None
+
+    durations: list[float] = []
+    total_bytes = 0
+    peak_bps = 0.0
+    frame_dt = 0
+    for k, grp in enumerate(groups):
+        vsamples: list[tuple[bytes, int, bool]] = []
+        for gi in grp:
+            vsamples.extend((data, sample_dur, sync)
+                            for data, sync in gop_samples[gi])
+        runs = [_FragRun(1, frame_dt, vsamples)]
+        if audio_runs is not None:
+            abase, asamples = audio_runs[k]
+            if asamples:
+                runs.append(_FragRun(2, abase, asamples))
+        data = media_segment(k + 1, runs)
+        with open(os.path.join(rung_dir, SEGMENT_PATTERN % k), "wb") as fp:
+            fp.write(data)
+        dur = seg_frames[k] / fps
+        durations.append(dur)
+        total_bytes += len(data)
+        peak_bps = max(peak_bps, len(data) * 8 / max(dur, 1e-9))
+        frame_dt += len(vsamples) * sample_dur
+
+    total_s = sum(durations)
+    target = max(1, math.ceil(max(durations)))
+    lines = [
+        "#EXTM3U",
+        "#EXT-X-VERSION:7",
+        f"#EXT-X-TARGETDURATION:{target}",
+        "#EXT-X-PLAYLIST-TYPE:VOD",
+        "#EXT-X-MEDIA-SEQUENCE:0",
+        "#EXT-X-INDEPENDENT-SEGMENTS",
+        f'#EXT-X-MAP:URI="{INIT_NAME}"',
+    ]
+    for k, dur in enumerate(durations):
+        lines.append(f"#EXTINF:{dur:.5f},")
+        lines.append(SEGMENT_PATTERN % k)
+    lines.append("#EXT-X-ENDLIST")
+    with open(os.path.join(rung_dir, MEDIA_PLAYLIST), "w",
+              encoding="utf-8") as fp:
+        fp.write("\n".join(lines) + "\n")
+
+    codecs = codecs_string(sps)
+    if audio is not None:
+        codecs += "," + audio_codecs_string(audio.stsd_entry)
+    return RungInfo(
+        name=stream.name, width=stream.width, height=stream.height,
+        codecs=codecs,
+        bandwidth=max(1, math.ceil(peak_bps)),
+        avg_bandwidth=max(1, math.ceil(
+            total_bytes * 8 / max(total_s, 1e-9))),
+        durations=durations, bytes_total=total_bytes)
+
+
+def package_ladder(out_dir: str, streams: list[RungStream], fps_num: int,
+                   fps_den: int, segment_s: float = 6.0) -> str:
+    """Package every rung + write the master playlist; returns the
+    master path. All rungs must carry the same GOP plan (same count and
+    frame ranges) — violations raise instead of emitting an unswitchable
+    ladder."""
+    if not streams:
+        raise ValueError("no rung streams to package")
+    plans = [tuple((s.gop.index, s.gop.num_frames)
+                   for s in sorted(st.segments, key=lambda s: s.gop.index))
+             for st in streams]
+    if any(p != plans[0] for p in plans[1:]):
+        raise ValueError("rung GOP plans differ; segments would not "
+                         "align across renditions")
+    groups = segment_groups(
+        [nf for _i, nf in plans[0]], fps_num, fps_den, segment_s)
+
+    os.makedirs(out_dir, exist_ok=True)
+    infos = [_package_rung(os.path.join(out_dir, st.name), st, groups,
+                           fps_num, fps_den) for st in streams]
+
+    fps = fps_num / max(1, fps_den)
+    lines = ["#EXTM3U", "#EXT-X-VERSION:7",
+             "#EXT-X-INDEPENDENT-SEGMENTS"]
+    for info in sorted(infos, key=lambda i: i.bandwidth):
+        lines.append(
+            f"#EXT-X-STREAM-INF:BANDWIDTH={info.bandwidth},"
+            f"AVERAGE-BANDWIDTH={info.avg_bandwidth},"
+            f"RESOLUTION={info.width}x{info.height},"
+            f'CODECS="{info.codecs}",FRAME-RATE={fps:.3f}')
+        lines.append(f"{info.name}/{MEDIA_PLAYLIST}")
+    master = os.path.join(out_dir, MASTER_PLAYLIST)
+    with open(master, "w", encoding="utf-8") as fp:
+        fp.write("\n".join(lines) + "\n")
+    return master
+
+
+# ---------------------------------------------------------------------------
+# conformance lint + segment read-back
+# ---------------------------------------------------------------------------
+
+
+def _parse_media_playlist(path: str) -> dict:
+    target = None
+    durations: list[float] = []
+    uris: list[str] = []
+    has_map = has_end = False
+    pending_inf = False
+    with open(path, encoding="utf-8") as fp:
+        for raw in fp:
+            line = raw.strip()
+            if line.startswith("#EXT-X-TARGETDURATION:"):
+                target = int(line.split(":", 1)[1])
+            elif line.startswith("#EXT-X-MAP:"):
+                has_map = True
+            elif line.startswith("#EXTINF:"):
+                durations.append(float(
+                    line.split(":", 1)[1].rstrip(",").split(",")[0]))
+                pending_inf = True
+            elif line == "#EXT-X-ENDLIST":
+                has_end = True
+            elif line and not line.startswith("#"):
+                if not pending_inf:
+                    raise ValueError(f"{path}: URI without EXTINF: {line}")
+                uris.append(line)
+                pending_inf = False
+    if target is None or not has_map or not has_end:
+        raise ValueError(f"{path}: missing TARGETDURATION/MAP/ENDLIST")
+    if len(durations) != len(uris):
+        raise ValueError(f"{path}: {len(durations)} EXTINF for "
+                         f"{len(uris)} URIs")
+    return {"target": target, "durations": durations, "uris": uris}
+
+
+_STREAM_INF = re.compile(r"^#EXT-X-STREAM-INF:(?P<attrs>.+)$")
+
+
+def _parse_attr_list(text: str) -> dict[str, str]:
+    out: dict[str, str] = {}
+    for m in re.finditer(r'([A-Z0-9-]+)=("[^"]*"|[^,]*)', text):
+        out[m.group(1)] = m.group(2).strip('"')
+    return out
+
+
+def lint_ladder(out_dir: str, expected_duration_s: float | None = None
+                ) -> dict:
+    """Conformance gate over a packaged ladder directory.
+
+    Checks: master variants carry monotonic (nondecreasing) BANDWIDTH
+    plus RESOLUTION/CODECS; every media playlist's EXTINF respects the
+    TARGETDURATION bound and sums to the stream duration; segment
+    count AND per-segment durations (boundaries) are identical across
+    rungs; every referenced file exists non-empty. Returns summary
+    facts; raises ValueError on any violation.
+    """
+    master = os.path.join(out_dir, MASTER_PLAYLIST)
+    variants: list[tuple[dict[str, str], str]] = []
+    attrs: dict[str, str] | None = None
+    with open(master, encoding="utf-8") as fp:
+        for raw in fp:
+            line = raw.strip()
+            m = _STREAM_INF.match(line)
+            if m:
+                attrs = _parse_attr_list(m.group("attrs"))
+            elif line and not line.startswith("#"):
+                if attrs is None:
+                    raise ValueError(f"master: URI {line} without "
+                                     f"STREAM-INF")
+                variants.append((attrs, line))
+                attrs = None
+    if not variants:
+        raise ValueError("master playlist has no variants")
+    bandwidths = []
+    for a, uri in variants:
+        for key in ("BANDWIDTH", "RESOLUTION", "CODECS"):
+            if key not in a:
+                raise ValueError(f"variant {uri} missing {key}")
+        bandwidths.append(int(a["BANDWIDTH"]))
+    if any(b2 < b1 for b1, b2 in zip(bandwidths, bandwidths[1:])):
+        raise ValueError(f"master BANDWIDTH not monotonic: {bandwidths}")
+
+    all_durs: list[list[float]] = []
+    for a, uri in variants:
+        mp = os.path.join(out_dir, uri)
+        info = _parse_media_playlist(mp)
+        rung_dir = os.path.dirname(mp)
+        for fname in [INIT_NAME] + info["uris"]:
+            fpath = os.path.join(rung_dir, fname)
+            if not os.path.exists(fpath) or not os.path.getsize(fpath):
+                raise ValueError(f"{uri}: missing/empty {fname}")
+        for d in info["durations"]:
+            if round(d) > info["target"]:
+                raise ValueError(
+                    f"{uri}: EXTINF {d:.3f}s exceeds "
+                    f"TARGETDURATION {info['target']}")
+        all_durs.append(info["durations"])
+    counts = {len(d) for d in all_durs}
+    if len(counts) != 1:
+        raise ValueError(f"segment counts differ across rungs: "
+                         f"{sorted(counts)}")
+    for durs in all_durs[1:]:
+        if any(abs(a - b) > 1e-3 for a, b in zip(all_durs[0], durs)):
+            raise ValueError("segment boundaries differ across rungs")
+    total = sum(all_durs[0])
+    if expected_duration_s is not None \
+            and abs(total - expected_duration_s) > 0.05:
+        raise ValueError(
+            f"EXTINF sum {total:.3f}s != stream duration "
+            f"{expected_duration_s:.3f}s")
+    return {"rungs": len(variants), "segments": len(all_durs[0]),
+            "duration_s": total,
+            "bandwidths": bandwidths}
+
+
+# ---------------------------------------------------------------------------
+# live / LL-HLS playlists (rendered incrementally by live/packager.py)
+# ---------------------------------------------------------------------------
+
+#: live part filenames: seg index + part index within the segment
+PART_PATTERN = "seg_%05d.part%02d.m4s"
+
+
+@dataclasses.dataclass
+class LivePart:
+    """One LL-HLS partial segment (here: one closed GOP's fragment)."""
+
+    uri: str
+    duration_s: float
+    independent: bool = True        # every part opens on an IDR
+
+
+@dataclasses.dataclass
+class LiveSegmentRef:
+    """One announced media segment of a live playlist."""
+
+    uri: str
+    duration_s: float
+    parts: list[LivePart] = dataclasses.field(default_factory=list)
+
+
+def render_live_media_playlist(
+        segments: list[LiveSegmentRef], open_parts: list[LivePart], *,
+        media_sequence: int, target_s: float, part_target_s: float,
+        preload_uri: str | None = None, event: bool = False,
+        ended: bool = False, parts_window: int = 1,
+        init_uri: str = INIT_NAME) -> str:
+    """Render a live/EVENT media playlist snapshot (RFC 8216bis).
+
+    `segments` are the CLOSED segments still inside the DVR window
+    (playlist order); `open_parts` are the in-progress segment's
+    already-written partial segments, announced the moment each closed
+    GOP clears the ladder — the sub-segment-latency half of LL-HLS.
+    Parts are listed for the open segment plus the last `parts_window`
+    closed segments (older parts may be dropped per spec); a
+    `preload_uri` hint names the NEXT part so a player can open its
+    request before the encoder finishes it. `ended` appends
+    EXT-X-ENDLIST (and suppresses parts/hints — a closed stream
+    announces nothing further); `event` marks a no-GC playlist
+    (EXT-X-PLAYLIST-TYPE:EVENT is only legal when segments are never
+    removed, so the packager sets it iff the DVR window is unbounded).
+    """
+    lines = [
+        "#EXTM3U",
+        "#EXT-X-VERSION:9",
+        f"#EXT-X-TARGETDURATION:{max(1, math.ceil(target_s))}",
+        f"#EXT-X-SERVER-CONTROL:CAN-BLOCK-RELOAD=YES,"
+        f"PART-HOLD-BACK={3 * part_target_s:.5f}",
+        f"#EXT-X-PART-INF:PART-TARGET={part_target_s:.5f}",
+        f"#EXT-X-MEDIA-SEQUENCE:{media_sequence}",
+    ]
+    if event:
+        lines.append("#EXT-X-PLAYLIST-TYPE:EVENT")
+    lines += ["#EXT-X-INDEPENDENT-SEGMENTS",
+              f'#EXT-X-MAP:URI="{init_uri}"']
+
+    def part_lines(parts: list[LivePart]) -> list[str]:
+        return [
+            f'#EXT-X-PART:DURATION={p.duration_s:.5f},URI="{p.uri}"'
+            + (",INDEPENDENT=YES" if p.independent else "")
+            for p in parts]
+
+    first_with_parts = len(segments) - max(0, parts_window)
+    for i, seg in enumerate(segments):
+        if not ended and i >= first_with_parts:
+            lines += part_lines(seg.parts)
+        lines.append(f"#EXTINF:{seg.duration_s:.5f},")
+        lines.append(seg.uri)
+    if ended:
+        lines.append("#EXT-X-ENDLIST")
+    else:
+        lines += part_lines(open_parts)
+        if preload_uri:
+            lines.append(
+                f'#EXT-X-PRELOAD-HINT:TYPE=PART,URI="{preload_uri}"')
+    return "\n".join(lines) + "\n"
+
+
+def live_playlist_state(text: str) -> dict:
+    """Cheap live-edge facts out of a media playlist snapshot — the
+    LL-HLS blocking-reload gate (api/server.py `_HLS_msn`/`_HLS_part`)
+    and the live lint both read this.
+
+    Returns {"media_sequence", "segments", "next_msn", "next_part",
+    "parts", "part_target", "target", "ended", "has_map",
+    "has_server_control", "has_preload_hint", "durations",
+    "part_durations"} where `next_msn` is the media sequence number
+    the OPEN (not yet announced as whole) segment will get and
+    `next_part` is how many of its parts are already announced.
+    """
+    media_seq = 0
+    target = None
+    part_target = None
+    durations: list[float] = []
+    has_map = ended = has_sc = has_hint = False
+    pending_inf = False
+    # parts attach to the segment that FOLLOWS them in the playlist;
+    # parts after the last EXTINF belong to the open segment
+    open_parts: list[float] = []
+    part_durations: list[float] = []
+    for raw in text.splitlines():
+        line = raw.strip()
+        if line.startswith("#EXT-X-MEDIA-SEQUENCE:"):
+            media_seq = int(line.split(":", 1)[1])
+        elif line.startswith("#EXT-X-TARGETDURATION:"):
+            target = int(line.split(":", 1)[1])
+        elif line.startswith("#EXT-X-PART-INF:"):
+            attrs = _parse_attr_list(line.split(":", 1)[1])
+            part_target = float(attrs.get("PART-TARGET", 0) or 0)
+        elif line.startswith("#EXT-X-SERVER-CONTROL:"):
+            has_sc = "CAN-BLOCK-RELOAD=YES" in line
+        elif line.startswith("#EXT-X-MAP:"):
+            has_map = True
+        elif line.startswith("#EXT-X-PART:"):
+            attrs = _parse_attr_list(line.split(":", 1)[1])
+            dur = float(attrs.get("DURATION", 0) or 0)
+            open_parts.append(dur)
+            part_durations.append(dur)
+        elif line.startswith("#EXT-X-PRELOAD-HINT:"):
+            has_hint = True
+        elif line.startswith("#EXTINF:"):
+            durations.append(float(
+                line.split(":", 1)[1].rstrip(",").split(",")[0]))
+            pending_inf = True
+        elif line == "#EXT-X-ENDLIST":
+            ended = True
+        elif line and not line.startswith("#") and pending_inf:
+            pending_inf = False
+            open_parts = []         # those parts belonged to this URI
+    return {
+        "media_sequence": media_seq,
+        "segments": len(durations),
+        "next_msn": media_seq + len(durations),
+        "next_part": len(open_parts),
+        "parts": len(part_durations),
+        "part_target": part_target,
+        "target": target,
+        "ended": ended,
+        "has_map": has_map,
+        "has_server_control": has_sc,
+        "has_preload_hint": has_hint,
+        "durations": durations,
+        "part_durations": part_durations,
+    }
+
+
+def lint_live_media_playlist(path: str, prev: dict | None = None) -> dict:
+    """Conformance lint for ONE live media-playlist snapshot, with
+    optional cross-reload monotonicity against the previous snapshot's
+    returned state.
+
+    Checks: TARGETDURATION/MAP present; while open, PART-INF +
+    blocking-reload SERVER-CONTROL advertised and no EXT-X-ENDLIST;
+    every EXTINF within the TARGETDURATION bound and every part
+    DURATION within PART-TARGET; an ENDED playlist must not announce
+    a preload hint (a closed stream promising more parts is a
+    contradiction). With `prev`: EXT-X-MEDIA-SEQUENCE never goes
+    backwards, the (next_msn, next_part) live edge never retreats,
+    and an ended stream never reopens. Returns the state dict to
+    thread into the next call; raises ValueError on violations.
+    """
+    with open(path, encoding="utf-8") as fp:
+        st = live_playlist_state(fp.read())
+    if st["target"] is None or not st["has_map"]:
+        raise ValueError(f"{path}: missing TARGETDURATION/MAP")
+    if not st["ended"]:
+        if st["part_target"] is None:
+            raise ValueError(f"{path}: open live playlist without "
+                             f"EXT-X-PART-INF")
+        if not st["has_server_control"]:
+            raise ValueError(f"{path}: open live playlist without "
+                             f"CAN-BLOCK-RELOAD server control")
+    if st["ended"] and st["has_preload_hint"]:
+        raise ValueError(f"{path}: ENDLIST playlist still announces a "
+                         f"preload hint")
+    for d in st["durations"]:
+        if round(d) > st["target"]:
+            raise ValueError(f"{path}: EXTINF {d:.3f}s exceeds "
+                             f"TARGETDURATION {st['target']}")
+    if st["part_target"] is not None:
+        for d in st["part_durations"]:
+            if d > st["part_target"] + 1e-3:
+                raise ValueError(
+                    f"{path}: part DURATION {d:.3f}s exceeds "
+                    f"PART-TARGET {st['part_target']:.3f}")
+    if prev is not None:
+        if st["media_sequence"] < prev["media_sequence"]:
+            raise ValueError(
+                f"{path}: EXT-X-MEDIA-SEQUENCE went backwards "
+                f"({prev['media_sequence']} -> {st['media_sequence']})")
+        edge = (st["next_msn"], st["next_part"])
+        prev_edge = (prev["next_msn"], prev["next_part"])
+        if edge < prev_edge:
+            raise ValueError(f"{path}: live edge retreated "
+                             f"{prev_edge} -> {edge}")
+        if prev["ended"] and not st["ended"]:
+            raise ValueError(f"{path}: ended stream reopened")
+    return st
+
+
+def init_video_entry(init: bytes) -> bytes:
+    """The avc1 sample entry out of an init segment (decode read-back:
+    feed with the fragment samples to io/mp4._avcc_to_annexb)."""
+    moov = _find_box(init, 0, len(init), b"moov")
+    if moov is None:
+        raise ValueError("init segment has no moov")
+    for kind, ts_, te in _iter_boxes(init, *moov):
+        if kind != b"trak":
+            continue
+        mdia = _find_box(init, ts_, te, b"mdia")
+        hdlr = _find_box(init, *mdia, kind=b"hdlr")
+        if init[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
+            continue
+        stbl = _find_box(init, *_find_box(init, *mdia, kind=b"minf"),
+                         kind=b"stbl")
+        stsd = _find_box(init, *stbl, kind=b"stsd")
+        entry_s = stsd[0] + 8
+        entry_size = struct.unpack_from(">I", init, entry_s)[0]
+        return bytes(init[entry_s:entry_s + entry_size])
+    raise ValueError("init segment has no video track")
+
+
+def segment_track_samples(seg: bytes, track_id: int = 1) -> list[bytes]:
+    """One fragment's samples for `track_id`, sliced out of the mdat via
+    the trun tables (validation / read-back decode path)."""
+    samples: list[bytes] = []
+    for kind, ps, pe in _iter_boxes(seg, 0, len(seg)):
+        if kind != b"moof":
+            continue
+        moof_start = ps - 8
+        for tkind, ts_, te in _iter_boxes(seg, ps, pe):
+            if tkind != b"traf":
+                continue
+            tfhd = _find_box(seg, ts_, te, b"tfhd")
+            tid = struct.unpack_from(">I", seg, tfhd[0] + 4)[0]
+            if tid != track_id:
+                continue
+            trun = _find_box(seg, ts_, te, b"trun")
+            vf = struct.unpack_from(">I", seg, trun[0])[0]
+            flags = vf & 0xFFFFFF
+            n = struct.unpack_from(">I", seg, trun[0] + 4)[0]
+            pos = trun[0] + 8
+            if not flags & 0x1:
+                raise ValueError("trun without data offset")
+            data_off = struct.unpack_from(">i", seg, pos)[0]
+            pos += 4
+            if flags & 0x4:             # first-sample-flags
+                pos += 4
+            cursor = moof_start + data_off
+            for _ in range(n):
+                dur = size = None
+                if flags & 0x100:
+                    dur = struct.unpack_from(">I", seg, pos)[0]
+                    pos += 4
+                if flags & 0x200:
+                    size = struct.unpack_from(">I", seg, pos)[0]
+                    pos += 4
+                if flags & 0x400:
+                    pos += 4
+                if flags & 0x800:
+                    pos += 4
+                if size is None:
+                    raise ValueError("trun without sample sizes")
+                samples.append(seg[cursor:cursor + size])
+                cursor += size
+    return samples

@@ -478,7 +478,7 @@ class GopShardEncoder:
         (G, F, H, W) device arrays, lazily, one wave per iteration, so a
         long clip never pins more than the pipeline window of waves on
         the device. The per-GOP QPs stay on the host (G,) int32."""
-        for wave, F, cursor in self._wave_groups(frames):
+        for wave, F, cursor in self._wave_groups(frames, require_420=True):
             # prefetch the wave's frames OUTSIDE the "stage" timer so
             # the breakdown keeps decode (source pull) and stage
             # (stack + H2D) disjoint
@@ -498,13 +498,27 @@ class GopShardEncoder:
                           self._upload(vs), qps)
             yield staged
 
-    def _wave_groups(self, frames):
+    def stage_luma_waves(self, frames):
+        """Luma-only staging for analysis passes (rate control): chroma
+        never leaves the host, halving the upload of a pass that only
+        reads Y. Yields (wave, ys), ys the (G, F, H, W) uint8 stack on
+        this encoder's device."""
+        for wave, F, cursor in self._wave_groups(frames):
+            cursor.get(wave[-1].end_frame - 1)   # decode outside "stage"
+            with self.stages.stage("stage"):
+                ys = np.stack([self._gop_plane(cursor, g, F, "y")
+                               for g in wave])
+                self.stages.bump("h2d_bytes", ys.nbytes)
+                staged = (wave, self._upload(ys))
+            yield staged
+
+    def _wave_groups(self, frames, require_420: bool = False):
         """Wave grouping: (wave, static F, frame cursor). Stacks into
         (G, F, ...) with tail-repeat padding to static F. The cursor
         decodes frames on demand and each wave's frames are released
         once the caller has staged them."""
         plan = self.plan(len(frames))
-        cursor = _FrameCursor(frames, self.stages, require_420=True,
+        cursor = _FrameCursor(frames, self.stages, require_420=require_420,
                               stats=self.staging_stats)
         gops = list(plan.gops)
         per_wave = self.gops_per_wave if self.inter else 1
@@ -1445,18 +1459,25 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
     shape, :class:`SfeShardEncoder`, with `sfe_halo_rows` unless
     `halo_rows` is given; else GOP waves).
 
+    `rungs` selects the ladder form (abr/ladder.LadderShardEncoder, which
+    stages once and fans the renditions out on the card).
+
     The reference's other shapes are not ported yet, and each raises
     NotImplementedError naming its ROADMAP item rather than encoding
-    something else in its place: a device mesh (multi-GPU waves, A2),
-    the ladder form (`rungs`, A9) and cross-host band slices
-    (`band_range` / `total_bands` / `session`, A12)."""
+    something else in its place: a device mesh (multi-GPU waves, A2)
+    and cross-host band slices (`band_range` / `total_bands` /
+    `session`, A12)."""
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh (multi-GPU waves) is not ported yet (ROADMAP "
             "A2); pass mesh=None for one card")
     if rungs:
-        raise NotImplementedError(
-            "the ABR ladder encoder is not ported yet (ROADMAP A9)")
+        from ..abr.ladder import LadderShardEncoder
+
+        return LadderShardEncoder(meta, list(rungs),
+                                  gop_frames=int(settings.gop_frames),
+                                  max_segments=int(settings.max_segments),
+                                  device=device)
     if band_range is not None or total_bands:
         raise NotImplementedError(
             "cross-host band slices are not ported yet (ROADMAP A12)")
