@@ -110,7 +110,34 @@ Phases, in order; any failed check raises and the script exits non-zero:
               port modules only (y4m → open_video → plan_ladder →
               make_shard_encoder(rungs=) → encode → rung_segments →
               hls.package_ladder → lint_ladder).
-13. card = CPU — after every timed section, the 352x288 card == CPU
+13. live    — bench.py's two _run_live points through the port's
+              cluster.executor.run_live(device="cuda"), 1920x1080, 48
+              frames of the bench content, gop 8, qp 27: a paced writer
+              thread appends y4m frames to a growing `.live.y4m` in a
+              temporary directory (closing it with `.eos`), run_live tails
+              it on a thread, and bench's edge sampler reads the top
+              rung's media playlist (one glass-to-playlist sample per
+              announced part). Each leg first runs bench's pace probe
+              (the port's batch ladder over the whole clip on the pinned
+              GOP grid, then one GOP twice): ingest at half the 1-GOP edge
+              rate (at most 30 fps), segment_s provisioned to at least two
+              GOP-walls. The ladder leg (ladder_rungs "540": 1080p + 540p,
+              dvr_window_s 2, live_stall_s 10): the live warm-up launches
+              each ME kernel 2 x 7 times and the live run 84 times (ME
+              launch counts set to 0 just before each, read just after);
+              the top rung equals the JAX package's stream
+              (LIVE_POINT_JAX, from scripts/jax_live_point.py) and the
+              probe's batch ladder, the 540p rung equals the batch
+              ladder's (and is printed beside JAX's); the closed tree
+              passes lint_ladder (or the live lint on every rung after DVR
+              garbage collection). The split-frame leg (ladder_rungs
+              "1080", sfe_bands 4, ingest at 0.8 x its probe): 7 warm-up
+              and 42 live launches of each kernel, 4 slices a picture, the
+              JAX package's 4-band stream. Each leg prints one JSON line:
+              latency p50 / p99, ingest fps, provisioned segment_s, DVR
+              segments, GOPs, the stage_snapshot() delta, for split-frame
+              frame_latency_percentiles(), and its seconds.
+14. card = CPU — after every timed section, the 352x288 card == CPU
               checks of phases 9, 10 and 12, the CPU port's side of
               phases 9 and 10 in two worker processes (spawned, CPU only)
               while the card runs its side. Phase 9's: the card's bytes
@@ -211,6 +238,19 @@ LADDER_POINT_JAX = {
                     "bfaf7bae2a82129888d25fd0efbd6fb8",
              "a3e0d99dacebc4663a9f636d5b1e7681"
              "6dfa2d55f3fe7efdb4e9e079711c26d4"),
+}
+#: the JAX package's streams at the live point (1920x1080, 48 frames, gop 8,
+#: qp 27, bench content, on the live GOP grid): the top rung (a plain
+#: encode), the ladder's 540p rung and the 4-band split-frame stream, as
+#: (length, sha256), as `XLA_FLAGS=--xla_force_host_platform_device_count=4
+#: JAX_PLATFORMS=cpu python3 scripts/jax_live_point.py` prints them
+LIVE_POINT_JAX = {
+    "top_1080p": (2566875, "9c088903fd51d0e98c2b471c8302d752"
+                           "832bffbd271ccf04dd622e63cb9b34c9"),
+    "ladder_540p": (454528, "ecce99cbcc38dd43960e619b9efecdc6"
+                            "0b88166bd35adc6a0bfb50fade6476a5"),
+    "sfe_1080p": (2566646, "f9c24dc1ca8422500e7261f8518a8796"
+                           "e78682defa178cf6f3d609288afbede1"),
 }
 #: the RD configs the CPU parity tests hold against the JAX package
 RD_TEST_CONFIGS = {
@@ -1837,6 +1877,288 @@ def ladder_phase(main: dict) -> dict:
 
 # ---- phase 13 ------------------------------------------------------------
 
+def _measure_live_pace(meta, frames, rungs, gop_frames: int, fps: int,
+                       segment_s: float,
+                       warm_full: bool = False) -> tuple[float, float, list]:
+    """bench.py's live pace probe with the port's ladder on the card:
+    warm the pinned live batch shapes (the whole clip when `warm_full`,
+    then one GOP twice) and measure a sustainable ingest pace — half the
+    1-GOP edge rate, never above the stream's fps — and a segment
+    duration provisioned to at least two GOP-walls. Returns
+    (ingest_fps, segment_s, the whole clip's bundles when `warm_full`)."""
+    from thinvids_tpu_torch.abr.ladder import LadderShardEncoder
+    from thinvids_tpu_torch.cluster.executor import _live_batch_plan
+
+    warm = LadderShardEncoder(meta, rungs, gop_frames=gop_frames,
+                              device="cuda")
+    bundles = []
+    if warm_full:
+        warm.plan_override = _live_batch_plan(
+            meta.num_frames, gop_frames, warm.num_devices)
+        bundles = warm.encode(frames)
+    warm.plan_override = _live_batch_plan(gop_frames, gop_frames,
+                                          warm.num_devices)
+    warm.encode(frames[:gop_frames])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm.encode(frames[:gop_frames])
+    edge_fps = gop_frames / (time.perf_counter() - t0)
+    ingest_fps = max(0.5, min(float(fps), 0.5 * edge_fps))
+    gop_wall_s = gop_frames / max(edge_fps, 1e-3)
+    return ingest_fps, max(float(segment_s), 2.0 * gop_wall_s), bundles
+
+
+def _start_paced_writer(path: str, meta, frames, ingest_fps: float):
+    """bench.py's paced writer: a thread appends y4m frames to a growing
+    `.live.y4m` at `ingest_fps` and closes the stream with the `.eos`
+    marker. Returns (thread, write_times); write_times[i] is the
+    monotonic time at which frame i finished reaching the file."""
+    import io
+
+    from thinvids_tpu_torch.ingest.tail import EOS_SUFFIX
+    from thinvids_tpu_torch.io.y4m import Y4MWriter
+
+    write_times: list[float] = []
+
+    def writer() -> None:
+        buf = io.BytesIO()
+        wtr = Y4MWriter(buf, meta)
+        with open(path, "wb") as out:
+            out.write(buf.getvalue())           # header
+            out.flush()
+            delay = 1.0 / ingest_fps
+            next_at = time.monotonic()
+            for frame in frames:
+                buf.seek(0)
+                buf.truncate()
+                wtr.write(frame)
+                out.write(buf.getvalue())
+                out.flush()
+                write_times.append(time.monotonic())
+                next_at += delay
+                time.sleep(max(0.0, next_at - time.monotonic()))
+        with open(path + EOS_SUFFIX, "wb"):
+            pass
+
+    wt = threading.Thread(target=writer, daemon=True)
+    wt.start()
+    return wt, write_times
+
+
+def _sample_live_edge(running, media: str, write_times, *, nframes: int,
+                      gop_frames: int, fps: int, segment_s: float):
+    """bench.py's edge sampler: poll the top rung's media playlist while
+    `running()`; every newly announced part (one GOP) gives one
+    glass-to-playlist sample — from the part's LAST frame reaching the
+    source file to the part being listed. Returns (samples, GOPs seen,
+    final segments)."""
+    import math
+
+    from thinvids_tpu_torch.abr.hls import live_playlist_state
+
+    seg_gops = max(1, math.ceil(segment_s * fps / gop_frames - 1e-9))
+    total_gops = -(-nframes // gop_frames)
+    samples: list[float] = []
+    seen_gops = final_segments = 0
+    while True:
+        alive = running()
+        try:
+            with open(media, encoding="utf-8") as fp:
+                pl = live_playlist_state(fp.read())
+        except OSError:
+            pl = None
+        if pl is not None:
+            now = time.monotonic()
+            final_segments = pl["segments"]
+            gops = min(total_gops,
+                       pl["next_msn"] * seg_gops + pl["next_part"])
+            for g in range(seen_gops, gops):
+                last_frame = min((g + 1) * gop_frames, nframes) - 1
+                if last_frame < len(write_times):
+                    samples.append(now - write_times[last_frame])
+            seen_gops = max(seen_gops, gops)
+        if not alive:
+            return samples, seen_gops, final_segments
+        time.sleep(0.005)
+
+
+def live_leg(name: str, frames, w: int, h: int, qp: int, gop: int,
+             rungs_spec: str, sfe_bands: int = 0, segment_s: float = 1.0,
+             dvr_window_s: float = 2.0) -> dict:
+    """bench.py's _run_live point through the port's run_live on the card:
+    pace probe, then a paced writer feeding a growing `.live.y4m` in a
+    temporary directory, run_live tailing it on a thread, and the edge
+    sampler reading the top rung's playlist. The ME launch counts are set
+    to 0 just before the live warm-up and read after it, then set to 0
+    again and read after run_live returns."""
+    import statistics
+    import tempfile
+
+    from thinvids_tpu_torch.abr import hls
+    from thinvids_tpu_torch.abr.ladder import plan_ladder, rung_segments
+    from thinvids_tpu_torch.cluster import executor as texec
+    from thinvids_tpu_torch.core.config import DEFAULT_SETTINGS, Settings
+    from thinvids_tpu_torch.parallel import dispatch as tdispatch
+
+    t_leg = time.perf_counter()
+    fps, n = 30, len(frames)
+    meta = VideoMeta(width=w, height=h, fps_num=fps, fps_den=1, num_frames=n)
+    snap = Settings(values=dict(
+        DEFAULT_SETTINGS, qp=qp, gop_frames=gop, ladder_rungs=rungs_spec,
+        segment_s=segment_s, dvr_window_s=dvr_window_s, live_stall_s=10.0,
+        sfe_bands=sfe_bands))
+    rungs = plan_ladder(meta, snap)
+    ingest_fps, segment_s, probe = _measure_live_pace(
+        meta, frames, rungs, gop, fps, segment_s, warm_full=True)
+    if sfe_bands > 0:
+        ingest_fps *= 0.8       # bench: the SFE edge paces below the probe
+    snap = Settings(values=dict(snap.values, segment_s=segment_s))
+    t_probe = time.perf_counter() - t_leg
+
+    warm = {}
+    real_warm = texec.warm_live_shapes
+
+    def counted_warm(enc, meta_, gop_n):
+        torch.cuda.synchronize()
+        _zero_me_counts()
+        real_warm(enc, meta_, gop_n)
+        torch.cuda.synchronize()
+        warm.update(_me_counts())
+        _zero_me_counts()
+        with tdispatch._SFE_LAT_LOCK:   # the live run's frames only
+            tdispatch._SFE_LAT_MS.clear()
+
+    bundles: list = []
+    result: dict = {}
+    before = tdispatch.stage_snapshot()
+    with tempfile.TemporaryDirectory(prefix="tvt-live-") as tmp:
+        path = os.path.join(tmp, f"{name}.live.y4m")
+        lib = os.path.join(tmp, "lib")
+        media = os.path.join(lib, f"{name}.live.hls", rungs[0].name,
+                             hls.MEDIA_PLAYLIST)
+
+        def run() -> None:
+            try:
+                result.update(texec.run_live(
+                    path, lib, snap, device="cuda",
+                    on_bundles=bundles.extend))
+            except BaseException as exc:    # noqa: BLE001 - re-raised below
+                result["error"] = exc
+
+        texec.warm_live_shapes = counted_warm
+        try:
+            wt, write_times = _start_paced_writer(path, meta, frames,
+                                                  ingest_fps)
+            job = threading.Thread(target=run, name="tvt-live", daemon=True)
+            job.start()
+            samples, seen_gops, final_segments = _sample_live_edge(
+                job.is_alive, media, write_times, nframes=n,
+                gop_frames=gop, fps=fps, segment_s=segment_s)
+            job.join()
+            wt.join()
+        finally:
+            texec.warm_live_shapes = real_warm
+        torch.cuda.synchronize()
+        launches = _me_counts()
+        if "error" in result:
+            raise result["error"]
+        out_dir = os.path.dirname(result["master"])
+        if result["segments_gced"] == 0:
+            lint = hls.lint_ladder(out_dir, expected_duration_s=n / fps)
+        else:
+            lint = {r.name: hls.lint_live_media_playlist(os.path.join(
+                out_dir, r.name, hls.MEDIA_PLAYLIST))["segments"]
+                for r in rungs}
+    after = tdispatch.stage_snapshot()
+    stage_delta = {k: round(after[k] - before[k], 2) for k in after}
+    streams = {r.name: concat_segments(rung_segments(bundles, r.name))
+               for r in rungs}
+    samples.sort()
+    p_frames = n - -(-n // gop)
+    fig = {
+        "live": name, "rungs": [r.name for r in rungs],
+        "latency_s": {"p50": statistics.median(samples) if samples else None,
+                      "p99": samples[min(len(samples) - 1,
+                                         int(0.99 * len(samples)))]
+                      if samples else None},
+        "latency_samples": len(samples),
+        "ingest_fps": round(ingest_fps, 2), "segment_s": segment_s,
+        "dvr_segments": final_segments, "gops": seen_gops,
+        "run": {k: result[k] for k in ("gops", "frames", "bytes",
+                                       "segments_announced",
+                                       "parts_announced", "segments_gced")},
+        "warm_launches": warm, "launches": launches,
+        "stage_ms": stage_delta,
+        "probe_s": round(t_probe, 1),
+        "seconds": round(time.perf_counter() - t_leg, 1)}
+    if sfe_bands:
+        fig["frame_latency_ms"] = tdispatch.frame_latency_percentiles()
+    print(f"live leg {json.dumps(fig)}", flush=True)
+    print(f"live {name} latency samples s: "
+          f"{[round(x, 3) for x in samples]}; lint {json.dumps(lint)}",
+          flush=True)
+    check(samples, f"live {name}: no part was announced")
+    check(result["gops"] == seen_gops == -(-n // gop),
+          f"live {name}: {result['gops']} GOPs packaged, {seen_gops} seen")
+    want_warm = p_frames // (n // gop) * len(rungs)
+    for kname in ("me_halfpel", "me_search"):
+        check(warm.get(kname) == want_warm,
+              f"live {name}: the warm-up launched {kname} "
+              f"{warm.get(kname)} times, want {want_warm}")
+        check(launches[kname] == p_frames * len(rungs),
+              f"live {name}: {kname} launched {launches[kname]} times, want "
+              f"{p_frames * len(rungs)}")
+    fig["streams"] = streams
+    fig["probe"] = probe
+    return fig
+
+
+def live_phase() -> dict:
+    """bench.py's two live points on the card (1920x1080, 48 frames, gop
+    8, qp 27): the 1080p + 540p ladder edge and the 4-band split-frame
+    edge, each through run_live, each stream against the JAX package's
+    (LIVE_POINT_JAX)."""
+    from thinvids_tpu_torch.abr.ladder import rung_segments
+
+    w, h, n, gop, qp = 1920, 1080, 48, 8, 27
+    frames = make_frames(n, w, h)
+    lad = live_leg("ladder", frames, w, h, qp, gop, "540")
+    top = lad["streams"]["1080p"]
+    low = lad["streams"]["540p"]
+    top_sha = hashlib.sha256(top).hexdigest()
+    low_sha = hashlib.sha256(low).hexdigest()
+    print(f"live ladder streams: 1080p {len(top)} bytes sha256 {top_sha}; "
+          f"540p {len(low)} bytes sha256 {low_sha}; 540p equals the JAX "
+          f"package's: {[len(low), low_sha] == list(LIVE_POINT_JAX['ladder_540p'])}",
+          flush=True)
+    check((len(top), top_sha) == tuple(LIVE_POINT_JAX["top_1080p"]),
+          f"live ladder: the top rung ({len(top)} bytes, {top_sha}) is not "
+          f"the JAX package's {LIVE_POINT_JAX['top_1080p']}")
+    batch_low = concat_segments(rung_segments(lad["probe"], "540p"))
+    check(low == batch_low,
+          "live ladder: the 540p rung differs from the port's batch ladder "
+          "over the same frames and pinned grid")
+    check(concat_segments(rung_segments(lad["probe"], "1080p")) == top,
+          "live ladder: the top rung differs from the batch ladder's")
+
+    sfe = live_leg("sfe", frames, w, h, qp, gop, "1080", sfe_bands=4)
+    stream = sfe["streams"]["1080p"]
+    sha = hashlib.sha256(stream).hexdigest()
+    mbw = (w + 15) // 16
+    pics = _slice_firsts(stream)
+    print(f"live sfe stream: {len(stream)} bytes sha256 {sha}; slice starts "
+          f"of frame 0 {pics[:1]}", flush=True)
+    check(len(pics) == n and all(p == [0, 17 * mbw, 34 * mbw, 51 * mbw]
+                                 for p in pics),
+          f"live sfe: {len(pics)} pictures, slice starts {pics[:1]}")
+    check((len(stream), sha) == tuple(LIVE_POINT_JAX["sfe_1080p"]),
+          f"live sfe: the stream ({len(stream)} bytes, {sha}) is not the JAX "
+          f"package's {LIVE_POINT_JAX['sfe_1080p']}")
+    return {"ladder": lad["launches"], "sfe": sfe["launches"]}
+
+
+# ---- phase 14 ------------------------------------------------------------
+
 def parity_phase() -> None:
     """The 352x288 card == CPU checks of phases 9, 10 and 12, after every
     timed section: the CPU port's side of phases 9 and 10 runs in two
@@ -1908,13 +2230,17 @@ def main() -> int:
     rc = rc_point()
     phase("12 ladder")
     ladder = ladder_phase(main)
-    phase("13 card = CPU")
+    phase("13 live")
+    live = live_phase()
+    phase("14 card = CPU")
     parity_phase()
     for rec in recs:
         rec["banded"] = dict(banded[rec["name"]],
                              launches=sfe["launches"][rec["name"]])
         rec["rc_launches_per_pass"] = rc["launches_per_pass"][rec["name"]]
         rec["ladder_launches"] = ladder["launches"][rec["name"]]
+        rec["live_launches"] = live["ladder"][rec["name"]]
+        rec["live_sfe_launches"] = live["sfe"][rec["name"]]
     phase("end")
     print(json.dumps({"kernels": recs}))
     print(f"card: {card}")

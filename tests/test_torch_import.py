@@ -101,7 +101,12 @@ def test_scan_sees_the_whole_port(tmp_path):
                  "thinvids_tpu_torch/parallel/rc.py",
                  "thinvids_tpu_torch/abr/scale.py",
                  "thinvids_tpu_torch/abr/ladder.py",
-                 "thinvids_tpu_torch/abr/hls.py"):
+                 "thinvids_tpu_torch/abr/hls.py",
+                 "thinvids_tpu_torch/ingest/tail.py",
+                 "thinvids_tpu_torch/live/packager.py",
+                 "thinvids_tpu_torch/obs/metrics.py",
+                 "thinvids_tpu_torch/obs/trace.py",
+                 "thinvids_tpu_torch/cluster/executor.py"):
         assert want in rel
     # the scan catches both spellings, at module level and in a function,
     # and lets relative imports and the port's own name through
@@ -143,5 +148,81 @@ def test_ladder_planning_and_hls_import_without_torch():
     res = subprocess.run([sys.executable, "-c", _TORCH_FREE_IMPORT],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+
+
+_LIVE_TORCH_FREE_IMPORT = r"""
+import importlib, sys
+
+for name in ("torch", "jax", "jaxlib"):
+    sys.modules[name] = None
+for name in ("thinvids_tpu_torch.ingest.tail",
+             "thinvids_tpu_torch.live.packager",
+             "thinvids_tpu_torch.obs.metrics",
+             "thinvids_tpu_torch.obs.trace"):
+    importlib.import_module(name)
+from thinvids_tpu_torch.ingest.tail import is_live_name
+from thinvids_tpu_torch.obs.trace import TRACE
+
+assert is_live_name("cam.live.y4m")
+assert TRACE.start("job")
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("torch", "jax", "jaxlib", "thinvids_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_tail_packager_and_obs_import_without_torch():
+    """The tail source, the live packager and the observability modules
+    run on control-plane threads: they import (and work) with torch and
+    jax unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _LIVE_TORCH_FREE_IMPORT],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+
+
+_EXECUTOR_JAX_FREE_IMPORT = r"""
+import importlib.abc, sys
+
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "thinvids_tpu" or name.startswith("thinvids_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, RefuseReference())
+from thinvids_tpu_torch.cluster import executor
+from thinvids_tpu_torch.cluster.executor import run_live
+
+assert executor._live_batch_plan(9, 4, 1).gops[-1].num_frames == 1
+try:
+    run_live("missing.live.y4m", "out", None)
+except RuntimeError as exc:
+    assert "CUDA is not available" in str(exc), exc
+else:
+    raise AssertionError("run_live ran without a card")
+print("ok")
+"""
+
+
+def test_live_executor_imports_without_jax():
+    """cluster.executor imports with jax unimportable and the reference
+    refused, and run_live's default device raises before it tails."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", _EXECUTOR_JAX_FREE_IMPORT],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "ok"

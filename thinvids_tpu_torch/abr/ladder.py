@@ -122,10 +122,7 @@ class _LadderStages:
     `scale` stage), while `snapshot()` SUMS all profiles so a ladder
     job's per-job breakdown carries the lower rungs' dispatch / fetch /
     pack host time too — not just the stager's. `waves` takes the max
-    (every rung counts the same pipeline waves).
-
-    The reference's `set_tracer` / `tracer` are not here: the port's
-    StageProfile records no spans yet."""
+    (every rung counts the same pipeline waves)."""
 
     def __init__(self, ladder: "LadderShardEncoder") -> None:
         self._ladder = ladder
@@ -135,6 +132,16 @@ class _LadderStages:
 
     def bump(self, counter: str, n: int = 1) -> None:
         self._ladder._stager.stages.bump(counter, n)
+
+    def set_tracer(self, recorder) -> None:
+        """Propagate a span recorder (obs/trace) to every rung
+        encoder's profile so the whole rendition set's stages land in
+        ONE job trace."""
+        for enc in self._ladder._all_encoders():
+            enc.stages.set_tracer(recorder)
+
+    def tracer(self):
+        return self._ladder._stager.stages.tracer()
 
     def reset(self) -> None:
         for enc in self._ladder._all_encoders():

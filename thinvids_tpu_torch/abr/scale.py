@@ -96,18 +96,31 @@ def _apply_separable(x: torch.Tensor, mv: torch.Tensor,
     The cheaper of the two products runs first (multiply-adds per
     plane), the order the reference's einsum contracts in: the float
     rounding of a sample that lands on a half then rounds the same way
-    more often."""
+    more often.
+
+    One plane at a time: a product batched over the leading dims lets
+    the BLAS pick its kernel (and so its summation order) by how many
+    frames the wave holds, and on a card a sample on a half then rounds
+    differently in a one-GOP live batch than in a four-GOP wave. With
+    one fixed-shape product per plane a frame scales to the same bits
+    whatever wave it rides in."""
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "the Lanczos scaler needs full float32 products; "
             "torch.backends.cuda.matmul.allow_tf32 is on")
     (dh, h), (dw, w) = mv.shape, mh.shape
-    xf = x.to(torch.float32)
-    if dh * h * w + dh * w * dw <= h * w * dw + dh * h * dw:
-        out = torch.matmul(torch.matmul(mv, xf), mh.T)
-    else:
-        out = torch.matmul(mv, torch.matmul(xf, mh.T))
-    return torch.clamp(torch.floor(out + 0.5), 0, 255).to(torch.uint8)
+    vertical_first = dh * h * w + dh * w * dw <= h * w * dw + dh * h * dw
+    planes = x.reshape(-1, h, w)
+    out = torch.empty((planes.shape[0], dh, dw), dtype=torch.uint8,
+                      device=x.device)
+    for i in range(planes.shape[0]):
+        xf = planes[i].to(torch.float32)
+        if vertical_first:
+            o = torch.matmul(torch.matmul(mv, xf), mh.T)
+        else:
+            o = torch.matmul(mv, torch.matmul(xf, mh.T))
+        out[i] = torch.clamp(torch.floor(o + 0.5), 0, 255)
+    return out.reshape(*x.shape[:-2], dh, dw)
 
 
 def _pad16(n: int) -> int:

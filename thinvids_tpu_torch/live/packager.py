@@ -1,0 +1,308 @@
+"""Incremental LL-HLS packager: one closed GOP in, one announced part out
+(a copy of the reference package's module).
+
+The batch packager (abr/hls.package_ladder) needs every rung's full
+segment list before it writes a byte; this one consumes
+:class:`abr.ladder.LadderGopBundle`s AS THEY COMPLETE and keeps the
+on-disk HLS tree valid after every call:
+
+- each GOP becomes one CMAF fragment (moof+mdat) written as an
+  EXT-X-PART partial segment — announced immediately, so
+  glass-to-playlist latency is bounded by one GOP, not one segment;
+- parts accumulate into the current media segment; once it reaches
+  `segment_s` the whole-segment file is committed (the concatenation
+  of its parts' fragments — multiple moof/mdat pairs per segment is
+  legal CMAF) and announced with EXTINF;
+- playlists rewrite atomically (temp + rename) after every part, with
+  a preload hint naming the NEXT part so LL-HLS players can open the
+  request early;
+- a sliding DVR window (`dvr_window_s` > 0) advances
+  EXT-X-MEDIA-SEQUENCE and deletes segments/parts that age out;
+  `dvr_window_s` <= 0 keeps everything (EVENT playlist);
+- `close()` finalizes: EXT-X-ENDLIST on every media playlist and a
+  master rewritten with measured BANDWIDTH / AVERAGE-BANDWIDTH — in
+  EVENT mode the result is a full VOD tree that passes
+  abr/hls.lint_ladder unchanged.
+
+The master playlist is written the moment the FIRST GOP clears the
+ladder (codec strings need the rungs' SPS bytes), so a player can tune
+in seconds after ingest starts. Segment boundaries are identical
+across rungs by construction: every rung packages the same GOP stream.
+
+torch- and jax-free by contract (like abr/hls.py): packaging runs on
+the executor's host thread beside the device pipeline.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+
+from ..abr.hls import (INIT_NAME, MASTER_PLAYLIST, MEDIA_PLAYLIST,
+                       PART_PATTERN, SEGMENT_PATTERN, LivePart,
+                       LiveSegmentRef, _FragRun, _FragTrack,
+                       codecs_string, init_segment, media_segment,
+                       render_live_media_playlist, video_timescale)
+from ..io.mp4 import annexb_to_samples
+
+
+def _atomic_write(path: str, data: bytes) -> None:
+    """Write-then-rename: the API server streams these files to
+    players concurrently; a half-written playlist or part must never
+    be observable."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fp:
+        fp.write(data)
+    os.replace(tmp, path)
+
+
+@dataclasses.dataclass
+class _RungState:
+    """One rendition's incremental packaging state."""
+
+    name: str
+    width: int
+    height: int
+    rung_dir: str
+    codecs: str = ""
+    frag_seq: int = 0               # running moof sequence number
+    frame_ticks: int = 0            # base decode time (track timescale)
+    open_data: list = dataclasses.field(default_factory=list)  # bytes
+    bytes_total: int = 0
+    peak_bps: float = 0.0
+
+
+class LiveLadderPackager:
+    """Incrementally package a live ladder into a served HLS tree."""
+
+    #: closed segments that keep their EXT-X-PART lines in the playlist
+    PARTS_WINDOW = 1
+
+    def __init__(self, out_dir: str, rungs, fps_num: int, fps_den: int,
+                 *, segment_s: float = 6.0, gop_frames: int = 32,
+                 dvr_window_s: float = 0.0) -> None:
+        self.out_dir = out_dir
+        self.rungs = list(rungs)
+        self.fps_num, self.fps_den = max(1, fps_num), max(1, fps_den)
+        self.fps = self.fps_num / self.fps_den
+        self.segment_s = max(0.05, float(segment_s))
+        #: part target = one GOP's duration (every part is one closed
+        #: GOP, so parts are independent and rung-aligned by nature)
+        self.part_target_s = max(1, int(gop_frames)) / self.fps
+        #: TARGETDURATION is fixed for the stream's life (the spec
+        #: forbids changing it): the greedy segmenter closes at the
+        #: first GOP crossing `segment_s`, so the worst case is one
+        #: part duration past the target.
+        self.target_s = self.segment_s + self.part_target_s
+        self.dvr_window_s = float(dvr_window_s)
+        self.event = self.dvr_window_s <= 0
+        self.timescale, self.sample_dur = video_timescale(
+            self.fps_num, self.fps_den)
+
+        self._states = [
+            _RungState(name=r.name, width=r.width, height=r.height,
+                       rung_dir=os.path.join(out_dir, r.name))
+            for r in self.rungs]
+        #: closed segments still on disk (playlist window), shared
+        #: across rungs — boundaries are identical by construction
+        self._segments: list[LiveSegmentRef] = []
+        self._open_parts: list[LivePart] = []
+        self._open_dur = 0.0
+        self._media_sequence = 0    # first listed segment's number
+        self._seg_index = 0         # next whole segment to commit
+        self._part_index = 0        # next part within the open segment
+        self._initialized = False
+        self._packaged_s = 0.0      # lifetime stream seconds packaged
+        self.closed = False
+        #: lifetime counters (bench `live_dvr_segments` + job facts)
+        self.segments_announced = 0
+        self.parts_announced = 0
+        self.segments_gced = 0
+
+    @property
+    def master_path(self) -> str:
+        return os.path.join(self.out_dir, MASTER_PLAYLIST)
+
+    # -- ingest ---------------------------------------------------------
+
+    def add_gop(self, bundle) -> None:
+        """Package one completed LadderGopBundle: write every rung's
+        part fragment, announce it in the playlists, and commit the
+        segment when the target duration is reached."""
+        if self.closed:
+            raise ValueError("packager already closed")
+        nframes = bundle.gop.num_frames
+        dur = nframes / self.fps
+        part_uri = PART_PATTERN % (self._seg_index, self._part_index)
+        for st, rung in zip(self._states, self.rungs):
+            seg = bundle.renditions[st.name]
+            sps, _pps, samples, keys = annexb_to_samples(seg.payload)
+            if not samples or not keys[0]:
+                raise ValueError(
+                    f"live GOP {bundle.gop.index} of rung {st.name} "
+                    f"does not open on an IDR — not streamable")
+            if not self._initialized:
+                self._init_rung(st, sps, _pps)
+            st.frag_seq += 1
+            run = _FragRun(1, st.frame_ticks,
+                           [(data, self.sample_dur, sync)
+                            for data, sync in zip(samples, keys)])
+            frag = media_segment(st.frag_seq, [run])
+            _atomic_write(os.path.join(st.rung_dir, part_uri), frag)
+            st.open_data.append(frag)
+            st.frame_ticks += nframes * self.sample_dur
+            st.bytes_total += len(frag)
+        first = not self._initialized
+        self._initialized = True
+        self._open_parts.append(LivePart(uri=part_uri, duration_s=dur))
+        self._open_dur += dur
+        self._packaged_s += dur
+        self._part_index += 1
+        self.parts_announced += 1
+        if first:
+            # master written AFTER the duration bookkeeping: BANDWIDTH
+            # is bytes/packaged-seconds, and a zero-duration divisor
+            # would advertise astronomically inflated rates to every
+            # player that tunes in during the stream
+            self._write_master()
+        if self._open_dur >= self.segment_s - 1e-9:
+            self._commit_segment()
+        self._write_playlists()
+
+    def close(self) -> None:
+        """End of stream: commit any partial final segment, then
+        rewrite every playlist with EXT-X-ENDLIST and the master with
+        final measured bandwidths."""
+        if self.closed:
+            return
+        if self._open_parts:
+            self._commit_segment()
+        self.closed = True
+        if self._initialized:
+            self._write_playlists()
+            self._write_master()
+
+    # -- internals ------------------------------------------------------
+
+    def _init_rung(self, st: _RungState, sps: bytes, pps: bytes) -> None:
+        from ..io.mp4 import avc1_sample_entry
+
+        st.codecs = codecs_string(sps)
+        os.makedirs(st.rung_dir, exist_ok=True)
+        track = _FragTrack(1, b"vide",
+                           avc1_sample_entry(st.width, st.height, sps,
+                                             pps), self.timescale)
+        _atomic_write(os.path.join(st.rung_dir, INIT_NAME),
+                      init_segment([track], (st.width, st.height)))
+
+    def _commit_segment(self) -> None:
+        """Close the open segment: write each rung's whole-segment
+        file (its parts' fragments concatenated), announce it, slide
+        the DVR window."""
+        uri = SEGMENT_PATTERN % self._seg_index
+        for st in self._states:
+            data = b"".join(st.open_data)
+            _atomic_write(os.path.join(st.rung_dir, uri), data)
+            st.open_data = []
+            st.peak_bps = max(st.peak_bps,
+                              len(data) * 8 / max(self._open_dur, 1e-9))
+        self._segments.append(LiveSegmentRef(
+            uri=uri, duration_s=self._open_dur,
+            parts=list(self._open_parts)))
+        self._open_parts = []
+        self._open_dur = 0.0
+        self._seg_index += 1
+        self._part_index = 0
+        self.segments_announced += 1
+        self._gc_window()
+
+    def _gc_window(self) -> None:
+        """Sliding DVR window: drop the oldest segment while the
+        RETAINED duration without it still covers `dvr_window_s`, then
+        advance EXT-X-MEDIA-SEQUENCE and delete its files (whole
+        segment + its part fragments) from every rung."""
+        if self.event:
+            self._gc_stale_parts()
+            return
+        while len(self._segments) > 1:
+            total = sum(s.duration_s for s in self._segments)
+            if total - self._segments[0].duration_s < self.dvr_window_s:
+                break
+            victim = self._segments.pop(0)
+            self._media_sequence += 1
+            self.segments_gced += 1
+            for st in self._states:
+                for name in [victim.uri] + [p.uri for p in victim.parts]:
+                    try:
+                        os.unlink(os.path.join(st.rung_dir, name))
+                    except OSError:
+                        pass
+        self._gc_stale_parts()
+
+    def _gc_stale_parts(self) -> None:
+        """Part fragments duplicate their segment's bytes; once a
+        closed segment no longer lists parts (older than PARTS_WINDOW,
+        plus one segment of grace for in-flight fetches) the part
+        files are deleted — in EVENT mode too, since the final VOD
+        playlist references only whole segments."""
+        cutoff = len(self._segments) - self.PARTS_WINDOW - 1
+        for victim in self._segments[:max(0, cutoff)]:
+            if not victim.parts:
+                continue
+            for st in self._states:
+                for part in victim.parts:
+                    try:
+                        os.unlink(os.path.join(st.rung_dir, part.uri))
+                    except OSError:
+                        pass
+            victim.parts = []
+
+    def _write_playlists(self) -> None:
+        preload = None if self.closed else \
+            PART_PATTERN % (self._seg_index, self._part_index)
+        text = render_live_media_playlist(
+            self._segments, self._open_parts,
+            media_sequence=self._media_sequence,
+            target_s=self.target_s, part_target_s=self.part_target_s,
+            preload_uri=preload, event=self.event, ended=self.closed,
+            parts_window=self.PARTS_WINDOW)
+        for st in self._states:
+            _atomic_write(os.path.join(st.rung_dir, MEDIA_PLAYLIST),
+                          text.encode("utf-8"))
+
+    def _write_master(self) -> None:
+        """Master playlist: written at first GOP (BANDWIDTH measured
+        over what's been packaged so far — refined to the final
+        numbers when the stream closes). Sorted ascending so the
+        monotonic-BANDWIDTH lint holds at every rewrite."""
+        total_s = max(self._packaged_s, 1e-9)
+        lines = ["#EXTM3U", "#EXT-X-VERSION:9",
+                 "#EXT-X-INDEPENDENT-SEGMENTS"]
+        ranked = []
+        for st in self._states:
+            avg = max(1, math.ceil(st.bytes_total * 8 / total_s))
+            peak = max(avg, math.ceil(st.peak_bps))
+            ranked.append((peak, avg, st))
+        # ascending by the advertised BANDWIDTH itself, so the
+        # monotonicity lint holds at every rewrite (byte totals can
+        # rank differently from peaks early in a stream)
+        ranked.sort(key=lambda t: (t[0], t[1]))
+        for peak, avg, st in ranked:
+            lines.append(
+                f"#EXT-X-STREAM-INF:BANDWIDTH={peak},"
+                f"AVERAGE-BANDWIDTH={avg},"
+                f"RESOLUTION={st.width}x{st.height},"
+                f'CODECS="{st.codecs}",FRAME-RATE={self.fps:.3f}')
+            lines.append(f"{st.name}/{MEDIA_PLAYLIST}")
+        _atomic_write(self.master_path,
+                      ("\n".join(lines) + "\n").encode("utf-8"))
+
+    def total_bytes(self) -> int:
+        """Bytes currently on disk under the tree (the job's
+        output_bytes fact at completion)."""
+        total = 0
+        for root, _dirs, files in os.walk(self.out_dir):
+            total += sum(os.path.getsize(os.path.join(root, f))
+                         for f in files)
+        return total

@@ -1,0 +1,434 @@
+"""Typed metrics registry with Prometheus text exposition (a copy of the
+reference package's module).
+
+The system's instrumentation used to be a grab-bag of hand-rolled
+snapshot dicts (`StageProfile.snapshot`, `OriginStats`, the QoS
+controller's counters) merged by `/metrics_snapshot`; this module is
+the registry they all write through now. Three metric kinds, all
+thread-safe and label-aware:
+
+- **Counter** — monotonic totals (``tvt_*_total``); `inc(n)` only.
+- **Gauge** — settable point-in-time values; `set(v)` / `inc(n)`.
+- **Histogram** — fixed-bucket latency distributions with cumulative
+  bucket counts, `_sum` and `_count` — the piece the old snapshot
+  model could not express (the NVENC longitudinal study's lesson,
+  PAPERS.md arXiv:2605.01187: report distributions and trade-off
+  curves, not single points).
+
+``REGISTRY.render()`` emits Prometheus text exposition format 0.0.4
+(`# HELP` / `# TYPE` headers, escaped label values, cumulative
+``le``-labelled buckets ending at ``+Inf``), served by the API's
+``GET /metrics``; tests parse it back with a strict reader.
+
+Metric families are declared once at module scope so the exposition
+surface is complete (HELP/TYPE present) even before the first event:
+a Prometheus scrape of a fresh coordinator sees the whole schema.
+
+torch- and jax-free by contract (stdlib only): imported by control-plane
+modules that must never initialize a device backend.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Iterable, Iterator, Mapping
+
+
+def _escape_label(value: str) -> str:
+    """Label-value escaping per the exposition format: backslash,
+    double-quote and newline."""
+    return (str(value).replace("\\", r"\\").replace("\n", r"\n")
+            .replace('"', r'\"'))
+
+
+def _escape_help(text: str) -> str:
+    return str(text).replace("\\", r"\\").replace("\n", r"\n")
+
+
+def _fmt(value: float) -> str:
+    """Sample-value rendering: integral floats print as integers (the
+    common counter case), +Inf per the format, else repr-precision."""
+    if math.isinf(value):
+        return "+Inf" if value > 0 else "-Inf"
+    if float(value).is_integer() and abs(value) < 1e15:
+        return str(int(value))
+    return repr(float(value))
+
+
+class _Child:
+    """One labelled series of a counter/gauge."""
+
+    __slots__ = ("_lock", "_value")
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def get(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class _HistChild:
+    """One labelled series of a histogram: fixed upper bounds,
+    cumulative counts at render time."""
+
+    __slots__ = ("_lock", "_buckets", "_counts", "_sum", "_count")
+
+    def __init__(self, buckets: tuple[float, ...]) -> None:
+        self._lock = threading.Lock()
+        self._buckets = buckets
+        self._counts = [0] * len(buckets)
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, value: float) -> None:
+        value = float(value)
+        with self._lock:
+            self._sum += value
+            self._count += 1
+            # per-bucket tallies; snapshot() cumulates at render time
+            for i, ub in enumerate(self._buckets):
+                if value <= ub:
+                    self._counts[i] += 1
+                    break
+
+    def snapshot(self) -> tuple[list[int], float, int]:
+        """(cumulative per-bucket counts, sum, count)."""
+        with self._lock:
+            cum, running = [], 0
+            for c in self._counts:
+                running += c
+                cum.append(running)
+            return cum, self._sum, self._count
+
+
+#: default latency buckets (seconds) — sub-5 ms through 10 s covers
+#: everything from a hot-cache segment serve to a struggling live part
+DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+                   2.5, 5.0, 10.0)
+
+
+class Metric:
+    """One metric family (a name + kind + label schema) holding its
+    labelled children. Unlabelled metrics proxy inc/set/observe to an
+    implicit single child."""
+
+    def __init__(self, name: str, help: str, kind: str,
+                 labelnames: tuple[str, ...] = (),
+                 buckets: tuple[float, ...] | None = None) -> None:
+        self.name = name
+        self.help = help
+        self.kind = kind                     # counter | gauge | histogram
+        self.labelnames = tuple(labelnames)
+        self.buckets = tuple(sorted(buckets)) if buckets else \
+            (DEFAULT_BUCKETS if kind == "histogram" else ())
+        self._lock = threading.Lock()
+        self._children: dict[tuple[str, ...], _Child | _HistChild] = {}
+        if not self.labelnames:
+            self._children[()] = self._new_child()
+
+    def _new_child(self):
+        if self.kind == "histogram":
+            return _HistChild(self.buckets)
+        return _Child()
+
+    def labels(self, *values, **kw):
+        """Child for one label combination; positional values follow
+        `labelnames` order, keywords match by name."""
+        if kw:
+            if values:
+                raise ValueError("pass labels positionally OR by name")
+            values = tuple(kw[name] for name in self.labelnames)
+        key = tuple(str(v) for v in values)
+        if len(key) != len(self.labelnames):
+            raise ValueError(
+                f"{self.name} expects labels {self.labelnames}, "
+                f"got {key}")
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = self._new_child()
+            return child
+
+    def _default(self):
+        if self.labelnames:
+            raise ValueError(f"{self.name} is labelled "
+                             f"{self.labelnames}; use .labels(...)")
+        return self._children[()]
+
+    # unlabelled conveniences
+    def inc(self, n: float = 1.0) -> None:
+        self._default().inc(n)
+
+    def set(self, value: float) -> None:
+        self._default().set(value)
+
+    def observe(self, value: float) -> None:
+        self._default().observe(value)
+
+    def get(self, *values, **kw) -> float:
+        if self.labelnames:
+            return self.labels(*values, **kw).get()
+        return self._default().get()
+
+    def clear(self) -> None:
+        """Drop every labelled child (scrape-time gauges rebuild their
+        current children each scrape so stale series don't linger)."""
+        with self._lock:
+            self._children.clear()
+            if not self.labelnames:
+                self._children[()] = self._new_child()
+
+    def _label_str(self, key: tuple[str, ...],
+                   extra: tuple[tuple[str, str], ...] = ()) -> str:
+        pairs = [(n, v) for n, v in zip(self.labelnames, key)]
+        pairs.extend(extra)
+        if not pairs:
+            return ""
+        inner = ",".join(f'{n}="{_escape_label(v)}"' for n, v in pairs)
+        return "{" + inner + "}"
+
+    def render(self) -> Iterator[str]:
+        yield f"# HELP {self.name} {_escape_help(self.help)}"
+        yield f"# TYPE {self.name} {self.kind}"
+        with self._lock:
+            items = sorted(self._children.items())
+        for key, child in items:
+            if self.kind == "histogram":
+                cum, total, count = child.snapshot()
+                for ub, c in zip(self.buckets, cum):
+                    labels = self._label_str(key, (("le", _fmt(ub)),))
+                    yield f"{self.name}_bucket{labels} {c}"
+                labels = self._label_str(key, (("le", "+Inf"),))
+                yield f"{self.name}_bucket{labels} {count}"
+                yield (f"{self.name}_sum{self._label_str(key)} "
+                       f"{_fmt(total)}")
+                yield (f"{self.name}_count{self._label_str(key)} "
+                       f"{count}")
+            else:
+                yield (f"{self.name}{self._label_str(key)} "
+                       f"{_fmt(child.get())}")
+
+
+class MetricsRegistry:
+    """Name-keyed metric index; creation is idempotent (a second
+    declaration with the same schema returns the existing family;
+    a conflicting one raises — two subsystems silently sharing a name
+    with different meanings is exactly the grab-bag this replaces)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._metrics: dict[str, Metric] = {}
+
+    def _declare(self, name: str, help: str, kind: str,
+                 labels: Iterable[str] = (),
+                 buckets: tuple[float, ...] | None = None) -> Metric:
+        labels = tuple(labels)
+        with self._lock:
+            existing = self._metrics.get(name)
+            if existing is not None:
+                if existing.kind != kind or existing.labelnames != labels:
+                    raise ValueError(
+                        f"metric {name} already declared as "
+                        f"{existing.kind}{existing.labelnames}; "
+                        f"refusing {kind}{labels}")
+                return existing
+            metric = Metric(name, help, kind, labels, buckets)
+            self._metrics[name] = metric
+            return metric
+
+    def counter(self, name: str, help: str = "",
+                labels: Iterable[str] = ()) -> Metric:
+        return self._declare(name, help, "counter", labels)
+
+    def gauge(self, name: str, help: str = "",
+              labels: Iterable[str] = ()) -> Metric:
+        return self._declare(name, help, "gauge", labels)
+
+    def histogram(self, name: str, help: str = "",
+                  buckets: tuple[float, ...] | None = None,
+                  labels: Iterable[str] = ()) -> Metric:
+        return self._declare(name, help, "histogram", labels, buckets)
+
+    def get(self, name: str) -> Metric | None:
+        with self._lock:
+            return self._metrics.get(name)
+
+    def render(self) -> str:
+        """Full Prometheus text exposition (format 0.0.4)."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        lines: list[str] = []
+        for metric in metrics:
+            lines.extend(metric.render())
+        return "\n".join(lines) + "\n"
+
+    def reset(self) -> None:
+        """Zero every family (drop labelled children) — tests only."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for metric in metrics:
+            metric.clear()
+
+
+#: the process-wide registry every subsystem writes through
+REGISTRY = MetricsRegistry()
+
+
+# ---------------------------------------------------------------------------
+# the repo's metric families, declared once so /metrics always exposes
+# the full schema (HELP/TYPE) even before the first event
+# ---------------------------------------------------------------------------
+
+# -- host wave pipeline (parallel/dispatch.StageProfile bridges its
+#    process-cumulative totals here) -----------------------------------
+STAGE_SECONDS = REGISTRY.counter(
+    "tvt_stage_seconds_total",
+    "host wall-clock per wave-pipeline stage (decode/stage/dispatch/"
+    "device_wait/fetch/pack/... — parallel/dispatch.STAGE_NAMES)",
+    labels=("stage",))
+WAVES_TOTAL = REGISTRY.counter(
+    "tvt_waves_total", "waves collected by the wave pipeline")
+STAGE_COUNTER_TOTALS = {
+    "dense_fallback_waves": REGISTRY.counter(
+        "tvt_dense_fallback_waves_total",
+        "waves that overflowed the sparse budgets and re-encoded dense"),
+    "h2d_bytes": REGISTRY.counter(
+        "tvt_h2d_bytes_total", "host-to-device bytes staged"),
+    "d2h_bytes": REGISTRY.counter(
+        "tvt_d2h_bytes_total", "device-to-host bytes fetched"),
+    "fetch_shards": REGISTRY.counter(
+        "tvt_fetch_shards_total",
+        "per-shard concurrent D2H transfers issued"),
+    "proc_pack_gops": REGISTRY.counter(
+        "tvt_proc_pack_gops_total",
+        "GOPs handed to the process pack sidecars"),
+    "sfe_frames": REGISTRY.counter(
+        "tvt_sfe_frames_total",
+        "frames through the split-frame per-frame collect path"),
+}
+
+# -- origin serving (origin/serve.OriginStats + origin/cache) ----------
+ORIGIN_COUNTERS = {
+    "origin_requests": REGISTRY.counter(
+        "tvt_origin_requests_total", "origin file requests planned"),
+    "origin_bytes": REGISTRY.counter(
+        "tvt_origin_bytes_total", "origin body bytes served"),
+    "origin_304s": REGISTRY.counter(
+        "tvt_origin_304s_total", "conditional requests answered 304"),
+    "origin_503s": REGISTRY.counter(
+        "tvt_origin_503s_total",
+        "blocking reloads refused over the waiter cap"),
+    "origin_hits": REGISTRY.counter(
+        "tvt_origin_cache_hits_total", "hot-segment cache hits"),
+    "origin_fills": REGISTRY.counter(
+        "tvt_origin_cache_fills_total", "hot-segment cache disk fills"),
+    "origin_coalesced_fills": REGISTRY.counter(
+        "tvt_origin_cache_coalesced_total",
+        "requests that rode another thread's single-flight fill"),
+    "origin_evictions": REGISTRY.counter(
+        "tvt_origin_cache_evictions_total", "LRU evictions"),
+}
+ORIGIN_SERVE_SECONDS = REGISTRY.histogram(
+    "tvt_origin_serve_seconds",
+    "wall-clock of one /hls request, plan through last body byte",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+             0.5, 1.0, 2.5, 5.0))
+SESSIONS = REGISTRY.gauge(
+    "tvt_origin_sessions",
+    "concurrent player sessions per job (sliding window)",
+    labels=("job",))
+
+# -- QoS (cluster/qos.QosController) -----------------------------------
+QOS_BREACHES = REGISTRY.counter(
+    "tvt_qos_breaches_total", "live part deadline breach episodes")
+QOS_RECOVERIES = REGISTRY.counter(
+    "tvt_qos_recoveries_total", "live jobs recovered from a breach")
+QOS_PREEMPTED_SHARDS = REGISTRY.counter(
+    "tvt_qos_preempted_shards_total",
+    "ASSIGNED batch shards requeued by deadline preemption")
+QOS_PREEMPTING = REGISTRY.gauge(
+    "tvt_qos_preempting",
+    "1 while batch work is gated for a breached live job")
+LIVE_PART_SECONDS = REGISTRY.histogram(
+    "tvt_live_part_latency_seconds",
+    "live batch frames-available to parts-fetchable latency",
+    buckets=DEFAULT_BUCKETS + (30.0, 60.0))
+
+# -- shard board (cluster/remote.ShardBoard) ---------------------------
+SHARD_STATES = REGISTRY.gauge(
+    "tvt_shard_board_shards",
+    "shards on the remote work board by lease state",
+    labels=("state",))
+SHARD_CLAIM_SECONDS = REGISTRY.histogram(
+    "tvt_shard_claim_to_part_seconds",
+    "worker claim to accepted part per shard",
+    buckets=(0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0,
+             300.0, 600.0))
+
+# -- farm SFE halo relay (cluster/halo.py) -----------------------------
+HALO_RELAY_BLOBS = REGISTRY.gauge(
+    "tvt_halo_relay_blobs",
+    "band-shard halo blobs buffered on the coordinator relay")
+HALO_RELAY_BYTES = REGISTRY.gauge(
+    "tvt_halo_relay_bytes",
+    "bytes of band-shard halo blobs buffered on the coordinator relay")
+
+# -- durable part spool + crash resume (cluster/partstore.py) -----------
+PART_SPOOL_BYTES = REGISTRY.gauge(
+    "tvt_part_spool_bytes",
+    "bytes of encoded shard parts currently spooled on the "
+    "coordinator's disk (DONE shards hold refs, not payload)")
+PART_INTEGRITY_FAILURES = REGISTRY.counter(
+    "tvt_part_integrity_failures_total",
+    "part payloads rejected on a digest mismatch (transfer/storage "
+    "corruption — requeued with no attempt burned)")
+RESUME_SHARDS_REUSED = REGISTRY.counter(
+    "tvt_crash_resume_shards_reused_total",
+    "shards rehydrated DONE from the verified spool after a "
+    "coordinator restart (work NOT re-encoded)")
+
+# -- split-frame encoding ----------------------------------------------
+SFE_FRAME_SECONDS = REGISTRY.histogram(
+    "tvt_sfe_frame_latency_seconds",
+    "steady-state gap between consecutive SFE frames' "
+    "bitstream-ready times")
+
+# -- job control plane / multi-tenant farm ------------------------------
+JOBS_BY_STATUS = REGISTRY.gauge(
+    "tvt_jobs", "registered jobs by tenant and status",
+    labels=("tenant", "status"))
+TENANT_ACTIVE_SHARDS = REGISTRY.gauge(
+    "tvt_tenant_active_shards",
+    "shards currently ASSIGNED on the remote work board, per tenant",
+    labels=("tenant",))
+FARM_WORKERS = REGISTRY.gauge(
+    "tvt_farm_workers",
+    "elastic-farm worker hosts by lifecycle state "
+    "(farm/controller.py)",
+    labels=("lifecycle",))
+FARM_WORKER_SECONDS = REGISTRY.counter(
+    "tvt_farm_active_worker_seconds_total",
+    "cumulative non-SUSPENDED worker-seconds the farm consumed — the "
+    "energy-proportionality figure vs. always-on")
+
+
+def percentiles(sorted_values: list[float],
+                points: Mapping[str, float]) -> dict[str, float]:
+    """Nearest-rank percentiles over pre-sorted data (the snapshot
+    helpers' shared math); empty input yields an empty dict."""
+    if not sorted_values:
+        return {}
+    n = len(sorted_values)
+    return {name: sorted_values[min(n - 1, int(q * (n - 1)))]
+            for name, q in points.items()}

@@ -1,0 +1,360 @@
+"""Distributed tracing: one coherent trace per job (a copy of the
+reference package's module; its knobs come from the port's core/config).
+
+A job's run — local waves or a farm fan-out — records **spans** (name,
+wall-clock start, duration, tags) into a bounded per-job ring on the
+coordinator (`trace_ring_spans`). Sources:
+
+- the wave pipeline's stage clocks (`parallel/dispatch.StageProfile`
+  calls the bound recorder from every timed stage: decode / stage /
+  dispatch / device_wait / fetch / sparse_unpack / unflatten / pack /
+  concat, plus the SFE per-frame leg);
+- the executor's per-wave spans (`wave_dispatch` / `wave_collect`);
+- coordinator-side per-shard spans (ShardBoard lease → accepted part);
+- remote workers: a :class:`SpanBuffer` collects the worker-side spans
+  (open_source / encode / upload, plus the worker's own stage clocks)
+  during a shard and ships them back over ``POST /work/spans`` with
+  the job's trace id in the ``X-Tvt-Trace`` header — the coordinator
+  ring then holds ONE trace spanning every host that touched the job.
+
+Export is Chrome trace-event JSON (``GET /trace/<job>``, ``cli.py
+trace <job>``) — drag into Perfetto / chrome://tracing. Every event
+carries the trace id in its args; processes map to hosts and threads
+to thread names, so spans nest by containment per thread exactly as
+they executed.
+
+Sampling: `trace_sample` (0..1) decides PER JOB at trace start whether
+spans record at all; an unsampled job costs one dict lookup per stage.
+Tracing never touches encoded bytes — output is bit-identical with
+tracing on or off (parity-tested), and the bench pins the fps overhead
+as ``trace_overhead_pct``.
+
+torch- and jax-free by contract.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import random
+import threading
+import time
+import uuid
+from collections import OrderedDict, deque
+from typing import Any, Iterable
+
+from ..core.config import as_float, as_int, get_settings
+
+#: completed jobs whose rings stay exportable (oldest evicted first) —
+#: a long-lived coordinator must not accumulate every job ever traced
+MAX_JOBS = 64
+
+#: per-job ring of recent error strings (failure reasons, shard
+#: failures) riding beside the spans for the flight recorder
+ERROR_RING = 32
+
+#: hard cap on spans accepted per /work/spans upload
+MAX_SPANS_PER_UPLOAD = 10_000
+
+
+def _now() -> float:
+    return time.time()
+
+
+class SpanRecorder:
+    """Span sink bound to one job's trace on the local TraceStore.
+    A recorder whose job was sampled out (or never started) is inert:
+    `record` is a no-op and `span()` yields a nullcontext-fast path."""
+
+    __slots__ = ("_store", "job_id", "trace_id", "host")
+
+    def __init__(self, store: "TraceStore | None", job_id: str,
+                 trace_id: str, host: str = "") -> None:
+        self._store = store
+        self.job_id = job_id
+        self.trace_id = trace_id
+        self.host = host
+
+    @property
+    def enabled(self) -> bool:
+        return self._store is not None
+
+    def record(self, name: str, t0: float, dur_s: float,
+               **tags: Any) -> None:
+        if self._store is None:
+            return
+        self._store.record_span(
+            self.job_id, name, t0, dur_s, host=self.host,
+            thread=threading.current_thread().name, tags=tags)
+
+    @contextlib.contextmanager
+    def span(self, name: str, **tags: Any):
+        if self._store is None:
+            yield
+            return
+        # wall clock anchors the span on the trace timeline; the
+        # DURATION comes from the monotonic clock (an NTP step mid-span
+        # must not produce a negative or inflated dur — same rationale
+        # as StageProfile.stage's perf_counter)
+        t0 = _now()
+        p0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, t0, time.perf_counter() - p0, **tags)
+
+
+#: the inert recorder handed out for unsampled/unknown jobs — shared,
+#: so binding a tracer on the hot path costs one attribute read
+NULL_RECORDER = SpanRecorder(None, "", "")
+
+
+class SpanBuffer:
+    """Worker-side span sink: collect locally during a shard, then
+    ship the batch to the coordinator (``WorkerClient.upload_spans``).
+    Same record/span interface as :class:`SpanRecorder`, so the
+    encoder's StageProfile binds either interchangeably."""
+
+    def __init__(self, trace_id: str, job_id: str,
+                 host: str = "") -> None:
+        self.trace_id = trace_id
+        self.job_id = job_id
+        self.host = host
+        self._lock = threading.Lock()
+        self._spans: list[dict[str, Any]] = []
+
+    @property
+    def enabled(self) -> bool:
+        return True
+
+    def record(self, name: str, t0: float, dur_s: float,
+               **tags: Any) -> None:
+        span = {"name": str(name), "t0": float(t0),
+                "dur_s": float(dur_s),
+                "thread": threading.current_thread().name,
+                "tags": dict(tags)}
+        with self._lock:
+            self._spans.append(span)
+
+    @contextlib.contextmanager
+    def span(self, name: str, **tags: Any):
+        t0 = _now()
+        p0 = time.perf_counter()    # monotonic duration (see
+        try:                        # SpanRecorder.span)
+            yield
+        finally:
+            self.record(name, t0, time.perf_counter() - p0, **tags)
+
+    def drain(self) -> list[dict[str, Any]]:
+        with self._lock:
+            spans, self._spans = self._spans, []
+            return spans
+
+
+class _JobTrace:
+    __slots__ = ("trace_id", "sampled", "started_at", "spans", "errors")
+
+    def __init__(self, trace_id: str, sampled: bool, ring: int) -> None:
+        self.trace_id = trace_id
+        self.sampled = sampled
+        self.started_at = _now()
+        self.spans: deque[dict[str, Any]] = deque(maxlen=ring)
+        self.errors: deque[dict[str, Any]] = deque(maxlen=ERROR_RING)
+
+
+class TraceStore:
+    """Per-job span rings on the coordinator. One instance per process
+    (module-level :data:`TRACE`); executors start a job's trace at
+    dispatch, instrumented code records through recorders, and the API
+    exports Chrome trace JSON."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._jobs: "OrderedDict[str, _JobTrace]" = OrderedDict()
+
+    # -- lifecycle -----------------------------------------------------
+
+    def start(self, job_id: str, trace_id: str | None = None) -> str:
+        """Begin a fresh trace for one job run (a restart gets a new
+        trace id — its spans must not interleave with the old run's).
+        Returns the trace id; "" when the job was sampled out
+        (`trace_sample`)."""
+        snap = get_settings()
+        sample = min(1.0, max(0.0, as_float(
+            snap.get("trace_sample", 1.0), 1.0)))
+        ring = max(1, as_int(snap.get("trace_ring_spans", 4096), 4096))
+        sampled = random.random() < sample
+        trace_id = trace_id or uuid.uuid4().hex[:16]
+        with self._lock:
+            self._jobs[job_id] = _JobTrace(trace_id, sampled, ring)
+            self._jobs.move_to_end(job_id)
+            while len(self._jobs) > MAX_JOBS:
+                self._jobs.popitem(last=False)
+        return trace_id if sampled else ""
+
+    def drop(self, job_id: str) -> None:
+        with self._lock:
+            self._jobs.pop(job_id, None)
+
+    def trace_id(self, job_id: str) -> str:
+        """The job's current trace id ("" when absent or unsampled) —
+        what the shard descriptors carry to remote workers."""
+        with self._lock:
+            jt = self._jobs.get(job_id)
+            return jt.trace_id if jt is not None and jt.sampled else ""
+
+    def recorder(self, job_id: str, host: str = "") -> SpanRecorder:
+        """Span recorder bound to the job's live trace; the shared
+        inert recorder when the job is unknown or sampled out."""
+        with self._lock:
+            jt = self._jobs.get(job_id)
+            if jt is None or not jt.sampled:
+                return NULL_RECORDER
+            return SpanRecorder(self, job_id, jt.trace_id, host=host)
+
+    # -- recording -----------------------------------------------------
+
+    def record_span(self, job_id: str, name: str, t0: float,
+                    dur_s: float, host: str = "", thread: str = "",
+                    tags: dict[str, Any] | None = None,
+                    trace_id: str | None = None) -> bool:
+        """Append one completed span to the job's ring. With `trace_id`
+        given (remote uploads), a mismatch against the job's CURRENT
+        trace drops the span — a straggling worker from a superseded
+        run must not pollute the new run's trace."""
+        with self._lock:
+            jt = self._jobs.get(job_id)
+            if jt is None or not jt.sampled:
+                return False
+            if trace_id is not None and trace_id != jt.trace_id:
+                return False
+            # eviction is LRU by ACTIVITY, not by start order: a
+            # long-running job keeps recording and must not lose its
+            # ring because 64 short jobs dispatched after it
+            self._jobs.move_to_end(job_id)
+            jt.spans.append({
+                "name": str(name), "t0": float(t0),
+                "dur_s": max(0.0, float(dur_s)),
+                "host": str(host), "thread": str(thread),
+                "tags": dict(tags or {})})
+            return True
+
+    def ingest(self, job_id: str, trace_id: str,
+               spans: Iterable[dict[str, Any]],
+               host: str = "") -> int:
+        """Record a batch of wire-form spans (the /work/spans route).
+        Malformed entries are skipped; returns how many landed."""
+        n = 0
+        for raw in list(spans)[:MAX_SPANS_PER_UPLOAD]:
+            if not isinstance(raw, dict):
+                continue
+            try:
+                ok = self.record_span(
+                    job_id, str(raw["name"]), float(raw["t0"]),
+                    float(raw.get("dur_s", 0.0)),
+                    host=str(raw.get("host") or host),
+                    thread=str(raw.get("thread", "")),
+                    tags=(raw.get("tags")
+                          if isinstance(raw.get("tags"), dict) else {}),
+                    trace_id=trace_id)
+            except (KeyError, TypeError, ValueError):
+                continue
+            n += ok
+        return n
+
+    def record_error(self, job_id: str, message: str) -> None:
+        with self._lock:
+            jt = self._jobs.get(job_id)
+            if jt is None:
+                return
+            self._jobs.move_to_end(job_id)     # activity-LRU, as above
+            jt.errors.append({"ts": _now(), "message": str(message)})
+
+    # -- export --------------------------------------------------------
+
+    def snapshot(self, job_id: str) -> dict[str, Any] | None:
+        """Raw trace state (spans newest-last, errors) — the flight
+        recorder's source."""
+        with self._lock:
+            jt = self._jobs.get(job_id)
+            if jt is None:
+                return None
+            return {"trace_id": jt.trace_id, "sampled": jt.sampled,
+                    "started_at": jt.started_at,
+                    "spans": list(jt.spans), "errors": list(jt.errors)}
+
+    def export_chrome(self, job_id: str,
+                      include_unsampled: bool = False
+                      ) -> dict[str, Any] | None:
+        """Chrome trace-event JSON (Perfetto / chrome://tracing
+        loadable): one complete-event ("ph":"X") per span, µs
+        timestamps, processes = hosts, threads = thread names, the
+        trace id in every event's args. None when no trace exists —
+        and, by default, when the job was sampled out (an empty husk
+        would read as "traced, did nothing"); the flight recorder
+        passes `include_unsampled` because its error ring + settings
+        are worth dumping even without spans."""
+        snap = self.snapshot(job_id)
+        if snap is None or (not snap["sampled"]
+                            and not include_unsampled):
+            return None
+        trace_id = snap["trace_id"]
+        events: list[dict[str, Any]] = []
+        pids: dict[str, int] = {}
+        tids: dict[tuple[str, str], int] = {}
+        for span in snap["spans"]:
+            host = span["host"] or "coordinator"
+            pid = pids.setdefault(host, len(pids) + 1)
+            tkey = (host, span["thread"] or "main")
+            tid = tids.setdefault(tkey, len(tids) + 1)
+            args = {"trace_id": trace_id, "job_id": job_id}
+            args.update(span["tags"])
+            events.append({
+                "name": span["name"], "cat": "tvt", "ph": "X",
+                "ts": int(span["t0"] * 1e6),
+                "dur": max(1, int(span["dur_s"] * 1e6)),
+                "pid": pid, "tid": tid, "args": args})
+        events.sort(key=lambda e: e["ts"])
+        meta: list[dict[str, Any]] = []
+        for host, pid in pids.items():
+            meta.append({"name": "process_name", "ph": "M", "pid": pid,
+                         "args": {"name": host}})
+        for (host, thread), tid in tids.items():
+            meta.append({"name": "thread_name", "ph": "M",
+                         "pid": pids[host], "tid": tid,
+                         "args": {"name": thread}})
+        return {
+            "traceEvents": meta + events,
+            "displayTimeUnit": "ms",
+            "otherData": {"trace_id": trace_id, "job_id": job_id,
+                          "started_at": snap["started_at"],
+                          "errors": snap["errors"]},
+        }
+
+
+#: the process-wide trace store
+TRACE = TraceStore()
+
+
+# ---------------------------------------------------------------------------
+# ambient context (log correlation)
+# ---------------------------------------------------------------------------
+
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def bind(job_id: str, trace_id: str):
+    """Bind (job_id, trace_id) to the current thread for the scope —
+    the structured JSON log formatter (core/log.py TVT_LOG_FORMAT=json)
+    stamps these onto every line so farm logs join against traces."""
+    prev = getattr(_TLS, "ctx", None)
+    _TLS.ctx = (str(job_id), str(trace_id))
+    try:
+        yield
+    finally:
+        _TLS.ctx = prev
+
+
+def current_ids() -> tuple[str, str] | None:
+    """(job_id, trace_id) bound to this thread, or None."""
+    return getattr(_TLS, "ctx", None)

@@ -57,6 +57,7 @@ from ..core.config import as_bool, get_settings
 from ..core.devices import resolve_device
 from ..core.types import (BandPlan, EncodedSegment, Frame, GopSpec,
                           SegmentPlan, VideoMeta, is_yuv420)
+from ..obs import metrics as obs_metrics
 from ..codecs.h264 import torchcore, torchinter
 from ..codecs.h264.encoder import (FrameLevels, _mode_policy,
                                    gop_slice_thunks_planes, pack_slice,
@@ -89,34 +90,80 @@ class StageProfile:
     """Thread-safe per-stage wall-clock accumulator for the host half of
     the wave pipeline. Stages overlap across pool threads, so per-stage
     sums can exceed elapsed time — they answer "where do host cycles
-    go", not "what is the critical path"."""
+    go", not "what is the critical path".
 
-    def __init__(self) -> None:
+    `mirror` (the process-wide cumulative profile) receives every add
+    too, so a job's totals outlive its encoder; reset() only clears THIS
+    profile (a timed pass resets without zeroing the process counters)."""
+
+    def __init__(self, mirror: "StageProfile | None" = None,
+                 metrics: bool = False) -> None:
         self._lock = threading.Lock()
         self._ms = {k: 0.0 for k in STAGE_NAMES}
         self._counts = {k: 0 for k in STAGE_COUNTERS}
         self._waves = 0
+        self._mirror = mirror
+        #: bridge into the obs/ metrics registry — set ONLY on the
+        #: process-cumulative _TOTALS instance, so every add lands in
+        #: the registry exactly once (per-encoder profiles mirror into
+        #: _TOTALS, which forwards)
+        self._metrics = bool(metrics)
+        #: optional span recorder (obs/trace): an executor binds one per
+        #: traced job so each timed stage also records a span in the
+        #: job's trace. None = zero tracing overhead.
+        self._tracer = None
+
+    def set_tracer(self, recorder) -> None:
+        """Bind (or clear, with None/an inert recorder) the span sink
+        this profile's stage() blocks record into."""
+        with self._lock:
+            self._tracer = recorder if recorder is not None \
+                and getattr(recorder, "enabled", False) else None
+
+    def tracer(self):
+        """The bound span recorder, or None (instrumentation sites
+        that record spans outside a stage() block read this)."""
+        return self._tracer
 
     def add(self, stage: str, seconds: float) -> None:
         with self._lock:
             self._ms[stage] = self._ms.get(stage, 0.0) + seconds * 1e3
+        if self._metrics:
+            obs_metrics.STAGE_SECONDS.labels(stage).inc(seconds)
+        if self._mirror is not None:
+            self._mirror.add(stage, seconds)
 
     def bump(self, counter: str, n: int = 1) -> None:
         """Increment a monotonic counter (STAGE_COUNTERS) by `n`."""
         with self._lock:
             self._counts[counter] = self._counts.get(counter, 0) + int(n)
+        if self._metrics:
+            metric = obs_metrics.STAGE_COUNTER_TOTALS.get(counter)
+            if metric is not None:
+                metric.inc(n)
+        if self._mirror is not None:
+            self._mirror.bump(counter, n)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, **tags):
+        tracer = self._tracer
+        t0_wall = time.time() if tracer is not None else 0.0
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.add(name, time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.add(name, dt)
+            if tracer is not None:
+                tracer.record(name, t0_wall, dt, **tags)
 
     def count_wave(self) -> None:
         with self._lock:
             self._waves += 1
+        if self._metrics:
+            obs_metrics.WAVES_TOTAL.inc()
+        if self._mirror is not None:
+            self._mirror.count_wave()
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -132,6 +179,41 @@ class StageProfile:
             for k in self._counts:
                 self._counts[k] = 0
             self._waves = 0
+
+
+#: process-cumulative stage totals (every encoder mirrors into this;
+#: the metrics flag bridges each add into the obs/ Prometheus registry)
+_TOTALS = StageProfile(metrics=True)
+
+
+def stage_snapshot() -> dict:
+    """Process-cumulative stage_ms across every GopShardEncoder that ran
+    here (running jobs' waves land as they complete, and finished jobs'
+    totals persist)."""
+    return _TOTALS.snapshot()
+
+
+#: process-cumulative SFE per-frame latency samples (ms) — the gaps
+#: between consecutive frames' bitstream-ready times across every
+#: SfeShardEncoder that ran here; each sample also observes the
+#: tvt_sfe_frame_latency_seconds histogram.
+_SFE_LAT_MS: deque = deque(maxlen=4096)
+#: guards ring iteration vs the collector threads' appends (a deque
+#: mutated mid-iteration raises RuntimeError)
+_SFE_LAT_LOCK = threading.Lock()
+
+
+def frame_latency_percentiles() -> dict:
+    """{"p50_ms", "p99_ms", "count"} over the recent SFE per-frame
+    latency ring; {} when no SFE frame ever completed here."""
+    with _SFE_LAT_LOCK:
+        samples = sorted(_SFE_LAT_MS)
+    pct = obs_metrics.percentiles(samples, {"p50_ms": 0.50,
+                                            "p99_ms": 0.99})
+    if not pct:
+        return {}
+    return {k: round(v, 1) for k, v in pct.items()} \
+        | {"count": len(samples)}
 
 
 class _FrameCursor:
@@ -420,8 +502,8 @@ class GopShardEncoder:
             compact_transfer = as_bool(snap.get("compact_transfer", True),
                                        True)
         self.compact_transfer = bool(compact_transfer)
-        #: per-stage host wall-clock
-        self.stages = StageProfile()
+        #: per-stage host wall-clock (mirrored into the process totals)
+        self.stages = StageProfile(mirror=_TOTALS)
         #: streaming-ingest instrumentation: peak decoded frames the
         #: staging cursor held at once
         self.staging_stats: dict = {"peak_resident_frames": 0}
@@ -1300,13 +1382,26 @@ class SfeShardEncoder(GopShardEncoder):
             return [t() for t in thunks]
         return [f.result() for f in [pool.submit(t) for t in thunks]]
 
-    def _note_frame_done(self) -> None:
+    def _note_frame_done(self, frame_index: int) -> None:
         """One SFE frame's bitstream is ready: stamp frame_done_t (the
-        latency source) and count it."""
+        latency source), count it, and — when a previous frame exists —
+        record the steady-state gap as a latency sample (global
+        percentile ring + histogram) and a `sfe_frame` span in the
+        job's trace."""
         now = time.perf_counter()
-        self._last_frame_done = now
+        prev, self._last_frame_done = self._last_frame_done, now
         self.stages.bump("sfe_frames")
         self.frame_done_t.append(now)
+        if prev is None or now <= prev:
+            return
+        gap = now - prev
+        with _SFE_LAT_LOCK:
+            _SFE_LAT_MS.append(gap * 1e3)
+        obs_metrics.SFE_FRAME_SECONDS.observe(gap)
+        tracer = self.stages.tracer()
+        if tracer is not None:
+            tracer.record("sfe_frame", time.time() - gap, gap,
+                          frame=frame_index)
 
     def _keep_recon(self, carry, frame_index: int) -> None:
         h, w = self.meta.height, self.meta.width
@@ -1375,7 +1470,7 @@ class SfeShardEncoder(GopShardEncoder):
                                 head_h[b], r(), b, qp, fn),
                             rest, bi, fi % 256))
                 nals.append(self._frame_nal(thunks, fi))
-            self._note_frame_done()
+            self._note_frame_done(gop.start_frame + fi)
             if self.keep_recon:
                 self._keep_recon(carries[fi], gop.start_frame + fi)
         if dense_from is not None:
@@ -1425,7 +1520,7 @@ class SfeShardEncoder(GopShardEncoder):
                             self._pack_p_band, head_h[bi], flat_h[bi], bi,
                             qp, fi % 256))
                 nals.append(self._frame_nal(thunks, fi))
-                self._note_frame_done()
+                self._note_frame_done(gop.start_frame + fi)
                 if self.keep_recon:
                     self._keep_recon(carry, gop.start_frame + fi)
         return nals
