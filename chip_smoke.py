@@ -137,7 +137,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
               latency p50 / p99, ingest fps, provisioned segment_s, DVR
               segments, GOPs, the stage_snapshot() delta, for split-frame
               frame_latency_percentiles(), and its seconds.
-14. card = CPU — after every timed section, the 352x288 card == CPU
+14. manager — the port's manager node as an operator starts it, in a
+              subprocess on the card: `python -m thinvids_tpu_torch.cli
+              coordinator --device cuda` (watch folder, library, state
+              dir, scan interval 0.5 s; TVT_MIN_IDLE_WORKERS=0, phase 6's
+              gop 8 and qp 27, a TVT_PROFILE_DIR). Phase 6's 1080p
+              16-frame y4m dropped into the watch folder becomes a job
+              whose library MP4 must equal phase 6's, byte for byte; the
+              job's torch.profiler trace must hold 14 launches of each ME
+              kernel. The same clip posted to /add_job without the
+              profiler must give the same MP4 (its job fps is printed).
+              A ladder job posted to /add_job (phase 12's rungs,
+              not profiled) must write phase 12's ladder job tree, file
+              for file, and the origin must serve its master playlist at
+              /hls/<job>/master.m3u8. /metrics_snapshot must show the
+              node row with 1 device of this card's name and its memory
+              total, and a non-empty stage_ms. It prints the daemon's
+              start-up seconds and each job's wall time from submit to
+              done, beside the card's name and power limit; the daemon
+              is stopped in any case.
+15. card = CPU — after every timed section, the 352x288 card == CPU
               checks of phases 9, 10 and 12, the CPU port's side of
               phases 9 and 10 in two worker processes (spawned, CPU only)
               while the card runs its side. Phase 9's: the card's bytes
@@ -851,7 +870,7 @@ def _run_job(path: str, device: str) -> tuple[bytes, bytes]:
 
 
 def job_path(tmp: str, main_stream: bytes, w: int = 1920, h: int = 1080,
-             n: int = 16) -> None:
+             n: int = 16) -> bytes:
     path = os.path.join(tmp, "job1080.y4m")
     _write_clip(path, make_frames(n, w, h), w, h)
     torch.cuda.synchronize()
@@ -875,6 +894,7 @@ def job_path(tmp: str, main_stream: bytes, w: int = 1920, h: int = 1080,
                            "want 14")
     check(mp4[4:8] == b"ftyp" and b"moov" in mp4[:4096],
           "the job's MP4 does not start with ftyp + moov")
+    return mp4
 
 
 def _shutdown_sidecars(enc) -> None:
@@ -1785,10 +1805,11 @@ def _check_tf32_refused() -> None:
 
 
 def ladder_job(tmp: str, main_stream: bytes, w: int = 1920, h: int = 1080,
-               n: int = 16) -> None:
+               n: int = 16) -> dict:
     """A ladder job with port modules only: y4m → open_video →
     plan_ladder → make_shard_encoder(rungs=) → encode → rung_segments →
-    hls.package_ladder → lint_ladder."""
+    hls.package_ladder → lint_ladder. Returns the tree's digest
+    (`tree_digest`)."""
     from thinvids_tpu_torch.abr import hls
     from thinvids_tpu_torch.abr.ladder import plan_ladder, rung_segments
     from thinvids_tpu_torch.core.config import DEFAULT_SETTINGS, Settings
@@ -1822,6 +1843,20 @@ def ladder_job(tmp: str, main_stream: bytes, w: int = 1920, h: int = 1080,
     check(info["rungs"] == len(rungs) == 4, f"lint saw {info['rungs']} rungs")
     check(concat_segments(rung_segments(bundles, rungs[0].name))
           == main_stream, "the ladder job's top rung differs from phase 4's")
+    return tree_digest(out_dir)
+
+
+def tree_digest(root: str) -> dict:
+    """{path under `root`: sha256 of the file} for every file below it."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            full = os.path.join(d, name)
+            with open(full, "rb") as fp:
+                out[os.path.relpath(full, root)] = (
+                    os.path.getsize(full),
+                    hashlib.sha256(fp.read()).hexdigest())
+    return out
 
 
 class _FixedPlanes:
@@ -1871,7 +1906,7 @@ def ladder_phase(main: dict) -> dict:
 
     point = ladder_point(main)
     with tempfile.TemporaryDirectory(prefix="tvt-ladder-") as tmp:
-        ladder_job(tmp, main["stream"])
+        point["job_tree"] = ladder_job(tmp, main["stream"])
     return point
 
 
@@ -2159,6 +2194,225 @@ def live_phase() -> dict:
 
 # ---- phase 14 ------------------------------------------------------------
 
+def _http(base: str, path: str, body: dict | None = None,
+          timeout: float = 10.0) -> tuple[int, bytes]:
+    """(status, body bytes) of one request to the daemon's API."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(base + path, data=data,
+                                 method="POST" if data else "GET")
+    if data:
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def _await_job(base: str, input_path: str, proc, cap_s: float) -> dict:
+    """Poll /jobs until the job of `input_path` is done (or failed, or
+    `cap_s` passes, or the daemon exits); returns the job's view."""
+    deadline = time.monotonic() + cap_s
+    while time.monotonic() < deadline:
+        check(proc.poll() is None, f"the daemon exited ({proc.returncode})")
+        try:
+            code, raw = _http(base, "/jobs", timeout=30.0)
+        except OSError:         # a busy daemon may answer late: ask again
+            continue
+        if code == 200:
+            for job in json.loads(raw)["jobs"]:
+                if job["input_path"] == input_path and \
+                        job["status"] in ("done", "failed", "rejected"):
+                    check(job["status"] == "done",
+                          f"manager job {input_path}: {job['status']} "
+                          f"({job.get('failure_reason')})")
+                    return job
+        time.sleep(0.2)
+    raise RuntimeError(f"check failed: manager job {input_path} not done "
+                       f"within {cap_s:.0f} s")
+
+
+def _trace_kernel_launches(trace_dir: str) -> dict:
+    """Launches of each ME kernel in the torch.profiler Chrome trace(s)
+    the daemon wrote for one job."""
+    counts = {"me_halfpel": 0, "me_search": 0}
+    kernels = {"me_halfpel": "halfpel_kernel", "me_search": "search_kernel"}
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    check(files, f"no profiler trace under {trace_dir}")
+    for path in files:
+        with open(path, encoding="utf-8") as fp:
+            events = json.load(fp)["traceEvents"]
+        for e in events:
+            if e.get("cat") != "kernel":
+                continue
+            for key, name in kernels.items():
+                if name in e.get("name", ""):
+                    counts[key] += 1
+    return counts
+
+
+def manager_phase(want_mp4: bytes, want_tree: dict, card: str,
+                  w: int = 1920, h: int = 1080, n: int = 16, gop: int = 8,
+                  qp: int = 27, device: str = "cuda") -> dict:
+    """The manager node in a subprocess, driven over its HTTP API and its
+    watch folder (phase 14 above). Returns the ME launches the transcode
+    job's profiler trace holds."""
+    import signal
+    import socket
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="tvt-manager-") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in
+                ("watch", "library", "state", "profile", "inputs")}
+        for d in dirs.values():
+            os.makedirs(d)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        base = f"http://127.0.0.1:{port}"
+        env = dict(os.environ, PYTHONPATH=root, TVT_MIN_IDLE_WORKERS="0",
+                   TVT_GOP_FRAMES=str(gop), TVT_QP=str(qp),
+                   TVT_PROFILE_DIR=dirs["profile"])
+        log_path = os.path.join(tmp, "coordinator.log")
+        t0 = time.perf_counter()
+        with open(log_path, "wb") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "thinvids_tpu_torch.cli",
+                 "coordinator", "--host", "127.0.0.1", "--port", str(port),
+                 "--state-dir", dirs["state"], "--watch-dir", dirs["watch"],
+                 "--output-dir", dirs["library"], "--scan-interval", "0.5",
+                 "--device", device],
+                cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+        ok = False
+        try:
+            while not _http_up(base):
+                check(proc.poll() is None,
+                      f"the daemon exited ({proc.returncode})")
+                check(time.perf_counter() - t0 < 120,
+                      "the daemon's API did not come up within 120 s")
+                time.sleep(0.1)
+            t_up = time.perf_counter() - t0
+            print(f"manager daemon up in {t_up:.3f} s (Popen to /health) "
+                  f"on {card}", flush=True)
+
+            # transcode: phase 6's clip dropped into the watch folder
+            staged = os.path.join(dirs["inputs"], "job1080.y4m")
+            _write_clip(staged, make_frames(n, w, h), w, h)
+            dropped = os.path.join(dirs["watch"], "job1080.y4m")
+            t_drop = time.perf_counter()
+            os.replace(staged, dropped)
+            job = _await_job(base, dropped, proc, 120.0)
+            t_seen = time.perf_counter() - t_drop
+            with open(job["output_path"], "rb") as fp:
+                mp4 = fp.read()
+            trace_dir = os.path.join(dirs["profile"], f"job-{job['id'][:8]}")
+            launches = _trace_kernel_launches(trace_dir)
+            run_s = job["finished_at"] - job["started_at"]
+            print(f"manager transcode {w}x{h} x{n}: MP4 {len(mp4)} bytes, "
+                  f"sha256 {hashlib.sha256(mp4).hexdigest()}; submit to "
+                  f"done {job['finished_at'] - job['created_at']:.3f} s, "
+                  f"run {run_s:.3f} s ({n / run_s:.3f} job fps, profiled), "
+                  f"drop to done seen {t_seen:.3f} s; trace launches "
+                  f"{json.dumps(launches)}; {card}", flush=True)
+            check(mp4 == want_mp4, "the manager's MP4 differs from phase 6's")
+            # (the CPU runs the kernels' plain versions: no launch to count)
+            for name, count in launches.items() if device == "cuda" else ():
+                check(count == n - -(-n // gop),
+                      f"manager transcode: the trace holds {count} "
+                      f"{name} launches, want {n - -(-n // gop)}")
+
+            # the same transcode posted to /add_job without the profiler:
+            # the job fps an operator sees
+            upath = os.path.join(dirs["inputs"], "job1080_plain.y4m")
+            _write_clip(upath, make_frames(n, w, h), w, h)
+            code, raw = _http(base, "/add_job", {
+                "input_path": upath, "settings": {"profile_dir": ""}})
+            check(code == 201, f"/add_job answered {code}: {raw[:200]!r}")
+            ujob = _await_job(base, upath, proc, 120.0)
+            with open(ujob["output_path"], "rb") as fp:
+                check(fp.read() == want_mp4,
+                      "the manager's unprofiled MP4 differs from phase 6's")
+            urun = ujob["finished_at"] - ujob["started_at"]
+            print(f"manager transcode, not profiled: submit to done "
+                  f"{ujob['finished_at'] - ujob['created_at']:.3f} s, run "
+                  f"{urun:.3f} s ({n / urun:.3f} job fps); {card}",
+                  flush=True)
+            check(not os.path.exists(os.path.join(
+                dirs["profile"], f"job-{ujob['id'][:8]}")),
+                "the job's profile_dir override was not honoured")
+
+            # ladder: phase 12's job through /add_job, served by the origin
+            lpath = os.path.join(dirs["inputs"], "ladder1080.ladder.y4m")
+            _write_clip(lpath, make_frames(n, w, h), w, h)
+            t_post = time.perf_counter()
+            code, raw = _http(base, "/add_job", {
+                "input_path": lpath, "settings": {"profile_dir": ""}})
+            check(code == 201, f"/add_job answered {code}: {raw[:200]!r}")
+            ljob = _await_job(base, lpath, proc, 120.0)
+            t_lseen = time.perf_counter() - t_post
+            tree = tree_digest(os.path.dirname(ljob["output_path"]))
+            lrun = ljob["finished_at"] - ljob["started_at"]
+            print(f"manager ladder {w}x{h} x{n}: {len(tree)} files, "
+                  f"{sum(v[0] for v in tree.values())} bytes; submit to done "
+                  f"{ljob['finished_at'] - ljob['created_at']:.3f} s, run "
+                  f"{lrun:.3f} s ({n / lrun:.3f} job fps), post to done seen "
+                  f"{t_lseen:.3f} s; {card}", flush=True)
+            check(tree == want_tree,
+                  "the manager's ladder tree differs from phase 12's: "
+                  f"{sorted(set(tree.items()) ^ set(want_tree.items()))[:4]}")
+            code, master = _http(base, f"/hls/{ljob['id']}/master.m3u8")
+            with open(ljob["output_path"], "rb") as fp:
+                check(code == 200 and master == fp.read(),
+                      f"the origin served the master playlist with {code}")
+
+            # the node agent and the port's stage totals
+            time.sleep(1.5)         # one agent tick past both jobs
+            code, raw = _http(base, "/metrics_snapshot")
+            check(code == 200, f"/metrics_snapshot answered {code}")
+            snap = json.loads(raw)
+            rows = list(snap["metrics"].values())
+            kind = (torch.cuda.get_device_name(0) if device == "cuda"
+                    else "cpu")
+            node = [m for m in rows if m.get("devices") == 1
+                    and m.get("device_kind") == kind]
+            print(f"manager agent rows "
+                  f"{json.dumps([{k: m.get(k) for k in ('devices', 'device_kind', 'hbm_used_bytes', 'hbm_total_bytes', 'hbm_pct')} for m in rows])}"
+                  f"; stage_ms {json.dumps(snap['stage_ms'])}", flush=True)
+            check(node, f"no node row reports 1 device of kind {kind!r}")
+            if device == "cuda":
+                check(all(m.get("hbm_total_bytes", 0) > 0 for m in node),
+                      "the node row reports no card memory")
+            check(snap["stage_ms"].get("waves", 0) > 0,
+                  "/metrics_snapshot carries no port stage totals")
+            ok = True
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=40)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=20)
+            with open(log_path, "rb") as fp:
+                tail = fp.read()[-(2000 if ok else 6000):]
+            print("manager daemon log (tail):\n"
+                  + tail.decode(errors="replace"), flush=True)
+    return launches
+
+
+def _http_up(base: str) -> bool:
+    """True once the daemon answers /health."""
+    try:
+        return _http(base, "/health", timeout=2.0)[0] == 200
+    except OSError:
+        return False
+
+
+# ---- phase 15 ------------------------------------------------------------
+
 def parity_phase() -> None:
     """The 352x288 card == CPU checks of phases 9, 10 and 12, after every
     timed section: the CPU port's side of phases 9 and 10 runs in two
@@ -2218,7 +2472,7 @@ def main() -> int:
 
     phase("6-7 job")
     with tempfile.TemporaryDirectory(prefix="tvt-smoke-") as tmp:
-        job_path(tmp, main["stream"])
+        job_mp4 = job_path(tmp, main["stream"])
         job_parity(tmp)
     phase("8 intra")
     intra_wave()
@@ -2232,7 +2486,9 @@ def main() -> int:
     ladder = ladder_phase(main)
     phase("13 live")
     live = live_phase()
-    phase("14 card = CPU")
+    phase("14 manager")
+    manager = manager_phase(job_mp4, ladder["job_tree"], card)
+    phase("15 card = CPU")
     parity_phase()
     for rec in recs:
         rec["banded"] = dict(banded[rec["name"]],
@@ -2241,6 +2497,7 @@ def main() -> int:
         rec["ladder_launches"] = ladder["launches"][rec["name"]]
         rec["live_launches"] = live["ladder"][rec["name"]]
         rec["live_sfe_launches"] = live["sfe"][rec["name"]]
+        rec["manager_launches"] = manager[rec["name"]]
     phase("end")
     print(json.dumps({"kernels": recs}))
     print(f"card: {card}")

@@ -14,6 +14,7 @@ and the encoders' stage spans, stage totals and split-frame latency ring.
 """
 
 import re
+import time
 
 import jax
 import numpy as np
@@ -384,8 +385,13 @@ def test_traced_sfe_encode_records_the_reference_frame_spans():
     baseline = tconcat(tenc.encode(tframes))
     got, tspans = _traced(ttrace.TRACE, "port-sfe", tenc,
                           lambda: tconcat(tenc.encode(tframes)))
+    # the reference collects each in-flight GOP on its own thread, so
+    # which of its frames record a gap depends on thread timing; one GOP
+    # in flight gives its frame-order contract (the port keeps that order
+    # at any window: test_sfe_frame_gaps_keep_frame_order_when_a_gop_collects_late)
     jenc = jdispatch.SfeShardEncoder(JMeta(width=w, height=h, num_frames=n),
-                                     qp=30, gop_frames=3, bands=2)
+                                     qp=30, gop_frames=3, bands=2,
+                                     pipeline_window=1)
     want, jspans = _traced(jtrace.TRACE, "ref-sfe", jenc,
                            lambda: jconcat(jenc.encode(
                                [JFrame(*f) for f in clip])))
@@ -396,6 +402,34 @@ def test_traced_sfe_encode_records_the_reference_frame_spans():
     # every frame after the first of the pass records its gap
     assert frames == list(range(1, n))
     assert all(s["dur_s"] > 0 for s in tspans if s["name"] == "sfe_frame")
+
+
+class _LateFirstGop(tdispatch.SfeShardEncoder):
+    """Collects GOP 0 late, as a loaded host may: its frames' packing
+    starts after GOP 1's has had time to finish."""
+
+    def collect_wave(self, pending):
+        if pending[0].index == 0:
+            time.sleep(0.5)
+        return super().collect_wave(pending)
+
+
+def test_sfe_frame_gaps_keep_frame_order_when_a_gop_collects_late():
+    w, h, n = 64, 96, 6
+    clip = [TFrame(*f) for f in _smooth_clip(n, w, h, seed=43)]
+    enc = _LateFirstGop(TMeta(width=w, height=h, num_frames=n), qp=30,
+                        gop_frames=3, bands=2, pipeline_window=2,
+                        device="cpu")
+    want = tconcat(tdispatch.SfeShardEncoder(
+        TMeta(width=w, height=h, num_frames=n), qp=30, gop_frames=3,
+        bands=2, device="cpu").encode(clip))
+    got, spans = _traced(ttrace.TRACE, "port-sfe-late", enc,
+                         lambda: tconcat(enc.encode(clip)))
+    assert got == want
+    frames = [s["tags"]["frame"] for s in spans if s["name"] == "sfe_frame"]
+    assert frames == list(range(1, n))
+    assert list(enc.frame_done_t) == sorted(enc.frame_done_t)
+    assert all(s["dur_s"] > 0 for s in spans if s["name"] == "sfe_frame")
 
 
 # ---- totals and the latency ring -------------------------------------------------

@@ -1,0 +1,329 @@
+"""Process entrypoints: the coordinator and agent daemons, the live feed
+writer and the trace export (a copy of the reference package's cli.py).
+
+`python -m thinvids_tpu_torch.cli coordinator` is the manager-host
+process — the union of the reference's gunicorn app + watcher daemon +
+housekeeping unit: durable coordinator, executor, HTTP API + dashboard,
+watch-folder ingest, orphan recovery, scheduler kicks. It encodes on the
+card (``--device cuda``, the default; it exits with an error when there
+is none) or, when asked, on the CPU (``--device cpu``).
+
+`python -m thinvids_tpu_torch.cli agent` is the metrics-only host
+daemon — the reference's thinman-agent: 1 Hz host + card metrics
+heartbeats to the coordinator API.
+
+Not ported yet (ROADMAP A13b): the remote backend (``--backend remote``
+/ ``TVT_EXECUTION_BACKEND=remote``) and the `worker` daemon raise
+NotImplementedError. The reference's `check` (static analysis of the
+JAX package) has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import threading
+
+
+def _require_device(device: str) -> None:
+    """Exit with the reason when `device` names a card this host lacks."""
+    from .core.devices import resolve_device
+
+    try:
+        resolve_device(device)
+    except RuntimeError:
+        raise SystemExit(f"no CUDA card for --device {device} (torch sees "
+                         "none); pass --device cpu to run on the CPU") \
+            from None
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to thinvids_tpu_torch yet (ROADMAP A13b: "
+        "the remote backend, its worker daemon and the farm)")
+
+
+def run_coordinator(args: argparse.Namespace) -> None:
+    from .api import ApiServer
+    from .cluster.agent import NodeAgent, coordinator_submitter
+    from .cluster.coordinator import Coordinator
+    from .cluster.executor import LocalExecutor
+    from .core.log import get_logging
+    from .ingest import FileLedger, WatchIngester, coordinator_submitter \
+        as ingest_submitter
+
+    from .core.config import get_settings
+
+    log = get_logging("thinvids_tpu_torch.coordinator")
+    backend = str(getattr(args, "backend", "") or
+                  get_settings().execution_backend)
+    if backend == "remote":
+        raise _not_ported("the remote execution backend")
+    _require_device(args.device)
+    state_dir = args.state_dir or os.environ.get("TVT_STATE_DIR")
+    co = Coordinator(state_dir=state_dir)
+    execu = LocalExecutor(co, args.output_dir, sync=False,
+                          device=args.device)
+    co._launcher = execu.launch
+
+    roots = {name: path for name, path in
+             (("watch", args.watch_dir), ("library", args.output_dir))
+             if path}
+    api = ApiServer(co, host=args.host, port=args.port,
+                    browse_roots=roots).start()
+    log.info("api + dashboard on %s", api.url)
+
+    # Recover orphans AFTER the API is up: recovered remote jobs plan
+    # their shards against the live-worker registry, so workers must be
+    # able to re-heartbeat first (the remote executor additionally
+    # waits for the first heartbeat before planning — cluster/remote.py
+    # _await_first_workers; previously recovery ran before the API and
+    # a full farm restarted onto 2 giant shards).
+    requeued = co.recover_jobs()
+    if requeued:
+        log.info("requeued %d orphaned jobs after restart", len(requeued))
+    # scheduler poll + watchdog (the reference's daemon threads,
+    # app.py:1474-1516) — without these a WAITING job whose dispatch
+    # gate failed once would sit queued forever
+    co.start_background()
+
+    # Local agent: the coordinator host reports its own health AND its
+    # accelerator device count in ONE registry row — the scheduler
+    # weights the node by `metrics["devices"]` when gating capacity
+    # (Coordinator._worker_slots). It used to heartbeat a phantom
+    # `{host}-devN` pseudo-node per device, which gamed slot-capacity
+    # admission and polluted the nodes panel (VERDICT Weak #7).
+    agent = NodeAgent(coordinator_submitter(co),
+                      idle_probe=co.store.all_idle,
+                      device=args.device).start()
+
+    stop = threading.Event()
+    watcher_thread = None
+    if args.watch_dir:
+        ledger = FileLedger(os.path.join(
+            state_dir or args.output_dir, "processed.log"))
+        ingester = WatchIngester(args.watch_dir, ledger,
+                                 submit=ingest_submitter(co))
+        adopted = ingester.bootstrap_if_first_run()
+        if adopted:
+            log.info("first run: adopted %d existing files", adopted)
+
+        def watch_loop() -> None:
+            while not stop.wait(args.scan_interval):
+                try:
+                    for rel in ingester.scan_once():
+                        log.info("ingested %s", rel)
+                except Exception as exc:     # noqa: BLE001 - keep watching
+                    log.warning("watch scan failed: %s", exc)
+
+        watcher_thread = threading.Thread(target=watch_loop, daemon=True,
+                                          name="tvt-watcher")
+        watcher_thread.start()
+        log.info("watching %s", args.watch_dir)
+
+    def shutdown(*_sig) -> None:
+        stop.set()
+        co.stop_background()
+        agent.stop()
+        api.stop()
+        # let in-flight encodes finish before the journal closes — a
+        # SIGTERM mid-job must not behave like a crash
+        execu.join(timeout=30)
+        co.close()
+
+    signal.signal(signal.SIGTERM, shutdown)
+    try:
+        signal.pause()
+    except (KeyboardInterrupt, AttributeError):
+        pass
+    finally:
+        shutdown()
+
+
+def run_worker(args: argparse.Namespace) -> None:
+    raise _not_ported("the worker daemon (cli worker)")
+
+
+def run_feed(args: argparse.Namespace) -> None:
+    """Pace a finished y4m into a GROWING `.live.` drop — the live
+    pipeline's reference writer (demo + load generator): frame records
+    append at `--rate` × real time, then the ``.eos`` marker closes
+    the stream explicitly so the tailer doesn't wait out its stall
+    budget. Point it at the coordinator's watch dir and the watcher
+    submits the live job on first sighting (ingest/watcher.py)."""
+    import time
+
+    from .core.log import get_logging
+    from .ingest.tail import EOS_SUFFIX, is_live_name
+    from .io.y4m import Y4MRangeReader
+
+    log = get_logging("thinvids_tpu_torch.feed")
+    if not is_live_name(args.dest):
+        log.warning("%s does not follow the <name>.live.<ext> "
+                    "convention; the watcher will treat it as a batch "
+                    "file", args.dest)
+    src = Y4MRangeReader(args.source)
+    fps = src.meta.fps or 30.0
+    delay = 0.0 if args.rate <= 0 else 1.0 / (fps * args.rate)
+    # a previous feed's end-of-stream marker must not survive into
+    # this run — a stale .eos makes the tailer finalize immediately
+    for stale in (args.dest, args.dest + EOS_SUFFIX):
+        try:
+            os.unlink(stale)
+        except OSError:
+            pass
+    with open(args.source, "rb") as inp, open(args.dest, "wb") as out:
+        out.write(inp.read(src._data_start))
+        out.flush()
+        next_at = time.monotonic()
+        for i in range(src.num_frames):
+            out.write(inp.read(src._record))
+            out.flush()
+            if delay:
+                next_at += delay
+                time.sleep(max(0.0, next_at - time.monotonic()))
+    with open(args.dest + EOS_SUFFIX, "wb"):
+        pass
+    log.info("fed %d frames into %s (%.2fx real time)", src.num_frames,
+             args.dest, args.rate if args.rate > 0 else float("inf"))
+
+
+def run_trace(args: argparse.Namespace) -> None:
+    """Fetch one job's distributed trace (GET /trace/<job>) and write
+    it as a Chrome trace-event JSON file — open it in Perfetto
+    (https://ui.perfetto.dev) or chrome://tracing. The same document
+    the flight recorder dumps on failure (obs/flight.py)."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from .core.log import get_logging
+
+    log = get_logging("thinvids_tpu_torch.trace")
+    url = f"{args.coordinator.rstrip('/')}/trace/{args.job}"
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            doc = json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        # surface the server's explanation (404 = unsampled job or
+        # ring-evicted trace) instead of a raw traceback
+        try:
+            detail = json.loads(exc.read()).get("error", "")
+        except Exception:   # noqa: BLE001 - body is best-effort
+            detail = ""
+        log.error("GET %s -> %d %s", url, exc.code, detail or exc.reason)
+        raise SystemExit(1)
+    except urllib.error.URLError as exc:
+        log.error("cannot reach coordinator at %s: %s",
+                  args.coordinator, exc.reason)
+        raise SystemExit(1)
+    out = args.out or f"{args.job}.trace.json"
+    with open(out, "w", encoding="utf-8") as fp:
+        json.dump(doc, fp)
+    events = doc.get("traceEvents", [])
+    other = doc.get("otherData", {})
+    log.info("wrote %d trace events (trace %s) to %s — open in "
+             "https://ui.perfetto.dev", len(events),
+             other.get("trace_id", "?"), out)
+
+
+def run_agent(args: argparse.Namespace) -> None:
+    from .cluster.agent import NodeAgent, http_submitter
+    from .core.log import get_logging
+
+    log = get_logging("thinvids_tpu_torch.agent")
+    agent = NodeAgent(http_submitter(args.coordinator), host=args.node_name,
+                      interval_s=args.interval, device=args.device)
+    log.info("heartbeating to %s every %.1fs", args.coordinator,
+             args.interval)
+    agent.start()
+    try:
+        signal.pause()
+    except (KeyboardInterrupt, AttributeError):
+        pass
+    finally:
+        agent.stop()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="thinvids_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("coordinator", help="manager: API, scheduler, "
+                                           "executor, ingest")
+    c.add_argument("--host", default="0.0.0.0")
+    c.add_argument("--port", type=int,
+                   default=int(os.environ.get("TVT_API_PORT", "5005")))
+    c.add_argument("--state-dir",
+                   default=os.environ.get("TVT_STATE_DIR"))
+    c.add_argument("--watch-dir",
+                   default=os.environ.get("TVT_WATCH_DIR"))
+    c.add_argument("--output-dir",
+                   default=os.environ.get("TVT_OUTPUT_DIR", "./library"))
+    c.add_argument("--scan-interval", type=float, default=60.0)
+    c.add_argument("--backend", choices=("local", "remote"), default=None,
+                   help="encode backend; default from "
+                        "TVT_EXECUTION_BACKEND / live settings (remote "
+                        "is not ported yet)")
+    c.add_argument("--device", default="cuda",
+                   help="where jobs encode: cuda (the card; the default) "
+                        "or cpu")
+    c.set_defaults(fn=run_coordinator)
+
+    a = sub.add_parser("agent", help="node: metrics heartbeats only")
+    a.add_argument("--coordinator",
+                   default=os.environ.get("TVT_COORDINATOR_URL",
+                                          "http://127.0.0.1:5005"))
+    a.add_argument("--node-name", default=None)
+    a.add_argument("--interval", type=float, default=1.0)
+    a.add_argument("--device", default="cuda",
+                   help="the device the node reports: cuda (its cards) "
+                        "or cpu")
+    a.set_defaults(fn=run_agent)
+
+    w = sub.add_parser("worker", help="encode-farm node: heartbeats + "
+                                      "claim/encode/stream-back loop "
+                                      "(not ported yet)")
+    w.add_argument("--coordinator",
+                   default=os.environ.get("TVT_COORDINATOR_URL",
+                                          "http://127.0.0.1:5005"))
+    w.add_argument("--node-name", default=None)
+    w.add_argument("--interval", type=float, default=1.0,
+                   help="heartbeat interval (s)")
+    w.add_argument("--poll", type=float, default=None,
+                   help="claim poll interval when idle (s); default "
+                        "from remote_claim_poll_s")
+    w.set_defaults(fn=run_worker)
+
+    f = sub.add_parser("feed", help="pace a y4m into a growing .live "
+                                    "drop (live-ingest writer)")
+    f.add_argument("source", help="finished .y4m clip to stream out")
+    f.add_argument("dest", help="growing file to append into "
+                                "(<name>.live.y4m under the watch dir)")
+    f.add_argument("--rate", type=float, default=1.0,
+                   help="pacing as a multiple of real time "
+                        "(0 = as fast as possible)")
+    f.set_defaults(fn=run_feed)
+
+    t = sub.add_parser("trace", help="export one job's distributed "
+                                     "trace as Chrome trace-event "
+                                     "JSON (Perfetto-loadable)")
+    t.add_argument("job", help="job id (see /jobs or the dashboard)")
+    t.add_argument("--coordinator",
+                   default=os.environ.get("TVT_COORDINATOR_URL",
+                                          "http://127.0.0.1:5005"))
+    t.add_argument("--out", default=None,
+                   help="output path (default <job>.trace.json)")
+    t.set_defaults(fn=run_trace)
+
+    return p
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

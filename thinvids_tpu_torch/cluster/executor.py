@@ -1,28 +1,51 @@
-"""Live part of the job executor: tail a growing source, encode each
-completed GOP on the card, package LL-HLS as it goes.
+"""Executor: turns a reserved Job into encode waves on the card + a muxed
+file (a copy of the reference package's executor, on the port's
+encoders).
 
-These are the reference executor's live methods (`_run_live`,
-`_live_encoder`, `_live_backlog_cap`, `_live_encode_batch`,
-`_warm_live_shapes`) as module-level functions over the port's encoders,
-so a job executor can call them. The coordinator calls the reference's
-loop makes (run-token fencing, progress, heartbeats, publishing the
-served tree, the QoS deadline report, completion) go through one
-:class:`LiveHooks` object instead; the default does nothing, which is
-what a caller without a coordinator needs.
+The worker task chain `transcode → split → encode×N → stitch` runs on
+one card: "split" is the GOP plan, "encode×N" is the wave loop over the
+port's GopShardEncoder / SfeShardEncoder / LadderShardEncoder, "stitch"
+is the ordered concat + MP4 mux (or the HLS package). Progress,
+heartbeats and completion flow back through the coordinator's
+token-fenced callbacks; a stale token halts the run between waves.
 
-The GOP grid is pinned (`_live_batch_plan`), so a live stream's parts,
-segments and playlists are a pure function of the frame index: the
-batch sizes (one GOP at the live edge, up to the backlog cap during
+Wave-level fault handling: a wave that raises is re-dispatched up to
+`part_failure_max_retries` times before the job fails with stage/host
+attribution. One card has no smaller mesh to re-plan on, so an
+exhausted wave fails the job, as the reference does on one device.
+
+Live jobs run :func:`run_live`: tail a growing source, encode each
+completed GOP on the card, package LL-HLS as it goes. The coordinator
+calls that loop makes (run-token fencing, progress, heartbeats,
+publishing the served tree, the QoS deadline report, completion) go
+through one :class:`LiveHooks` object; the executor passes one bound to
+its job and run token, and a caller without a coordinator passes none.
+
+The GOP grid of a live stream is pinned (`_live_batch_plan`), so its
+parts, segments and playlists are a pure function of the frame index:
+the batch sizes (one GOP at the live edge, up to the backlog cap during
 catch-up) change how the work is grouped, never the bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+import threading
 import time
+from collections import deque
+from typing import Callable
 
+from ..core.devices import resolve_device
+from ..core.types import concat_segments
+from ..ingest.decode import open_video
+from ..io.mp4 import mux_mp4
+from ..obs import flight as obs_flight
+from ..obs import trace as obs_trace
 from ..parallel.planner import plan_fixed_segments
+from .coordinator import Coordinator
+from .jobs import Job
 
 _LOG = logging.getLogger(__name__)
 
@@ -40,6 +63,540 @@ def _live_batch_plan(num_frames: int, gop_frames: int,
     with the SFE encoder's GOP walk — parallel/planner.
     plan_fixed_segments.)"""
     return plan_fixed_segments(num_frames, gop_frames, num_devices)
+
+
+class _WaveExhausted(RuntimeError):
+    """One wave burned its whole retry budget; carries the segments the
+    failing range completed."""
+
+    def __init__(self, reason: str, completed: list) -> None:
+        super().__init__(reason)
+        self.reason = reason
+        self.completed = completed
+
+
+class LocalExecutor:
+    """Runs reserved jobs on this process's card.
+
+    Plugs into :class:`Coordinator` as its launcher: `launch()` spawns a
+    worker thread per job (pass ``sync=True`` for deterministic tests).
+    `device` defaults to the card and raises without one; ``"cpu"`` runs
+    the same code on the CPU (the tests). A device mesh (multi-GPU
+    waves) is not ported yet (ROADMAP A2): `mesh` must be None.
+    """
+
+    def __init__(self, coordinator: Coordinator, output_dir: str,
+                 mesh=None, host: str = "local", sync: bool = False,
+                 encoder_factory: Callable | None = None,
+                 device="cuda") -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh (multi-GPU waves) is not ported yet "
+                "(ROADMAP A2); pass mesh=None for one card")
+        resolve_device(device)      # no card, no executor: raise now
+        self.device = device
+        self.coordinator = coordinator
+        self.output_dir = output_dir
+        self.mesh = mesh
+        self.host = host
+        self.sync = sync
+        #: test seam: (meta, settings, mesh) -> GopShardEncoder-like
+        self._encoder_factory = encoder_factory or self._default_encoder
+        self._threads: list[threading.Thread] = []
+        # flight-recorder artifacts (<job>.trace.json) land next to the
+        # output tree this executor writes (obs/flight.py)
+        obs_flight.configure(output_dir)
+
+    # -- coordinator launcher interface --------------------------------
+
+    def launch(self, job: Job) -> None:
+        if self.sync:
+            self.run(job)
+            return
+        t = threading.Thread(target=self.run, args=(job,), daemon=True,
+                             name=f"tvt-exec-{job.id[:8]}")
+        self._threads.append(t)
+        t.start()
+
+    def join(self, timeout: float | None = None) -> None:
+        for t in self._threads:
+            t.join(timeout)
+
+    # -- pipeline ------------------------------------------------------
+
+    def _default_encoder(self, meta, settings, mesh):
+        """Plan-driven encoder resolution (parallel/dispatch.
+        make_shard_encoder) on this executor's device: `sfe_bands > 0`
+        selects the split-frame band shape (every frame cut into MB-row
+        band slices on the card — the single-stream latency path; 0
+        keeps GOP waves)."""
+        from ..parallel.dispatch import make_shard_encoder
+
+        return make_shard_encoder(meta, settings, mesh, device=self.device)
+
+    def run(self, job: Job) -> None:
+        token = job.run_token
+        # bind the job's trace context to this thread: spans record
+        # through the encoder's StageProfile + the wave loop below, and
+        # the structured JSON log mode stamps (job_id, trace_id) onto
+        # every line emitted while the run owns this thread
+        with obs_trace.bind(job.id, obs_trace.TRACE.trace_id(job.id)):
+            self._run_traced(job, token)
+
+    def _run_traced(self, job: Job, token: str) -> None:
+        co = self.coordinator
+        # one-element list: the encode hook advances the stage marker in
+        # place so failure attribution survives the subclass seam
+        stage = ["probe"]
+        source = None
+        try:
+            settings = co.job_settings(job)
+            co.heartbeat_job(job.id, token, stage[0], host=self.host)
+            if getattr(job, "job_type", "transcode") == "live":
+                # live LL-HLS: the source is still GROWING — tail it
+                # GOP-by-GOP and serve viewers during ingest (live/)
+                with self._maybe_trace(settings, job):
+                    self._run_live(job, token, settings, stage)
+                return
+            # streaming ingest: open (header parse / container demux)
+            # WITHOUT decoding — frames decode wave-by-wave during the
+            # encode, so the clip never materializes in host RAM and
+            # time-to-first-wave is one wave's decode
+            source = open_video(job.input_path)
+            meta, audio = source.meta, source.audio
+            if not len(source):
+                raise ValueError(f"no frames in {job.input_path}")
+            if not co.mark_running(job.id, token):
+                raise HaltedError("fenced before start")
+
+            if getattr(job, "job_type", "transcode") == "ladder":
+                # ABR ladder: rungs encode from ONE staged wave stream
+                # (lower rungs scale on the card) and the output is a
+                # served HLS directory, not a single MP4 (abr/).
+                with self._maybe_trace(settings, job):
+                    rungs, rung_segs = self._encode_ladder(
+                        job, token, source, settings, meta, stage)
+                self._package_ladder(job, token, rungs, rung_segs, meta,
+                                     audio, settings, len(source), stage)
+                return
+
+            with self._maybe_trace(settings, job):
+                segments = self._encode_job(job, token, source, settings,
+                                            meta, stage)
+
+            stage[0] = "stitch"
+            co.heartbeat_job(job.id, token, stage[0], host=self.host)
+            stream = concat_segments(segments)
+            base = os.path.splitext(os.path.basename(job.input_path))[0]
+            out_path = os.path.join(self.output_dir, base + ".mp4")
+            os.makedirs(self.output_dir, exist_ok=True)
+            data = mux_mp4(stream, meta, audio=audio)
+            tmp = f"{out_path}.{job.id}.tmp"    # job-unique: no clobber
+                                                # across same-name jobs
+            with open(tmp, "wb") as fp:
+                fp.write(data)
+            os.replace(tmp, out_path)       # atomic commit
+            co.update_progress(job.id, token, combine_progress=100.0)
+            co.complete_job(job.id, token, out_path, len(data))
+        except HaltedError:
+            pass                            # fenced: a newer run owns the job
+        except Exception as exc:            # noqa: BLE001 - attribute & fail
+            co.fail_job(job.id, token, stage=stage[0], host=self.host,
+                        reason=f"{type(exc).__name__}: {exc}")
+        finally:
+            if source is not None:
+                source.close()
+
+    def _encode_job(self, job: Job, token: str, frames, settings, meta,
+                    stage: list) -> list:
+        """segment + encode stages → ordered EncodedSegments. `frames`
+        is a lazy FrameSource (len + slicing + iteration; ingest/
+        decode.py) — treat it as a sequence, never materialize it
+        wholesale. `stage` is a one-element list the hook mutates for
+        failure attribution."""
+        co = self.coordinator
+        stage[0] = "segment"
+        enc = self._encoder_factory(meta, settings, self.mesh)
+        self._bind_trace(job, enc)
+        plan = enc.plan(len(frames))
+        co.update_progress(job.id, token, parts_total=plan.num_gops,
+                           segment_progress=100.0)
+        co.heartbeat_job(job.id, token, stage[0], host=self.host,
+                         note=f"{plan.num_gops} GOPs planned")
+
+        stage[0] = "encode"
+        target_kbps = float(settings.get("target_bitrate_kbps", 0.0))
+        if str(settings.rc_mode) == "vbr2pass" and target_kbps > 0:
+            segments = self._encode_vbr2pass(job, token, enc, frames,
+                                             settings, meta, target_kbps)
+        else:
+            segments = self._encode_with_retry(job, token, enc, frames,
+                                               settings)
+        self._emit_stage_breakdown(job, enc)
+        return segments
+
+    def _encode_ladder(self, job: Job, token: str, frames, settings,
+                       meta, stage: list):
+        """Ladder encode stage: one LadderShardEncoder fans every wave
+        across the rung set on the card (decode + upload once; lower
+        rungs scale on the card). Returns (rungs, {rung name → ordered
+        EncodedSegments})."""
+        from ..abr.ladder import plan_ladder, rung_segments
+        from ..parallel.dispatch import make_shard_encoder
+
+        co = self.coordinator
+        if str(settings.rc_mode) == "vbr2pass":
+            # the two-pass QP solver has no multi-rendition form yet;
+            # say so instead of silently dropping the bitrate target
+            co.activity.emit(
+                "encode", "ladder jobs use the octave-model per-rung "
+                "QPs; rc_mode=vbr2pass / target_bitrate_kbps ignored",
+                job_id=job.id, host=self.host)
+        stage[0] = "segment"
+        rungs = plan_ladder(meta, settings)
+        enc = make_shard_encoder(meta, settings, self.mesh, rungs=rungs,
+                                 device=self.device)
+        self._bind_trace(job, enc)
+        plan = enc.plan(len(frames))
+        co.update_progress(job.id, token, parts_total=plan.num_gops,
+                           segment_progress=100.0)
+        co.heartbeat_job(
+            job.id, token, stage[0], host=self.host,
+            note=f"{plan.num_gops} GOPs x {len(rungs)} rungs")
+
+        stage[0] = "encode"
+        # no re-plan for ladders: a change mid-job would re-plan GOP
+        # boundaries and break cross-rung segment alignment
+        bundles = self._encode_with_retry(job, token, enc, frames,
+                                          settings, allow_replan=False)
+        self._emit_stage_breakdown(job, enc)
+        return rungs, {r.name: rung_segments(bundles, r.name)
+                       for r in rungs}
+
+    def _package_ladder(self, job: Job, token: str, rungs, rung_segs,
+                        meta, audio, settings, num_frames: int,
+                        stage: list) -> None:
+        """Package stage: rungs → fMP4 segments + playlists under
+        `<output_dir>/<base>.hls/`, lint-checked, committed with an
+        atomic directory rename; the job completes pointing at the
+        master playlist (served via /hls/<job>/master.m3u8)."""
+        import shutil
+
+        from ..abr import hls
+
+        co = self.coordinator
+        stage[0] = "package"
+        co.heartbeat_job(job.id, token, stage[0], host=self.host,
+                         note=f"{len(rungs)} rungs → HLS")
+        # audio passes through bit-exact on EVERY rung: variants must
+        # share one codec set or an adaptive down-switch at a segment
+        # edge drops the sound track (players handle codec-set changes
+        # across variants poorly); the duplicated compressed audio is
+        # noise next to any rung's video bytes
+        streams = [hls.RungStream(
+            name=r.name, width=r.width, height=r.height,
+            segments=rung_segs[r.name], audio=audio) for r in rungs]
+        base = os.path.splitext(os.path.basename(job.input_path))[0]
+        out_dir = os.path.join(self.output_dir, base + ".hls")
+        tmp = f"{out_dir}.{job.id}.tmp"     # job-unique staging dir
+        shutil.rmtree(tmp, ignore_errors=True)
+        try:
+            hls.package_ladder(
+                tmp, streams, meta.fps_num, meta.fps_den,
+                segment_s=float(settings.get("segment_s", 6.0)))
+            fps = meta.fps_num / max(1, meta.fps_den)
+            hls.lint_ladder(tmp, expected_duration_s=num_frames / fps)
+            shutil.rmtree(out_dir, ignore_errors=True)
+            os.rename(tmp, out_dir)         # atomic commit
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        total = 0
+        for root, _dirs, files in os.walk(out_dir):
+            total += sum(os.path.getsize(os.path.join(root, f))
+                         for f in files)
+        master = os.path.join(out_dir, hls.MASTER_PLAYLIST)
+        co.update_progress(job.id, token, combine_progress=100.0)
+        co.complete_job(job.id, token, master, total)
+
+    def _run_live(self, job: Job, token: str, settings,
+                  stage: list) -> None:
+        """Live LL-HLS pipeline (:func:`run_live`) for one job, its
+        coordinator calls bound to the job and this run's token. The
+        tree lands in `<output_dir>/<input stem>.hls/`. Batches do not
+        retry: a live edge cannot rewind, so a failure fails the job
+        with attribution."""
+        run_live(job.input_path, self.output_dir, settings,
+                 device=self.device, hooks=_JobLiveHooks(self, job, token),
+                 stage=stage)
+
+    def _bind_trace(self, job: Job, enc) -> None:
+        """Bind the job's span recorder to the encoder's stage profile:
+        every timed stage (decode/stage/dispatch/device_wait/fetch/
+        pack/concat, SFE per-frame) then records a span into the job's
+        distributed trace. Inert when the job was sampled out
+        (trace_sample) or the encoder is a test double without a
+        profile."""
+        stages = getattr(enc, "stages", None)
+        set_tracer = getattr(stages, "set_tracer", None)
+        if set_tracer is not None:
+            set_tracer(obs_trace.TRACE.recorder(job.id, host=self.host))
+
+    def _emit_stage_breakdown(self, job: Job, enc) -> None:
+        """Record the encoder's host-stage wall-clock breakdown (wave
+        dispatch / device wait / D2H fetch / sparse unpack / unflatten /
+        CAVLC pack / concat) in the job's activity feed — the per-job
+        counterpart of /metrics_snapshot's live aggregate."""
+        stages = getattr(enc, "stages", None)
+        if stages is None:
+            return
+        import json
+
+        self.coordinator.activity.emit(
+            "encode", "stage_ms " + json.dumps(stages.snapshot()),
+            job_id=job.id, host=self.host)
+
+    def _maybe_trace(self, settings, job: Job):
+        """torch.profiler trace of the encode stage when `profile_dir` is
+        set: host ops and, on the card, its kernels, as one Chrome trace
+        under ``<profile_dir>/job-<id8>/`` beside the job's span
+        trace."""
+        profile_dir = str(settings.get("profile_dir", "") or "")
+        if not profile_dir:
+            return contextlib.nullcontext()
+        return _profiled(os.path.join(profile_dir, f"job-{job.id[:8]}"),
+                         cuda=resolve_device(self.device).type == "cuda")
+
+    def _encode_vbr2pass(self, job: Job, token: str, enc, frames,
+                         settings, meta, target_kbps: float) -> list:
+        """Two-pass VBR via rc.encode_vbr2pass's single solve/refine
+        loop, with every pass riding this executor's retry/halt/progress
+        wrapper and heartbeating its pass number."""
+        from ..parallel import rc
+
+        co = self.coordinator
+
+        def on_pass(pass_no, gop_qps):
+            note = ("vbr pass 1 (analysis)" if gop_qps is None else
+                    f"vbr pass {pass_no} (qp {gop_qps.min()}"
+                    f"-{gop_qps.max()})")
+            co.heartbeat_job(job.id, token, "encode", host=self.host,
+                             note=note)
+
+        segments, _stats = rc.encode_vbr2pass(
+            frames, meta, target_kbps, base_qp=int(settings.qp), enc=enc,
+            encode_fn=lambda e: self._encode_with_retry(
+                job, token, e, frames, settings, allow_replan=False),
+            on_pass=on_pass,
+            aq_strength=float(settings.get("aq_strength", 0.0) or 0.0))
+        return segments
+
+    def _encode_with_retry(self, job: Job, token: str, enc, frames,
+                           settings, allow_replan: bool = True) -> list:
+        """Wave loop with per-wave retry and halt checks. When a wave
+        exhausts its retry budget, `_shrink_encoder` is asked for an
+        encoder over fewer devices to re-plan the remaining frames on;
+        on one card there is none, and the job fails with attribution.
+
+        `allow_replan=False` (the vbr2pass passes, the ladder) fails
+        without asking: a change mid-pass would change the GOP count
+        under the QP solver and orphan the per-GOP QP map.
+        """
+        co = self.coordinator
+        total_gops = enc.plan(len(frames)).num_gops
+        segments: list = []
+        start_frame = 0
+        shrink_attempt = 0
+        while True:
+            try:
+                segments.extend(self._encode_range(
+                    job, token, enc, frames, start_frame, settings,
+                    total_gops, len(segments)))
+                segments.sort(key=lambda s: s.gop.index)
+                return segments
+            except _WaveExhausted as exc:
+                segments.extend(exc.completed)
+                shrink_attempt += 1
+                shrunk = (self._shrink_encoder(enc, settings,
+                                               shrink_attempt)
+                          if allow_replan else None)
+                if shrunk is None:
+                    raise RuntimeError(exc.reason) from exc
+                # completed waves are a contiguous frame prefix (waves
+                # collect in order); resume after it on the new encoder
+                start_frame = max(
+                    (s.gop.end_frame for s in segments), default=0)
+                # the suffix re-plans with a different device count, so
+                # the GOP total changes — keep progress honest
+                total_gops = len(segments) + shrunk.plan(
+                    len(frames) - start_frame).num_gops
+                co.update_progress(job.id, token, parts_total=total_gops)
+                co.activity.emit(
+                    "encode", f"wave retries exhausted; replanning "
+                    f"frames {start_frame}+ on {shrunk.num_devices} "
+                    f"devices (was {enc.num_devices})",
+                    job_id=job.id, host=self.host)
+                enc = shrunk
+
+    def _qos_pause(self, job: Job, token: str, settings) -> None:
+        """Hold a BATCH-class job's wave loop while the QoS controller
+        has batch work preempted for a struggling live edge
+        (cluster/qos.py): in-flight waves drain, no new wave
+        dispatches, heartbeats keep the watchdog off. Ladder and live
+        jobs never pause; re-raises HaltedError if fenced mid-pause."""
+        from .qos import BATCH_RANK, job_rank
+
+        co = self.coordinator
+        qos = getattr(co, "qos", None)
+        if qos is None or qos.batch_allowed():
+            return
+        override = str(settings.get("job_priority", "auto") or "auto")
+        if job_rank(getattr(job, "job_type", "transcode"),
+                    override) < BATCH_RANK:
+            return
+        co.activity.emit("qos", "batch waves paused: live QoS "
+                         "preemption", job_id=job.id, host=self.host)
+        while not qos.wait_batch_allowed(0.1):
+            if not co.token_is_current(job.id, token):
+                raise HaltedError("stale run token")
+            co.heartbeat_job(job.id, token, "encode", host=self.host,
+                             note="paused: live QoS preemption")
+
+    def _shrink_encoder(self, enc, settings, attempt: int):
+        """None: the port's encoders run on one card and have no mesh to
+        shrink, so an exhausted wave fails the job with attribution, as
+        the reference's does on one device. (A multi-card executor would
+        return an encoder over the surviving cards here; ROADMAP A2.)"""
+        return None
+
+    def _encode_range(self, job: Job, token: str, enc, frames,
+                      start_frame: int, settings, total_gops: int,
+                      done0: int) -> list:
+        """Depth-2 pipelined wave loop over frames[start_frame:].
+
+        The decode → stack → upload staging chain runs on a background
+        staging thread (`decode_ahead` waves ahead of the dispatch
+        window — parallel/dispatch.background_stage), so ingest
+        overlaps device compute instead of serializing ahead of it.
+        Staging stays bounded, not free: input residency is the 2
+        in-flight waves PLUS up to `decode_ahead` staged-but-undispatched
+        waves (+1 blocked in the queue put) of card-resident YUV
+        tensors — size `decode_ahead` against the card's memory
+        headroom, not just source latency. A retried wave re-dispatches
+        from its retained staged tuple.
+        Raises _WaveExhausted (carrying the range's completed segments)
+        when one wave fails `part_failure_max_retries` times.
+        """
+        from ..parallel.dispatch import GopShardEncoder, background_stage
+
+        co = self.coordinator
+        max_retries = int(settings.part_failure_max_retries)
+        if start_frame:
+            # GOP indices / frame ranges restart at 0 for the subrange;
+            # offset emitted segments so ordering + idr_pic_id stay
+            # globally consistent with already-completed ones
+            enc.gop_index_offset = done0
+            enc.frame_offset = start_frame
+        # the encoder already resolved the `decode_ahead` setting in
+        # its constructor (like pack_workers/pipeline_window), so honor
+        # its knob — incl. explicit constructor overrides; the class
+        # default only covers test doubles that lack the attribute
+        decode_ahead = int(getattr(enc, "decode_ahead", 0) or 0) \
+            or GopShardEncoder.DECODE_AHEAD
+        feed = background_stage(
+            enc.stage_waves(frames[start_frame:] if start_frame
+                            else frames),
+            decode_ahead)
+        staged_iter = enumerate(feed)
+        segments: list = []
+        done = done0
+        pending: deque = deque()        # (idx, staged, handle)
+        attempts: dict[int, int] = {}
+        # per-wave spans in the job's distributed trace (inert when
+        # the job was sampled out — trace_sample)
+        rec = obs_trace.TRACE.recorder(job.id, host=self.host)
+
+        def halt_check() -> None:
+            if not co.token_is_current(job.id, token):
+                raise HaltedError("stale run token")
+
+        def dispatch_next() -> None:
+            try:
+                i, staged = next(staged_iter)
+            except StopIteration:
+                return
+            with rec.span("wave_dispatch", wave=i):
+                pending.append((i, staged, enc.dispatch_wave(staged)))
+
+        try:
+            dispatch_next()
+            while pending:
+                halt_check()
+                self._qos_pause(job, token, settings)
+                if len(pending) < 2:
+                    dispatch_next()     # overlap: depth-2 window, no more
+                i, staged, handle = pending.popleft()
+                try:
+                    with rec.span("wave_collect", wave=i):
+                        segs = enc.collect_wave(handle)
+                except HaltedError:
+                    raise
+                except Exception as exc:  # noqa: BLE001 - wave retry budget
+                    n = attempts.get(i, 0) + 1
+                    attempts[i] = n
+                    if n > max_retries:
+                        raise _WaveExhausted(
+                            f"wave {i} failed after {n - 1} retries: "
+                            f"{type(exc).__name__}: {exc}", segments) \
+                            from exc
+                    co.activity.emit(
+                        "encode", f"wave {i} attempt {n} failed, "
+                        f"retrying: {exc}", job_id=job.id, host=self.host)
+                    # staged[0] is the wave's GOP list (GopShardEncoder)
+                    # or a single GopSpec (SfeShardEncoder: one GOP per
+                    # wave, frames cut into bands within it)
+                    wave_gops = (len(staged[0])
+                                 if hasattr(staged[0], "__len__") else 1)
+                    retried = co.store.get(job.id).parts_retried \
+                        + wave_gops
+                    co.update_progress(job.id, token, parts_retried=retried)
+                    halt_check()
+                    pending.appendleft((i, staged,
+                                        enc.dispatch_wave(staged)))
+                    continue
+                segments.extend(segs)
+                done += len(segs)
+                co.update_progress(
+                    job.id, token, parts_done=done,
+                    encode_progress=100.0 * done / max(1, total_gops))
+                co.heartbeat_job(job.id, token, "encode", host=self.host,
+                                 note=f"{done}/{total_gops} GOPs")
+            return segments
+        finally:
+            feed.close()                # stop the staging thread
+                                        # (halt / exhaustion)
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: str, cuda: bool):
+    """torch.profiler over the block (host ops; the card's kernels too
+    when `cuda`), written as one Chrome trace into `out_dir`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+    path = os.path.join(out_dir,
+                        f"{os.getpid()}.{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    _LOG.info("profiler trace %s: %d bytes, %.1f s to stop and write",
+              path, os.path.getsize(path), time.perf_counter() - t0)
 
 
 class LiveHooks:
@@ -285,3 +842,40 @@ def run_live(input_path: str, output_dir: str, settings, *,
             "segments_announced": packager.segments_announced,
             "parts_announced": packager.parts_announced,
             "segments_gced": packager.segments_gced}
+
+
+class _JobLiveHooks(LiveHooks):
+    """The live loop's coordinator calls, bound to one job and its run
+    token (the calls the reference executor's `_run_live` makes)."""
+
+    def __init__(self, execu: LocalExecutor, job: Job, token: str) -> None:
+        self.execu, self.job, self.token = execu, job, token
+        self.co = execu.coordinator
+
+    def mark_running(self) -> bool:
+        return self.co.mark_running(self.job.id, self.token)
+
+    def token_is_current(self) -> bool:
+        return self.co.token_is_current(self.job.id, self.token)
+
+    def publish_output(self, master_path: str) -> None:
+        self.co.publish_output(self.job.id, self.token, master_path)
+
+    def note_live_part(self, seconds: float, budget: float) -> None:
+        self.co.note_live_part(self.job.id, self.token, seconds, budget)
+
+    def update_progress(self, **fields) -> None:
+        self.co.update_progress(self.job.id, self.token, **fields)
+
+    def heartbeat(self, stage: str, note: str = "") -> None:
+        self.co.heartbeat_job(self.job.id, self.token, stage,
+                              host=self.execu.host, note=note)
+
+    def bind_trace(self, enc) -> None:
+        self.execu._bind_trace(self.job, enc)
+
+    def stage_breakdown(self, enc) -> None:
+        self.execu._emit_stage_breakdown(self.job, enc)
+
+    def complete(self, master_path: str, nbytes: int) -> None:
+        self.co.complete_job(self.job.id, self.token, master_path, nbytes)

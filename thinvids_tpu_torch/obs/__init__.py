@@ -12,12 +12,14 @@ threads and the executors' host loops, never inside a device program.
   JSON; an encoder's StageProfile records a span for every timed stage
   once a recorder is bound (``stages.set_tracer``).
 
-The reference's flight recorder (postmortem dumps on job failure) is not
-ported yet: only the job executor uses it.
+- :mod:`.flight` — postmortem flight recorder: on job failure the job's
+  recent spans + last errors + settings snapshot dump as
+  ``<job>.trace.json`` next to the output tree (the executor configures
+  it).
 """
 
 from __future__ import annotations
 
-from . import metrics, trace  # noqa: F401
+from . import flight, metrics, trace  # noqa: F401
 
-__all__ = ["metrics", "trace"]
+__all__ = ["flight", "metrics", "trace"]

@@ -991,7 +991,7 @@ class GopShardEncoder:
         waves = iter(waves)
         pending: list[cf.Future] = []
 
-        with cf.ThreadPoolExecutor(window) as pool:
+        with cf.ThreadPoolExecutor(self._collect_threads(window)) as pool:
             def dispatch_next():
                 try:
                     staged = next(waves)
@@ -1010,6 +1010,10 @@ class GopShardEncoder:
                 dispatch_next()
                 segments.extend(segs)
         return segments
+
+    def _collect_threads(self, window: int) -> int:
+        """Collector threads for `encode_waves`: one per in-flight wave."""
+        return window
 
     @staticmethod
     def _gop_plane(cursor: _FrameCursor, gop: GopSpec, F: int, plane: str
@@ -1253,6 +1257,16 @@ class SfeShardEncoder(GopShardEncoder):
         # previous pass's last frame is not a per-frame latency
         self._last_frame_done = None
         return super().encode_waves(waves, window=window)
+
+    def _collect_threads(self, window: int) -> int:
+        """One collector, whatever the window: frames finish in frame
+        order, so each frame's gap is measured from the frame before it
+        and the first frame of a pass records none. With a collector per
+        in-flight GOP, a later GOP's first frame could finish before an
+        earlier GOP's frames, and which frames recorded a gap (and the
+        `sfe_frame` spans' frame tags) depended on thread timing. The
+        card still runs `window` GOPs ahead."""
+        return 1
 
     def _intra_step(self, ys, us, vs, qp: int, dense: bool = False):
         bp = self.band_plan
