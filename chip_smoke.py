@@ -25,7 +25,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
               first and last bands at the frame's edges, and its time at
               the 4K split-frame shape (4 x 608 x 3840) beside a
               single-frame launch at 2176 x 3840, with the bound over
-              B He W.
+              B He W. Then the farm slices' stacks: each slice of
+              plan_bands(135, 240, 2) at 4K as a (1, 1152, 3840) stack,
+              its halo toward the other slice injected as the relay
+              delivers it, one launch of each kernel against the plain
+              version, bit-exactly.
 4. main     — the 1080p closed-GOP encode (16 frames, gop 8, qp 27)
               through GopShardEncoder(device="cuda").encode →
               concat_segments, with every kernel's launch count set to 0
@@ -156,6 +160,31 @@ Phases, in order; any failed check raises and the script exits non-zero:
               start-up seconds and each job's wall time from submit to
               done, beside the card's name and power limit; the daemon
               is stopped in any case.
+16. farm    — the remote backend and the farm on the card, before phase
+              15: `python -m thinvids_tpu_torch.cli coordinator --backend
+              remote --device cuda` (watch folder, library, state dir;
+              TVT_REMOTE_SHARD_GOPS=1, gop 8, qp 27, a 3 s heartbeat
+              TTL) and two `cli worker --device cuda` processes. Phase
+              6's 1080p y4m dropped into the watch folder becomes a job
+              of two 1-GOP shards whose MP4 must equal phase 6's, each
+              worker having done at least one shard. The worker
+              processes then stop, and two WorkerDaemon(device="cuda")
+              threads of this process (each with its node agent) take
+              their place, so the kernels' launch counts see them: a
+              4K farm SFE job (bench.py's _run_sfe point, 16 frames,
+              gop 8, qp 27, halo 32, sfe_bands 2: one band a worker,
+              the halo relay over the daemon's /work/halo) posted to
+              /add_job, with the ME launch counts set to 0 just before
+              and read just after (28 each: every worker once per P
+              frame for its slice, no dense replay). Its MP4 must equal
+              the MP4 of the local SfeShardEncoder(bands=2) stream of
+              the same frames on the card, and that stream the JAX
+              package's (FARM_POINT_JAX, from scripts/jax_farm_point.py).
+              It prints the daemon's and the workers' start-up, each
+              job's submit to done and run, the farm's fps, the
+              workers' stage_ms (halo, dispatch, ...) and the per-frame
+              latency p50 / p99, beside the card's name and power
+              limit; every process it starts is stopped in any case.
 15. card = CPU — after every timed section, the 352x288 card == CPU
               checks of phases 9, 10 and 12, the CPU port's side of
               phases 9 and 10 in two worker processes (spawned, CPU only)
@@ -230,6 +259,13 @@ SFE_POINT_JAX = {
     "rd_1080p": (1034887, "05a4171023492cd939e1ed14cd9ddf77"
                           "15776fa44e935345013d0cfb10c8d118"),
 }
+#: the JAX package's 2-band split-frame stream at the farm point
+#: (bench.py's _run_sfe point with 2 bands: 3840x2160, 16 frames, gop 8,
+#: qp 27, halo 32): (length, sha256), as
+#: `XLA_FLAGS=--xla_force_host_platform_device_count=2 JAX_PLATFORMS=cpu
+#: python3 scripts/jax_farm_point.py` prints it
+FARM_POINT_JAX = (3221387, "ba283c3805c0cc930af0a67d9e52d138"
+                            "7c7ff07fe4b1ceba2e2daff25f7d22d1")
 #: the JAX package's two-pass VBR result at the rc point (1920x1080, 32
 #: frames, gop 8, base qp 27, 8000 kbps, bench content), as
 #: `JAX_PLATFORMS=cpu python3 scripts/jax_rc_point.py` prints it
@@ -696,6 +732,67 @@ def check_banded_me_kernels(dev) -> dict:
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None}
     return out
+
+
+def check_farm_slice_kernels(dev) -> dict:
+    """Both kernels on the stacks a farm slice hands them: each slice of
+    plan_bands(135, 240, 2) at 4K (68 + 67 MB rows, the second padded)
+    as a (1, Hb + 2 x 32, 3840) stack whose halo toward the other slice
+    is that slice's rows injected as the relay delivers them
+    (torchme.extend_bands with `ext`, the other edge replicated), one
+    launch each against the plain version, bit-exactly."""
+    from thinvids_tpu_torch.parallel.planner import plan_bands
+
+    Hb = plan_bands(135, 240, 2).band_mb_rows * 16
+    h, w, halo = 2 * Hb, 3840, 32
+    cur, ref, ru, rv = (torch.from_numpy(a.astype(np.int16)).to(dev)
+                        for a in _me_inputs("pan", h, w, 5))
+    lam = torchme.lambda_for(27, dev)
+    err = {"me_halfpel": 0, "me_search": 0}
+    for lo in (0, 1):
+        y0, y1 = lo * Hb, (lo + 1) * Hb
+        edge_top, edge_bot = lo == 0, lo == 1
+
+        def part(p, d):
+            return p[y0 // d:y1 // d][None]
+
+        def edge(p, d):
+            k = halo // d
+            return (None if edge_top else p[y0 // d - k:y0 // d],
+                    None if edge_bot else p[y1 // d:y1 // d + k])
+
+        ext = edge(ref, 1) + edge(ru, 2) + edge(rv, 2)
+        stacks = torchme.extend_bands(part(cur, 1), part(ref, 1),
+                                      part(ru, 2), part(rv, 2), halo,
+                                      ext=ext, edge_top=edge_top,
+                                      edge_bot=edge_bot)
+        check(tuple(stacks[0].shape) == (1, Hb + 2 * halo, w),
+              f"farm slice stack {tuple(stacks[0].shape)}")
+        centers = torchme.banded_centers_from(
+            part(cur, 1), part(ref, 1),
+            torch.tensor([4, -6], dtype=torch.int32, device=dev), (Hb,),
+            halo)
+        planes = torchme.halfpel_planes_cuda(stacks[1])
+        got = torchme.me_search_cuda(*stacks, centers, lam)
+        torch.cuda.synchronize()
+        e = int((planes.to(torch.int32) - torchme.halfpel_planes_ref(
+            stacks[1]).to(torch.int32)).abs().max())
+        err["me_halfpel"] = max(err["me_halfpel"], e)
+        want = torchme.me_search_ref(*stacks, centers, lam)
+        for name, a, b in zip(("mv", "pred_y", "pred_u", "pred_v"),
+                              got, want):
+            e = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+            err["me_search"] = max(err["me_search"], e)
+            check(a.shape == b.shape and e == 0,
+                  f"farm slice {lo}: {name} differs (max |diff| {e})")
+    check(err["me_halfpel"] == 0,
+          f"farm slice planes differ (max |diff| {err['me_halfpel']})")
+    print(f"farm slices of plan_bands(135, 240, 2): two (1, {Hb + 2 * halo}, "
+          f"{w}) stacks, the other slice's rows injected: one launch each, "
+          "planes and outputs bit-exact against the plain version",
+          flush=True)
+    return {k: {"shape": [1, Hb + 2 * halo, w], "max_abs_err": v}
+            for k, v in err.items()}
 
 
 # ---- phase 4 -----------------------------------------------------------
@@ -2411,6 +2508,246 @@ def _http_up(base: str) -> bool:
         return False
 
 
+# ---- phase 16 ------------------------------------------------------------
+
+def _http_delete(base: str, path: str) -> int:
+    import urllib.request
+
+    req = urllib.request.Request(base + path, method="DELETE")
+    with urllib.request.urlopen(req, timeout=10.0) as resp:
+        return resp.status
+
+
+def _active_hosts(base: str) -> set:
+    """Hosts the coordinator counts as live (registry row within its TTL)."""
+    code, raw = _http(base, "/nodes_data")
+    check(code == 200, f"/nodes_data answered {code}")
+    return {n["host"] for n in json.loads(raw)["nodes"] if n["active"]}
+
+
+def _await_hosts(base: str, hosts: set, proc, cap_s: float) -> float:
+    """Seconds until every host of `hosts` is live at the coordinator."""
+    t0 = time.perf_counter()
+    while not hosts <= _active_hosts(base):
+        check(proc.poll() is None, f"the daemon exited ({proc.returncode})")
+        check(time.perf_counter() - t0 < cap_s,
+              f"workers {sorted(hosts)} not live within {cap_s:.0f} s")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def farm_phase(want_mp4: bytes, card: str, w: int = 3840, h: int = 2160,
+               n: int = 16, gop: int = 8, qp: int = 27, halo: int = 32,
+               want_farm: tuple = FARM_POINT_JAX,
+               gop_size: tuple = (1920, 1080), device: str = "cuda") -> dict:
+    """The remote backend and the farm on the card (phase 16 above): a
+    remote coordinator daemon, two worker daemon processes for a GOP job
+    (phase 6's clip, `gop_size`), then two in-process WorkerDaemon
+    threads for a two-slice farm SFE job at 4K. Returns each ME kernel's
+    launches in the farm SFE run, its fps, stage totals and per-frame
+    latency."""
+    import signal
+    import socket
+    import tempfile
+
+    from thinvids_tpu_torch.cluster.agent import NodeAgent, http_submitter
+    from thinvids_tpu_torch.cluster.remote import WorkerDaemon
+    from thinvids_tpu_torch.ingest.decode import open_video
+    from thinvids_tpu_torch.io.mp4 import mux_mp4
+    from thinvids_tpu_torch.parallel import dispatch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs: list = []
+    stop = threading.Event()
+    agents: list = []
+    loops: list = []
+    with tempfile.TemporaryDirectory(prefix="tvt-farm-") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in
+                ("watch", "library", "state", "inputs", "logs")}
+        for d in dirs.values():
+            os.makedirs(d)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        base = f"http://127.0.0.1:{port}"
+        env = dict(os.environ, PYTHONPATH=root, TVT_MIN_IDLE_WORKERS="0",
+                   TVT_GOP_FRAMES=str(gop), TVT_QP=str(qp),
+                   TVT_REMOTE_SHARD_GOPS="1", TVT_METRICS_TTL_S="3",
+                   TVT_REMOTE_RETRY_BACKOFF_S="0.2",
+                   TVT_SCHEDULER_POLL_S="0.5")
+
+        def spawn(name: str, args: list):
+            log = open(os.path.join(dirs["logs"], f"{name}.log"), "wb")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "thinvids_tpu_torch.cli", *args],
+                cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+            log.close()
+            procs.append((name, proc))
+            return proc
+
+        ok = False
+        try:
+            t0 = time.perf_counter()
+            coord = spawn("coordinator", [
+                "coordinator", "--backend", "remote", "--device", device,
+                "--host", "127.0.0.1", "--port", str(port),
+                "--state-dir", dirs["state"], "--watch-dir", dirs["watch"],
+                "--output-dir", dirs["library"], "--scan-interval", "0.5"])
+            hosts = {f"farm-w{i}" for i in range(2)}
+            for host in sorted(hosts):
+                spawn(host, ["worker", "--device", device, "--coordinator",
+                             base, "--node-name", host, "--interval", "0.3",
+                             "--poll", "0.2"])
+            while not _http_up(base):
+                check(coord.poll() is None,
+                      f"the daemon exited ({coord.returncode})")
+                check(time.perf_counter() - t0 < 120,
+                      "the daemon's API did not come up within 120 s")
+                time.sleep(0.1)
+            t_up = time.perf_counter() - t0
+            t_workers = t_up + _await_hosts(base, hosts, coord, 120.0)
+            print(f"farm daemon up in {t_up:.3f} s, both worker processes "
+                  f"live in {t_workers:.3f} s (Popen to /nodes_data) on "
+                  f"{card}", flush=True)
+
+            # (a) a remote GOP job: phase 6's clip through the watch folder
+            gw, gh = gop_size
+            staged = os.path.join(dirs["inputs"], "farm_gop.y4m")
+            _write_clip(staged, make_frames(16, gw, gh), gw, gh)
+            dropped = os.path.join(dirs["watch"], "farm_gop.y4m")
+            os.replace(staged, dropped)
+            job = _await_job(base, dropped, coord, 180.0)
+            with open(job["output_path"], "rb") as fp:
+                mp4 = fp.read()
+            deadline = time.perf_counter() + 10.0
+            while True:     # the shard counters ride the next heartbeat
+                code, raw = _http(base, "/metrics_snapshot")
+                check(code == 200, f"/metrics_snapshot answered {code}")
+                rows = json.loads(raw)["metrics"]
+                done = {host: rows.get(host, {}).get("worker_shards_done",
+                                                     0)
+                        for host in sorted(hosts)}
+                if sum(done.values()) >= 2 or \
+                        time.perf_counter() > deadline:
+                    break
+                time.sleep(0.2)
+            run_s = job["finished_at"] - job["started_at"]
+            print(f"farm GOP job {gw}x{gh} x16 gop {gop} qp {qp}, 1-GOP "
+                  f"shards: "
+                  f"MP4 {len(mp4)} bytes, sha256 "
+                  f"{hashlib.sha256(mp4).hexdigest()}; shards done "
+                  f"{json.dumps(done)}; submit to done "
+                  f"{job['finished_at'] - job['created_at']:.3f} s, run "
+                  f"{run_s:.3f} s ({16 / run_s:.3f} job fps); {card}",
+                  flush=True)
+            check(mp4 == want_mp4, "the farm's MP4 differs from phase 6's")
+            check(all(v >= 1 for v in done.values()),
+                  f"a worker took no shard: {done}")
+            for name, proc in procs[1:]:
+                proc.send_signal(signal.SIGTERM)
+            for name, proc in procs[1:]:
+                proc.wait(timeout=30)
+                check(_http_delete(base, f"/nodes/delete/{name}") == 200,
+                      f"the registry kept {name}")
+
+            # (b) farm SFE at 4K: two slices of a 2-band layout on two
+            # WorkerDaemon threads of this process, over the relay
+            frames = make_frames(n, w, h)
+            path = os.path.join(dirs["inputs"], "farm2160.y4m")
+            _write_clip(path, frames, w, h)
+            with open_video(path) as src:
+                meta = src.meta
+            local = _sfe_encoder(meta, qp, gop, 2, halo, device=device)
+            t_l = time.perf_counter()
+            stream = concat_segments(local.encode(frames))
+            t_l = time.perf_counter() - t_l
+            digest = hashlib.sha256(stream).hexdigest()
+            print(f"farm point, local 2-band SfeShardEncoder {w}x{h} x{n}: "
+                  f"{len(stream)} bytes, sha256 {digest} ({n / t_l:.3f} fps "
+                  "through encode())", flush=True)
+            check((len(stream), digest) == want_farm,
+                  f"the local 2-band stream ({len(stream)}, {digest}) is not "
+                  f"the JAX package's {want_farm}")
+            del local, frames
+            threads = {f"farm-t{i}" for i in range(2)}
+            for host in sorted(threads):
+                daemon = WorkerDaemon(base, host=host, poll_s=0.1,
+                                      device=device)
+                agents.append(NodeAgent(
+                    http_submitter(base), host=host, interval_s=0.3,
+                    extra_metrics=daemon.metrics, device=device).start())
+                loops.append(threading.Thread(
+                    target=daemon.run_forever, args=(stop,), daemon=True,
+                    name=f"tvt-{host}"))
+                loops[-1].start()
+            _await_hosts(base, threads, coord, 60.0)
+            check(not (_active_hosts(base) & hosts),
+                  "a worker process is still live")
+            before = dispatch.stage_snapshot()
+            with dispatch._SFE_LAT_LOCK:
+                dispatch._SFE_LAT_MS.clear()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            _zero_me_counts()
+            code, raw = _http(base, "/add_job", {
+                "input_path": path,
+                "settings": {"sfe_bands": 2, "sfe_halo_rows": halo}})
+            check(code == 201, f"/add_job answered {code}: {raw[:200]!r}")
+            fjob = _await_job(base, path, coord, 300.0)
+            launches = _me_counts()
+            after = dispatch.stage_snapshot()
+            lat = dispatch.frame_latency_percentiles()
+            with open(fjob["output_path"], "rb") as fp:
+                fmp4 = fp.read()
+            frun = fjob["finished_at"] - fjob["started_at"]
+            delta = {k: round(after[k] - before[k], 2) for k in
+                     ("halo", "dispatch", "device_wait", "fetch", "sfe",
+                      "stage", "decode", "sfe_frames",
+                      "dense_fallback_waves")}
+            print(f"farm SFE job {w}x{h} x{n} gop {gop} qp {qp}, 2 slices "
+                  f"of 1 band, halo {halo}: MP4 {len(fmp4)} bytes, sha256 "
+                  f"{hashlib.sha256(fmp4).hexdigest()}; submit to done "
+                  f"{fjob['finished_at'] - fjob['created_at']:.3f} s, run "
+                  f"{frun:.3f} s ({n / frun:.3f} fps); ME launches "
+                  f"{launches}; stage_ms (both workers) {json.dumps(delta)}; "
+                  f"per-frame latency {json.dumps(lat)}; {card}",
+                  flush=True)
+            check(fmp4 == mux_mp4(stream, meta),
+                  "the farm's SFE MP4 differs from the local 2-band "
+                  "stream's")
+            p_frames = n - -(-n // gop)
+            # (the CPU runs the kernels' plain versions: no launch to count)
+            for name, count in launches.items() if device == "cuda" else ():
+                check(count == 2 * p_frames,
+                      f"farm SFE: {name} launched {count} times, want "
+                      f"{2 * p_frames} (each worker once per P frame)")
+            check(delta["dense_fallback_waves"] == 0,
+                  "the farm SFE run replayed dense")
+            ok = True
+        finally:
+            stop.set()
+            for agent in agents:
+                agent.stop()
+            for loop in loops:
+                loop.join(timeout=30)
+            for _name, proc in reversed(procs):
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+            for name, proc in reversed(procs):
+                try:
+                    proc.wait(timeout=40)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=20)
+                with open(os.path.join(dirs["logs"], f"{name}.log"),
+                          "rb") as fp:
+                    tail = fp.read()[-(800 if ok else 4000):]
+                print(f"farm {name} log (tail):\n"
+                      + tail.decode(errors="replace"), flush=True)
+    return {"launches": launches, "fps": round(n / frun, 3),
+            "stage_ms": delta, "latency": lat}
+
+
 # ---- phase 15 ------------------------------------------------------------
 
 def parity_phase() -> None:
@@ -2461,6 +2798,7 @@ def main() -> int:
     print("kernels: me_halfpel, me_search")
     recs = check_me_kernels(dev)
     banded = check_banded_me_kernels(dev)
+    farm_slice = check_farm_slice_kernels(dev)
     phase("4 main")
     main = main_path()
     for rec in recs:
@@ -2488,6 +2826,8 @@ def main() -> int:
     live = live_phase()
     phase("14 manager")
     manager = manager_phase(job_mp4, ladder["job_tree"], card)
+    phase("16 farm")
+    farm = farm_phase(job_mp4, card)
     phase("15 card = CPU")
     parity_phase()
     for rec in recs:
@@ -2498,6 +2838,8 @@ def main() -> int:
         rec["live_launches"] = live["ladder"][rec["name"]]
         rec["live_sfe_launches"] = live["sfe"][rec["name"]]
         rec["manager_launches"] = manager[rec["name"]]
+        rec["farm_slice"] = farm_slice[rec["name"]]
+        rec["farm_launches"] = farm["launches"][rec["name"]]
     phase("end")
     print(json.dumps({"kernels": recs}))
     print(f"card: {card}")

@@ -2,12 +2,16 @@
 comparison of two checkouts.
 
     python3 scripts/chip_points.py manager
+    python3 scripts/chip_points.py farm
     python3 scripts/chip_points.py daemon-jobs
     python3 scripts/chip_points.py sfe-ab PARENT_DIR CHANGE_DIR
 
 - `manager`: phase 14 alone — builds the kernels, makes phase 6's MP4
   (`chip_smoke._run_job`) and phase 12's ladder job tree
   (`chip_smoke.ladder_job`), then runs `chip_smoke.manager_phase`.
+- `farm`: phase 16 alone — builds the kernels, holds them at the farm
+  slice's stacks (`chip_smoke.check_farm_slice_kernels`), makes phase
+  6's MP4 (`chip_smoke._run_job`), then runs `chip_smoke.farm_phase`.
 - `daemon-jobs`: job times through the manager daemon beside the job
   path in this process: phase 6's job twice here, then `cli coordinator
   --device cuda` in a subprocess and the same clip posted to /add_job
@@ -51,6 +55,21 @@ def manager() -> None:
     out = cs.manager_phase(mp4, tree, card)
     print(f"manager phase launches {out}, "
           f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+
+
+def farm() -> None:
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    cs.build_all()
+    cs.check_farm_slice_kernels(cs.torch.device("cuda", 0))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "job1080.y4m")
+        cs._write_clip(path, cs.make_frames(16, 1920, 1080), 1920, 1080)
+        _, mp4 = cs._run_job(path, "cuda")
+    t0 = time.perf_counter()
+    out = cs.farm_phase(mp4, card)
+    print(f"farm phase {out}, {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
 
 
 def daemon_jobs(n: int = 16, w: int = 1920, h: int = 1080,
@@ -134,6 +153,7 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
     sub.add_parser("manager")
+    sub.add_parser("farm")
     sub.add_parser("daemon-jobs")
     ab = sub.add_parser("sfe-ab")
     ab.add_argument("parent")
@@ -143,6 +163,8 @@ def main() -> None:
         raise SystemExit("chip_points: CUDA is not available")
     if args.cmd == "manager":
         manager()
+    elif args.cmd == "farm":
+        farm()
     elif args.cmd == "daemon-jobs":
         daemon_jobs()
     else:

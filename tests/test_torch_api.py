@@ -4,9 +4,8 @@ the two places the port's server differs from the reference's:
 
 - ``/metrics_snapshot`` reads the port's encoder totals: after a port
   encode in this process, `stage_ms` carries its waves and stages;
-- without a remote board, every ``/work/*`` route answers 503 (the
-  port's server checks for the board before it imports the remote
-  backend's modules, which are not ported yet).
+- without a remote board, every ``/work/*`` route answers 503, as the
+  reference's does.
 """
 
 import json

@@ -5,7 +5,7 @@ its watch folder, writes the MP4 the JAX package's executor writes from
 the same file, and recovers the job from its journal after a hard kill;
 `cli trace` exports the job's trace and `cli feed` paces a clip into a
 growing live drop. Without a card, the default `--device cuda` exits
-with an error naming it, and the parts not ported yet raise.
+with an error naming it, the farm's worker and remote coordinator too.
 """
 
 import json
@@ -200,15 +200,23 @@ def test_default_device_without_a_card_exits_naming_it(tmp_path):
     assert not (tmp_path / "library").exists()
 
 
-def test_what_is_not_ported_raises_naming_its_roadmap_item(tmp_path):
-    for args in (("worker",),
-                 ("coordinator", "--backend", "remote", "--device", "cpu",
-                  "--port", str(_free_port()))):
+def test_worker_and_remote_coordinator_without_a_card_exit_naming_it(
+        tmp_path):
+    """The farm's daemons refuse a missing card as the coordinator does:
+    `cli worker` and `cli coordinator --backend remote` with the default
+    `--device cuda` exit naming it, before they serve or claim anything."""
+    for args in (("worker", "--coordinator",
+                  f"http://127.0.0.1:{_free_port()}"),
+                 ("coordinator", "--backend", "remote", "--port",
+                  str(_free_port()), "--state-dir", str(tmp_path / "s"),
+                  "--output-dir", str(tmp_path / "library"))):
         res = subprocess.run(_cli(*args), env=ENV, capture_output=True,
                              text=True, timeout=120)
         assert res.returncode != 0
-        assert "NotImplementedError" in res.stderr
-        assert "ROADMAP A13b" in res.stderr
+        assert "no CUDA card for --device cuda" in res.stderr
+        assert "--device cpu" in res.stderr
+    assert not (tmp_path / "library").exists()
+    assert not (tmp_path / "s").exists()
 
 
 def test_feed_paces_a_clip_into_a_live_drop(tmp_path):

@@ -59,6 +59,3 @@ def _executor_on_the_cpu(monkeypatch):
 
 for _name in ("test_cluster", "test_ingest", "test_origin"):
     collect(reference_cases(_name), globals())
-# the remote backend's ShardBoard (cluster/remote.py) is not ported yet
-# (ROADMAP A13b): its preemption cases wait for it
-del TestShardPreemption  # noqa: F821

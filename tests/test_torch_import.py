@@ -106,7 +106,16 @@ def test_scan_sees_the_whole_port(tmp_path):
                  "thinvids_tpu_torch/live/packager.py",
                  "thinvids_tpu_torch/obs/metrics.py",
                  "thinvids_tpu_torch/obs/trace.py",
-                 "thinvids_tpu_torch/cluster/executor.py"):
+                 "thinvids_tpu_torch/cluster/executor.py",
+                 "thinvids_tpu_torch/cluster/remote.py",
+                 "thinvids_tpu_torch/cluster/halo.py",
+                 "thinvids_tpu_torch/cluster/partstore.py",
+                 "thinvids_tpu_torch/farm/controller.py",
+                 "thinvids_tpu_torch/farm/lifecycle.py",
+                 "thinvids_tpu_torch/farm/provider.py",
+                 "thinvids_tpu_torch/tools/loadgen.py",
+                 "thinvids_tpu_torch/parallel/sfefarm.py",
+                 "thinvids_tpu_torch/parallel/planner.py"):
         assert want in rel
     # the scan catches both spellings, at module level and in a function,
     # and lets relative imports and the port's own name through
@@ -224,5 +233,77 @@ def test_live_executor_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _EXECUTOR_JAX_FREE_IMPORT],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+
+
+_FARM_TORCH_FREE_IMPORT = r"""
+import importlib, importlib.abc, sys
+
+for name in ("torch", "jax", "jaxlib"):
+    sys.modules[name] = None
+
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "thinvids_tpu" or name.startswith("thinvids_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, RefuseReference())
+for name in ("thinvids_tpu_torch.cluster.remote",
+             "thinvids_tpu_torch.cluster.halo",
+             "thinvids_tpu_torch.cluster.partstore",
+             "thinvids_tpu_torch.farm",
+             "thinvids_tpu_torch.farm.controller",
+             "thinvids_tpu_torch.farm.lifecycle",
+             "thinvids_tpu_torch.farm.provider",
+             "thinvids_tpu_torch.tools.loadgen"):
+    importlib.import_module(name)
+import numpy as np
+
+from thinvids_tpu_torch.cluster import Coordinator
+from thinvids_tpu_torch.cluster.halo import (HaloRelay, pack_arrays,
+                                             unpack_arrays)
+from thinvids_tpu_torch.cluster.remote import (ShardBoard, pack_parts,
+                                               unpack_parts)
+from thinvids_tpu_torch.core.types import EncodedSegment, GopSpec
+from thinvids_tpu_torch.farm import CapacityController, NullProvider
+from thinvids_tpu_torch.parallel.planner import plan_encode
+
+seg = EncodedSegment(gop=GopSpec(index=3, start_frame=6, num_frames=2),
+                     payload=b"\0\0\1x", frame_sizes=(4,))
+assert unpack_parts(pack_parts([seg]))[0].payload == seg.payload
+cnt = np.arange(6, dtype=np.int32).reshape(3, 2)
+assert (unpack_arrays(pack_arrays({"cnt": cnt}))["cnt"] == cnt).all()
+relay = HaloRelay()
+relay.set_gen("j", 1)
+co = Coordinator()
+board = ShardBoard(co)
+assert board.claim("w0") is None
+farm = CapacityController(co, provider=NullProvider(), board=board)
+assert farm is not None
+plan = plan_encode(32, co._settings_fn(), num_devices=2, shape="band",
+                   total_bands=3, group_count=2, mb_height=9)
+assert plan.band_groups == ((0, 2), (2, 3))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("torch", "jax", "jaxlib", "thinvids_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_remote_halo_partstore_farm_and_loadgen_import_without_torch():
+    """The remote backend's control plane — the board and wire format,
+    the halo relay, the part spool, the farm controller, lifecycle and
+    providers, the load harness — runs on coordinator threads: it
+    imports (and works) with torch and jax unimportable and the
+    reference refused; only the worker's encode loads torch."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _FARM_TORCH_FREE_IMPORT],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "ok"

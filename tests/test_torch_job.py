@@ -7,8 +7,9 @@ executor with the port's encoder.
   GOPs, and a broken sidecar pool degrades to an inline pack of the same
   spool;
 - `make_shard_encoder` resolves the knobs the reference resolves (the RD
-  features included, each of which gives the JAX package's bytes), and
-  raises NotImplementedError for the shapes that are not ported;
+  features included, each of which gives the JAX package's bytes), builds
+  the farm's band slice as the reference does, and raises
+  NotImplementedError for a device mesh, which is not ported;
 - every RD feature on (RD_ALL) through GopShardEncoder gives the JAX
   package's per-GOP `encode_gop` bytes with the compact, sparse2 and
   process pack backends, and the all-intra wave with mode decision + AQ
@@ -264,21 +265,53 @@ def test_make_shard_encoder_resolves_the_reference_knobs(monkeypatch, env):
         jcfg.invalidate_settings_cache()
 
 
-@pytest.mark.parametrize("case,item", [
-    ("band_range", "A12"), ("total_bands", "A12"), ("mesh", "A2")])
+@pytest.mark.parametrize("case,item", [("mesh", "A2")])
 def test_make_shard_encoder_refuses_what_is_not_ported(case, item):
     over, kw = {}, {}
-    if case == "band_range":
-        kw["band_range"] = (0, 1)
-    elif case == "total_bands":
-        kw["total_bands"] = 2
-    else:
-        kw["mesh"] = object()
+    kw["mesh"] = object()
     for shape in (None, "band"):
         with pytest.raises(NotImplementedError, match=item):
             tdispatch.make_shard_encoder(TMeta(width=64, height=48),
                                          _settings(tcfg, **over),
                                          shape=shape, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", ["band_range", "total_bands"])
+def test_make_shard_encoder_builds_the_farm_slice(case):
+    """`band_range` / `total_bands` with the band shape give the port's
+    FarmBandEncoder over the reference's slice of the reference's global
+    layout (a slice with neighbours needs the halo session, as the
+    reference's does); with the GOP shape they are ignored, as there."""
+    from thinvids_tpu.parallel import sfefarm as jsfefarm
+    from thinvids_tpu_torch.parallel import sfefarm as tsfefarm
+
+    kw = dict(total_bands=3)
+    if case == "band_range":
+        kw.update(band_range=(1, 3), session=object())
+    meta = dict(width=64, height=96)
+    tenc = tdispatch.make_shard_encoder(TMeta(**meta), _settings(tcfg),
+                                        shape="band", halo_rows=16,
+                                        device="cpu", **kw)
+    jenc = jdispatch.make_shard_encoder(JMeta(**meta), _settings(jcfg),
+                                        None, shape="band", halo_rows=16,
+                                        **kw)
+    assert isinstance(tenc, tsfefarm.FarmBandEncoder)
+    assert isinstance(jenc, jsfefarm.FarmBandEncoder)
+    for attr in ("global_band_plan", "band_plan"):
+        assert dataclasses.astuple(getattr(tenc, attr)) == \
+            dataclasses.astuple(getattr(jenc, attr))
+    assert (tenc.band_lo, tenc.band_hi, tenc.edge_top, tenc.edge_bot,
+            tenc.halo_rows, tenc.session) == \
+        (jenc.band_lo, jenc.band_hi, jenc.edge_top, jenc.edge_bot,
+         jenc.halo_rows, jenc.session)
+    if case == "band_range":
+        with pytest.raises(ValueError, match="halo session"):
+            tdispatch.make_shard_encoder(
+                TMeta(**meta), _settings(tcfg), shape="band",
+                device="cpu", total_bands=3, band_range=(1, 3))
+    gop = tdispatch.make_shard_encoder(TMeta(**meta), _settings(tcfg),
+                                       device="cpu", **kw)
+    assert type(gop) is tdispatch.GopShardEncoder
 
 
 @pytest.mark.parametrize("shape", [None, "band"])

@@ -482,8 +482,159 @@ def test_sfe_plan_and_latencies():
     assert snap["sfe"] > 0 and snap["sfe_frames"] == n
 
 
-def test_sfe_refuses_cross_host_band_slices():
-    meta = TMeta(width=64, height=192, num_frames=2)
-    for kw in (dict(total_bands=3), dict(band_range=(0, 1))):
-        with pytest.raises(NotImplementedError, match="A12"):
-            tdispatch.SfeShardEncoder(meta, device="cpu", **kw)
+def test_sfe_band_slice_takes_its_range_of_the_global_layout():
+    """A farm band slice (`total_bands`, `band_range`) pins the global
+    layout, holds its [lo, hi) bands as its stack with their global band
+    indices, leaves the SPS/PPS to the slice that owns band 0, stages
+    only its own rows of the frame padded to the GLOBAL grid, and
+    refuses deblock — each as the reference's encoder does."""
+    w, h = 64, 184                          # 12 MB rows, the last half
+    meta = TMeta(width=w, height=h, num_frames=2)
+    jmeta = JMeta(width=w, height=h, num_frames=2)
+    for kw in (dict(total_bands=3), dict(total_bands=3, band_range=(1, 3)),
+               dict(total_bands=5, band_range=(3, 5))):
+        enc = tdispatch.SfeShardEncoder(meta, device="cpu", **kw)
+        jenc = jdispatch.SfeShardEncoder(jmeta, **kw)
+        for attr in ("global_band_plan", "band_plan"):
+            assert dataclasses.astuple(getattr(enc, attr)) == \
+                dataclasses.astuple(getattr(jenc, attr))
+        assert (enc.band_lo, enc.band_hi, enc.emit_parameter_sets,
+                enc.halo_rows) == (jenc.band_lo, jenc.band_hi,
+                                   jenc.emit_parameter_sets, jenc.halo_rows)
+    enc = tdispatch.SfeShardEncoder(meta, gop_frames=2, total_bands=3,
+                                    band_range=(1, 3), device="cpu")
+    frames = [TFrame(*f) for f in clip(w, h, 2)]
+    gop, ys, us, vs, _qp = next(iter(enc.stage_waves(frames)))
+    Hb = enc.band_plan.band_mb_rows * 16
+    for f, y, u in zip(frames, ys, us):
+        padded = np.concatenate([f.y, np.repeat(f.y[-1:], 3 * Hb - h, 0)])
+        np.testing.assert_array_equal(y.reshape(2 * Hb, w).numpy(),
+                                      padded[Hb:])
+        assert u.shape == (2, Hb // 2, w // 2)
+    deblock = trdo.RdConfig(deblock=True)
+    with pytest.raises(ValueError, match="deblock"):
+        tdispatch.SfeShardEncoder(meta, total_bands=3, band_range=(0, 2),
+                                  rd=deblock, device="cpu")
+    assert tdispatch.SfeShardEncoder(meta, total_bands=3, rd=deblock,
+                                     device="cpu").rd.deblock
+    with pytest.raises(ValueError, match="empty band range"):
+        tdispatch.SfeShardEncoder(meta, total_bands=3, band_range=(3, 3),
+                                  device="cpu")
+
+
+def _ext_blocks(rows, bands, Hp, W):
+    """The reference's band-sharded injected input: a (bands·rows, W)
+    array whose first band's block is the top rows and whose last band's
+    block is the bottom rows (the farm's _ext_device layout)."""
+    top, bot = rows
+    t = np.zeros((bands * Hp, W), np.int16)
+    b = np.zeros((bands * Hp, W), np.int16)
+    t[:Hp] = top
+    b[(bands - 1) * Hp:] = bot
+    return t, b
+
+
+@pytest.mark.parametrize("lo,hi,halo", [(1, 3, 32), (0, 2, 16), (2, 4, 32)])
+def test_farm_slice_search_with_injected_rows_matches(lo, hi, halo):
+    """The banded search of a SLICE of a 4-band layout, its neighbour
+    rows injected (`ext`, `edge_top`, `edge_bot`), the probe resolved on
+    the host and the histogram returned as a partial: equal to the JAX
+    package's farm-mode search over the slice's devices, and to the
+    whole layout's search on the slice's bands; the slices' probe costs
+    and histogram partials sum to the whole layout's."""
+    bands, w, h = 4, 96, 256
+    cur, ref, ru, rv = _mixed_motion(w, h, seed=lo + 3 * hi)
+    Hb = h // bands
+    real = [Hb] * bands
+    pmv, qp = [2, -3], 27
+    B = hi - lo
+    edge_top, edge_bot = lo == 0, hi == bands
+    y0, y1 = lo * Hb, hi * Hb
+    c0, c1 = y0 // 2, y1 // 2
+    hc = halo // 2
+    rows = {"y": (ref[y0 - halo:y0] if not edge_top else None,
+                  ref[y1:y1 + halo] if not edge_bot else None),
+            "u": (ru[c0 - hc:c0] if not edge_top else None,
+                  ru[c1:c1 + hc] if not edge_bot else None),
+            "v": (rv[c0 - hc:c0] if not edge_top else None,
+                  rv[c1:c1 + hc] if not edge_bot else None)}
+    cost = torchme.banded_probe_cost(_stack(cur, bands), _stack(ref, bands),
+                                     real)
+    probe = torchme.probe_center_from_cost(cost.numpy())
+
+    # the port: the slice's stack with its edge rows injected
+    def inj(a):
+        return None if a is None else torch.from_numpy(
+            np.asarray(a, np.int16))
+    ext = tuple(inj(rows[p][k]) for p in "yuv" for k in (0, 1))
+    part = torchme.banded_probe_cost(
+        _stack(cur[y0:y1], B), _stack(ref[y0:y1], B), real[lo:hi],
+        top_ext=ext[0], bot_ext=ext[1], edge_top=edge_top,
+        edge_bot=edge_bot)
+    got = torchme.me_search_banded(
+        _stack(cur[y0:y1], B), _stack(ref[y0:y1], B),
+        _stack(ru[c0:c1], B), _stack(rv[c0:c1], B),
+        torch.tensor(pmv, dtype=torch.int32), qp, halo_rows=halo,
+        real_rows=real[lo:hi], ext=ext, edge_top=edge_top,
+        edge_bot=edge_bot, probe=torch.from_numpy(probe),
+        return_hist=True)
+
+    # the reference: the same slice on B devices, in farm mode
+    def blocks(p, n):
+        top, bot = rows[p]
+        z = np.zeros((n, w if p == "y" else w // 2), np.int16)
+        return _ext_blocks((z if top is None else top,
+                            z if bot is None else bot), B, n,
+                           w if p == "y" else w // 2)
+    jext = [a for p, n in (("y", halo), ("u", hc), ("v", hc))
+            for a in blocks(p, n)]
+
+    def per_band(cy, ry, ru_, rv_, real_b, ty, by, tu, bu, tv, bv):
+        edges = (jnp.asarray(edge_top), jnp.asarray(edge_bot))
+        mv, py, pu, pv, cnt, n = jaxme.me_search_banded(
+            cy, ry, ru_, rv_, jnp.asarray(pmv, jnp.int32),
+            jnp.asarray(qp, jnp.int32), halo_rows=halo, num_bands=B,
+            axis_name="band", real_rows=real_b[0, 0],
+            ext=(ty, by, tu, bu, tv, bv), edge_top=edges[0],
+            edge_bot=edges[1], probe=jnp.asarray(probe),
+            return_hist=True)
+        jcost = jaxme.banded_probe_cost(
+            cy, ry, real_b[0, 0], "band", B, top_ext=ty, bot_ext=by,
+            edge_top=edges[0], edge_bot=edges[1])
+        return mv, py, pu, pv, cnt[None], n.reshape(1), jcost[None]
+
+    f = shard_map(per_band, mesh=_band_mesh(B), in_specs=(P("band"),) * 11,
+                  out_specs=(P("band"),) * 7)
+    want = jax.device_get(jax.jit(f)(
+        jnp.asarray(cur[y0:y1], jnp.int16), jnp.asarray(ref[y0:y1], jnp.int16),
+        jnp.asarray(ru[c0:c1], jnp.int16), jnp.asarray(rv[c0:c1], jnp.int16),
+        jnp.asarray(np.asarray(real[lo:hi], np.int32)[:, None]),
+        *(jnp.asarray(a) for a in jext)))
+    for name, a, b in zip(("mv", "pred_y", "pred_u", "pred_v"), got, want):
+        np.testing.assert_array_equal(
+            a.reshape(-1, *a.shape[2:]).numpy(), np.asarray(b),
+            err_msg=f"farm-mode search diverges from the reference: {name}")
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4])[0])
+    assert int(got[5]) == int(np.asarray(want[5])[0])
+    np.testing.assert_array_equal(part.numpy(), np.asarray(want[6])[0])
+
+    # the whole layout's search, cut to the slice
+    full = torchme.me_search_banded(
+        _stack(cur, bands), _stack(ref, bands), _stack(ru, bands),
+        _stack(rv, bands), torch.tensor(pmv, dtype=torch.int32), qp,
+        halo_rows=halo, real_rows=real)
+    for a, b in zip(got[:4], full[:4]):
+        np.testing.assert_array_equal(a.numpy(), b[lo:hi].numpy())
+    # the other slice's partials complete the sums
+    rest = [i for i in range(bands) if not lo <= i < hi]
+    mvs = full[0].reshape(bands, -1, 2)
+    mask = torch.ones(mvs.shape[:2], dtype=torch.bool)
+    cnt_all, n_all = torchme.hist_counts_banded(mvs, mask, 32)
+    cnt_rest, n_rest = torchme.hist_counts_banded(mvs[rest], mask[rest], 32)
+    np.testing.assert_array_equal((got[4] + cnt_rest).numpy(),
+                                  cnt_all.numpy())
+    assert int(got[5]) + int(n_rest) == int(n_all)
+    assert got[4].sum() > 0
+    np.testing.assert_array_equal(
+        torchme.median_from_counts(cnt_all.numpy(), int(n_all), 32),
+        full[4].numpy())

@@ -25,13 +25,9 @@ Route surface ported from the reference manager:
 Bodies and responses are JSON. Unknown paths → 404 {"error": ...};
 handler exceptions → 400/500 with the message.
 
-A copy of the reference package's server, with two changes:
+A copy of the reference package's server, with one change:
 ``/metrics_snapshot`` reads the stage totals and the SFE latency ring
-from the port's ``parallel.dispatch``; and ``/work/part`` and
-``/work/halo`` answer "no board → 503" before they import the remote
-backend's modules (``cluster.remote``, ``cluster.halo``), which are not
-ported yet (ROADMAP A13b) — so without a board every ``/work/*`` route
-answers 503, as the reference's does.
+from the port's ``parallel.dispatch``.
 """
 
 from __future__ import annotations
@@ -1075,9 +1071,9 @@ class ApiServer:
         return 200, {"shard": board.claim(host)}
 
     def _h_work_part(self, query, body, shard_id) -> tuple[int, Any]:
-        board = self._work_board_or_503()
         from ..cluster.remote import unpack_parts
 
+        board = self._work_board_or_503()
         host = query.get("host", "").strip()
         if not host:
             # same contract as /work/claim: an empty host would record
@@ -1166,9 +1162,9 @@ class ApiServer:
         own halo_timeout_s budget), answering the blob as binary,
         `pending` when it has not arrived, or `stale` when the band
         group restarted under a newer generation."""
-        board = self._work_board_or_503()
         from ..cluster.halo import HaloStaleError
 
+        board = self._work_board_or_503()
         wait = min(10.0, max(0.0, float(query.get("wait", 2.0))))
         try:
             blob = board.halo.wait(

@@ -1,5 +1,6 @@
-"""Process entrypoints: the coordinator and agent daemons, the live feed
-writer and the trace export (a copy of the reference package's cli.py).
+"""Process entrypoints: the coordinator, agent and worker daemons, the
+live feed writer and the trace export (a copy of the reference
+package's cli.py).
 
 `python -m thinvids_tpu_torch.cli coordinator` is the manager-host
 process — the union of the reference's gunicorn app + watcher daemon +
@@ -8,14 +9,23 @@ watch-folder ingest, orphan recovery, scheduler kicks. It encodes on the
 card (``--device cuda``, the default; it exits with an error when there
 is none) or, when asked, on the CPU (``--device cpu``).
 
+With ``--backend remote`` (``TVT_EXECUTION_BACKEND=remote``, or the
+live setting) the encode stage dispatches GOP shards (and farm SFE band
+slices) to worker daemons instead of the local card
+(cluster/remote.py); the coordinator's own device still runs the jobs
+that encode locally (vbr2pass, direct mode, the live edge).
+
 `python -m thinvids_tpu_torch.cli agent` is the metrics-only host
 daemon — the reference's thinman-agent: 1 Hz host + card metrics
 heartbeats to the coordinator API.
 
-Not ported yet (ROADMAP A13b): the remote backend (``--backend remote``
-/ ``TVT_EXECUTION_BACKEND=remote``) and the `worker` daemon raise
-NotImplementedError. The reference's `check` (static analysis of the
-JAX package) has no counterpart here.
+`python -m thinvids_tpu_torch.cli worker` is an encode-farm node: the
+agent's heartbeats PLUS the claim → encode → stream-back loop against
+the coordinator's /work API, encoding on ``--device`` (the card by
+default; it exits with an error when there is none).
+
+The reference's `check` (static analysis of the JAX package) has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -38,12 +48,6 @@ def _require_device(device: str) -> None:
             from None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to thinvids_tpu_torch yet (ROADMAP A13b: "
-        "the remote backend, its worker daemon and the farm)")
-
-
 def run_coordinator(args: argparse.Namespace) -> None:
     from .api import ApiServer
     from .cluster.agent import NodeAgent, coordinator_submitter
@@ -56,22 +60,47 @@ def run_coordinator(args: argparse.Namespace) -> None:
     from .core.config import get_settings
 
     log = get_logging("thinvids_tpu_torch.coordinator")
-    backend = str(getattr(args, "backend", "") or
-                  get_settings().execution_backend)
-    if backend == "remote":
-        raise _not_ported("the remote execution backend")
     _require_device(args.device)
     state_dir = args.state_dir or os.environ.get("TVT_STATE_DIR")
     co = Coordinator(state_dir=state_dir)
-    execu = LocalExecutor(co, args.output_dir, sync=False,
-                          device=args.device)
+    backend = str(getattr(args, "backend", "") or
+                  get_settings().execution_backend)
+    farm = None
+    if backend == "remote":
+        from .cluster.remote import RemoteExecutor
+        from .farm import CapacityController, NullProvider
+
+        # part spool + board checkpoint live beside the job journal
+        # (part_spool_dir overrides): the durable state that lets a
+        # SIGKILLed coordinator resume finished shards from disk
+        # instead of re-encoding the farm's work (cluster/partstore.py)
+        spool = str(get_settings().get("part_spool_dir", "") or "") \
+            or os.path.join(state_dir or args.output_dir, "part-spool")
+        execu = RemoteExecutor(co, args.output_dir, sync=False,
+                               spool_dir=spool, device=args.device)
+        work = execu.board
+        log.info("remote execution backend: encode shards dispatch to "
+                 "worker daemons via /work (part spool at %s)", spool)
+        # elastic-farm capacity controller: lifecycle bookkeeping + the
+        # claim gate always run; wake/drain/suspend decisions engage
+        # when autoscale_enabled is set. The NullProvider only LOGS
+        # wake/suspend intent — wire a real provider (cloud API, WoL)
+        # per deploy/README.md.
+        farm = CapacityController(co, provider=NullProvider(),
+                                  board=execu.board)
+        co.farm = farm
+        farm.start()
+    else:
+        execu = LocalExecutor(co, args.output_dir, sync=False,
+                              device=args.device)
+        work = None
     co._launcher = execu.launch
 
     roots = {name: path for name, path in
              (("watch", args.watch_dir), ("library", args.output_dir))
              if path}
     api = ApiServer(co, host=args.host, port=args.port,
-                    browse_roots=roots).start()
+                    browse_roots=roots, work=work).start()
     log.info("api + dashboard on %s", api.url)
 
     # Recover orphans AFTER the API is up: recovered remote jobs plan
@@ -125,6 +154,8 @@ def run_coordinator(args: argparse.Namespace) -> None:
     def shutdown(*_sig) -> None:
         stop.set()
         co.stop_background()
+        if farm is not None:
+            farm.stop()
         agent.stop()
         api.stop()
         # let in-flight encodes finish before the journal closes — a
@@ -142,7 +173,35 @@ def run_coordinator(args: argparse.Namespace) -> None:
 
 
 def run_worker(args: argparse.Namespace) -> None:
-    raise _not_ported("the worker daemon (cli worker)")
+    from .cluster.agent import NodeAgent, http_submitter
+    from .cluster.remote import WorkerDaemon
+    from .core.log import get_logging
+
+    _require_device(args.device)
+    log = get_logging("thinvids_tpu_torch.worker")
+    daemon = WorkerDaemon(args.coordinator, host=args.node_name,
+                          poll_s=args.poll, device=args.device)
+    # liveness + health metrics ride the agent heartbeat; the daemon's
+    # shard counters merge in via the extra_metrics seam
+    agent = NodeAgent(http_submitter(args.coordinator), host=daemon.host,
+                      interval_s=args.interval,
+                      extra_metrics=daemon.metrics, device=args.device)
+    agent.start()
+    log.info("worker %s claiming from %s (poll %.1fs) on %s", daemon.host,
+             args.coordinator, daemon.poll_s, args.device)
+
+    stop = threading.Event()
+
+    def shutdown(*_sig) -> None:
+        stop.set()
+
+    signal.signal(signal.SIGTERM, shutdown)
+    try:
+        daemon.run_forever(stop)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        agent.stop()
 
 
 def run_feed(args: argparse.Namespace) -> None:
@@ -264,11 +323,11 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--scan-interval", type=float, default=60.0)
     c.add_argument("--backend", choices=("local", "remote"), default=None,
                    help="encode backend; default from "
-                        "TVT_EXECUTION_BACKEND / live settings (remote "
-                        "is not ported yet)")
+                        "TVT_EXECUTION_BACKEND / live settings")
     c.add_argument("--device", default="cuda",
-                   help="where jobs encode: cuda (the card; the default) "
-                        "or cpu")
+                   help="where jobs encode locally (all of them on the "
+                        "local backend): cuda (the card; the default) or "
+                        "cpu")
     c.set_defaults(fn=run_coordinator)
 
     a = sub.add_parser("agent", help="node: metrics heartbeats only")
@@ -283,8 +342,7 @@ def build_parser() -> argparse.ArgumentParser:
     a.set_defaults(fn=run_agent)
 
     w = sub.add_parser("worker", help="encode-farm node: heartbeats + "
-                                      "claim/encode/stream-back loop "
-                                      "(not ported yet)")
+                                      "claim/encode/stream-back loop")
     w.add_argument("--coordinator",
                    default=os.environ.get("TVT_COORDINATOR_URL",
                                           "http://127.0.0.1:5005"))
@@ -294,6 +352,9 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--poll", type=float, default=None,
                    help="claim poll interval when idle (s); default "
                         "from remote_claim_poll_s")
+    w.add_argument("--device", default="cuda",
+                   help="where shards encode: cuda (the card; the "
+                        "default) or cpu")
     w.set_defaults(fn=run_worker)
 
     f = sub.add_parser("feed", help="pace a y4m into a growing .live "

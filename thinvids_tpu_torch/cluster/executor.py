@@ -37,7 +37,6 @@ import time
 from collections import deque
 from typing import Callable
 
-from ..core.devices import resolve_device
 from ..core.types import concat_segments
 from ..ingest.decode import open_video
 from ..io.mp4 import mux_mp4
@@ -93,6 +92,11 @@ class LocalExecutor:
             raise NotImplementedError(
                 "a device mesh (multi-GPU waves) is not ported yet "
                 "(ROADMAP A2); pass mesh=None for one card")
+        # torch loads inside the calls that need the device, never at
+        # import: cluster.remote subclasses this executor and must
+        # import on a control plane without torch
+        from ..core.devices import resolve_device
+
         resolve_device(device)      # no card, no executor: raise now
         self.device = device
         self.coordinator = coordinator
@@ -326,8 +330,23 @@ class LocalExecutor:
         retry: a live edge cannot rewind, so a failure fails the job
         with attribution."""
         run_live(job.input_path, self.output_dir, settings,
-                 device=self.device, hooks=_JobLiveHooks(self, job, token),
+                 device=self.device,
+                 hooks=_JobLiveHooks(self, job, token, settings),
                  stage=stage)
+
+    def _live_backlog_cap(self, job: Job, settings, enc) -> int:
+        """Whole GOPs one live catch-up batch may hold: one local wave
+        (the remote backend widens it to the farm's width)."""
+        return live_backlog_cap(enc)
+
+    def _live_encode_batch(self, job: Job, token: str, settings, enc,
+                           rungs, tail, frames_done: int, gops_done: int,
+                           count: int, gop_n: int, sfe_live: bool):
+        """Encode one live batch on this executor's card (the remote
+        backend fans a catch-up batch's backlog out to its workers and
+        keeps the edge GOP here)."""
+        return live_encode_batch(enc, rungs, tail, frames_done, gops_done,
+                                 count, gop_n, sfe_live)
 
     def _bind_trace(self, job: Job, enc) -> None:
         """Bind the job's span recorder to the encoder's stage profile:
@@ -360,6 +379,8 @@ class LocalExecutor:
         set: host ops and, on the card, its kernels, as one Chrome trace
         under ``<profile_dir>/job-<id8>/`` beside the job's span
         trace."""
+        from ..core.devices import resolve_device
+
         profile_dir = str(settings.get("profile_dir", "") or "")
         if not profile_dir:
             return contextlib.nullcontext()
@@ -635,6 +656,19 @@ class LiveHooks:
     def complete(self, master_path: str, nbytes: int) -> None:
         """The stream closed and the final tree passed its lint."""
 
+    def backlog_cap(self, enc) -> int:
+        """Whole GOPs one catch-up batch may hold
+        (:func:`live_backlog_cap`; a farm widens it)."""
+        return live_backlog_cap(enc)
+
+    def encode_batch(self, enc, rungs, tail, frames_done: int,
+                     gops_done: int, count: int, gop_n: int,
+                     sfe_live: bool):
+        """Encode one live batch (:func:`live_encode_batch`; a farm
+        fans a catch-up batch's backlog GOPs out to its workers)."""
+        return live_encode_batch(enc, rungs, tail, frames_done, gops_done,
+                                 count, gop_n, sfe_live)
+
 
 def live_encoder(meta, settings, rungs, *, device="cuda"):
     """Live-edge encoder selection (plan-driven, like every other path):
@@ -776,7 +810,7 @@ def run_live(input_path: str, output_dir: str, settings, *,
     # over budget. 0 = auto: 2x the stream's segment duration.
     part_budget = float(settings.get("live_part_budget_s", 0.0)) \
         or 2.0 * float(settings.get("segment_s", 6.0))
-    wave_cap = live_backlog_cap(enc)
+    wave_cap = hooks.backlog_cap(enc)
     frames_done = gops_done = 0
     published = False
     while True:
@@ -796,8 +830,8 @@ def run_live(input_path: str, output_dir: str, settings, *,
             # at the live edge whole==1 (lowest latency); during
             # catch-up batch up to the backlog cap per dispatch
             count = min(whole, wave_cap) * gop_n
-        bundles = live_encode_batch(enc, rungs, tail, frames_done,
-                                    gops_done, count, gop_n, sfe_live)
+        bundles = hooks.encode_batch(enc, rungs, tail, frames_done,
+                                     gops_done, count, gop_n, sfe_live)
         for bundle in bundles:
             packager.add_gop(bundle)
         if on_bundles is not None:
@@ -848,8 +882,10 @@ class _JobLiveHooks(LiveHooks):
     """The live loop's coordinator calls, bound to one job and its run
     token (the calls the reference executor's `_run_live` makes)."""
 
-    def __init__(self, execu: LocalExecutor, job: Job, token: str) -> None:
+    def __init__(self, execu: LocalExecutor, job: Job, token: str,
+                 settings) -> None:
         self.execu, self.job, self.token = execu, job, token
+        self.settings = settings
         self.co = execu.coordinator
 
     def mark_running(self) -> bool:
@@ -879,3 +915,13 @@ class _JobLiveHooks(LiveHooks):
 
     def complete(self, master_path: str, nbytes: int) -> None:
         self.co.complete_job(self.job.id, self.token, master_path, nbytes)
+
+    def backlog_cap(self, enc) -> int:
+        return self.execu._live_backlog_cap(self.job, self.settings, enc)
+
+    def encode_batch(self, enc, rungs, tail, frames_done: int,
+                     gops_done: int, count: int, gop_n: int,
+                     sfe_live: bool):
+        return self.execu._live_encode_batch(
+            self.job, self.token, self.settings, enc, rungs, tail,
+            frames_done, gops_done, count, gop_n, sfe_live)

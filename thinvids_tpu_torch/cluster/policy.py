@@ -8,11 +8,10 @@ reference REJECTED AV1 input because its fleet couldn't decode it;
 here AV1 rejection is a toggle that defaults off.
 
 ``processing_mode`` has teeth (it was set-but-never-read for three
-review rounds, VERDICT Weak #3): the reference package's remote
-execution backend encodes a ``direct`` job whole on the coordinator
-instead of farming split shards — the analog of the reference's
-direct (unsegmented) worker path. The port's remote backend is not
-ported yet (ROADMAP A13b).
+review rounds, VERDICT Weak #3): the remote execution backend encodes
+a ``direct`` job whole on the coordinator's device instead of farming
+split shards (cluster/remote.py RemoteExecutor._encode_job) — the
+analog of the reference's direct (unsegmented) worker path.
 """
 
 from __future__ import annotations

@@ -523,7 +523,9 @@ def sfe_intra_band_dense(ys, us, vs, qp: int, real_rows, *, mbw: int,
 
 
 def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,
-               mbh_band: int, halo_rows: int, rd=RD_OFF,
+               mbh_band: int, halo_rows: int, ext=None,
+               edge_top: bool = True, edge_bot: bool = True, probe=None,
+               return_hist: bool = False, rd=RD_OFF,
                total_mb_rows: int = 0):
     """The P step of a band stack: the banded motion search (halo
     exchange + band-summed global centers/median,
@@ -536,9 +538,25 @@ def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,
     dc | v dc | u ac | v ac] — per band a single-frame slice of
     encode_gop_planes' P layout, so layout.unflatten_p_planes(flat[b],
     mv8[b], 2, ...) is the host inverse), plus the chained (ry, ru, rv,
-    med_mv) carry."""
+    med_mv) carry.
+
+    Farm mode (a band slice of a cross-host layout, parallel/sfefarm.py):
+    `ext` / `edge_top` / `edge_bot` inject the cross-HOST neighbour
+    reference rows, `probe` the host-resolved global probe center, and
+    `return_hist=True` returns the slice's histogram partial instead of
+    the median (the host finishes it across the slices and feeds it back
+    as the next frame's `pred_mv`): the tail is then (cnt, n, (ry, ru,
+    rv, pred_mv))."""
     if 2 * SEARCH_RANGE > 127:
         raise ValueError("SEARCH_RANGE exceeds the int8 MV transfer")
+    if rd.deblock and (ext is not None or probe is not None
+                       or return_hist):
+        # Farm band slices exchange halos over the host relay once per
+        # frame; the in-loop filter would need a second (post-recon)
+        # relay round. The remote planner falls back to GOP-range
+        # shards for deblock-enabled jobs instead.
+        raise ValueError("deblock is not supported on cross-host band "
+                         "slices; use GOP sharding for this job")
     ry, ru, rv, pred_mv = carry
     qp = int(qp)
     qpc = chroma_qp(qp)
@@ -546,9 +564,11 @@ def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,
     cy16 = ys.to(torch.int16)
     cu16 = us.to(torch.int16)
     cv16 = vs.to(torch.int16)
-    mv, py, pu, pv, med = torchme.me_search_banded(
+    out = torchme.me_search_banded(
         cy16, ry, ru, rv, pred_mv, qp, halo_rows=halo_rows,
-        real_rows=real_rows)
+        real_rows=real_rows, ext=ext, edge_top=edge_top,
+        edge_bot=edge_bot, probe=probe, return_hist=return_hist)
+    mv, py, pu, pv = out[:4]
     nmb = mbw * mbh_band
     (lp, cdc, cac, ry2, ru2, rv2, nz4) = _residual_p(
         cy16.reshape(B * Hb, W), cu16.reshape(B * Hb // 2, W // 2),
@@ -568,4 +588,10 @@ def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,
     flat = torch.cat([lp.reshape(B, -1), cdc[0], cdc[1], cac[0], cac[1]],
                      dim=1)
     mv8 = mv.reshape(B, nmb, 2).to(torch.int8)
-    return mv8, flat, (ry2, ru2, rv2, med)
+    if return_hist:
+        # the host owns the median in farm mode: carry the INPUT pred
+        # (ignored — the next step receives the cross-host median as a
+        # fresh input) so the carry shape matches the local chain's
+        cnt, n = out[4:]
+        return mv8, flat, cnt, n, (ry2, ru2, rv2, pred_mv)
+    return mv8, flat, (ry2, ru2, rv2, out[4])

@@ -598,25 +598,44 @@ def halo_clamp(halo_rows: int) -> int:
     return max(0, min(_CLIM, ((halo_rows - _WR - 3) // 2) * 2))
 
 
-def band_halo_exchange(stack, halo: int):
+def band_halo_exchange(stack, halo: int, top_ext=None, bot_ext=None,
+                       edge_top: bool = True, edge_bot: bool = True):
     """(B, Hb, W) band stack → (B, Hb + 2 halo, W): each band extended
     with `halo` REAL rows of its neighbour bands (slices of the stack);
     the first band's top and the last band's bottom edge-replicate their
     own boundary row, exactly matching the full-frame search's edge
-    padding. One band is pure edge replication."""
+    padding. One band is pure edge replication.
+
+    Farm mode (cross-HOST bands, parallel/sfefarm.py): when the stack is
+    a CONTIGUOUS SLICE of a larger band layout, the rows above its first
+    band and below its last band live on another host and arrive as
+    host-injected (halo, W) `top_ext` / `bot_ext`. `edge_top=False`
+    means the layout continues above this slice — the first band's top
+    halo is `top_ext` instead of edge replication — and symmetrically
+    for `edge_bot`. With the defaults the function is the local-stack
+    exchange."""
     B, H, W = stack.shape
     if halo > H and B > 1:
         # a neighbour band holds H rows: a deeper halo would need rows
         # from two bands away (SfeShardEncoder caps halo_rows at the
         # band height, shrinking the vertical search bound instead)
         raise ValueError(f"halo {halo} exceeds band height {H}")
-    top = stack[:, :1].expand(B, halo, W)
-    bot = stack[:, H - 1:].expand(B, halo, W)
+    first = stack[:1, :1].expand(1, halo, W)
+    last = stack[-1:, H - 1:].expand(1, halo, W)
+    if not edge_top:
+        if top_ext is None:
+            raise ValueError("a slice with a band above needs top_ext")
+        first = top_ext.reshape(1, halo, W).to(stack.dtype)
+    if not edge_bot:
+        if bot_ext is None:
+            raise ValueError("a slice with a band below needs bot_ext")
+        last = bot_ext.reshape(1, halo, W).to(stack.dtype)
+    top, bot = first, last
     if B > 1:
         # band b's top halo = band b-1's bottom rows; bottom halo = band
         # b+1's top rows
-        top = torch.cat([top[:1], stack[:-1, H - halo:]])
-        bot = torch.cat([stack[1:, :halo], bot[-1:]])
+        top = torch.cat([first, stack[:-1, H - halo:]])
+        bot = torch.cat([stack[1:, :halo], last])
     return torch.cat([top, stack, bot], dim=1)
 
 
@@ -635,7 +654,8 @@ def _band_row_masks(real_rows: tuple, rows: int, scale: int, device):
 
 
 def banded_probe_cost(cur_stack, ref_stack, real_rows,
-                      sr: int = SEARCH_RANGE):
+                      sr: int = SEARCH_RANGE, top_ext=None, bot_ext=None,
+                      edge_top: bool = True, edge_bot: bool = True):
     """The global-motion probe's per-window cost vector, summed over
     the bands: each band contributes the partial SAD of its REAL rows
     for every candidate window (halo cells come from the neighbour
@@ -643,7 +663,16 @@ def banded_probe_cost(cur_stack, ref_stack, real_rows,
     the full-frame probe's padded plane). `real_rows` (one int per band,
     pixel rows) masks the last band's padding rows out of the cost,
     keeping the sum equal to the full-frame probe's. int32, wrapping as
-    the reference's int32 sums do."""
+    the reference's int32 sums do.
+
+    Farm mode: `top_ext` / `bot_ext` are host-injected neighbour
+    reference PIXEL rows (≥ 16 a side, (rows, W)) from the adjacent band
+    slice on another host, with `edge_top` / `edge_bot` as in
+    :func:`band_halo_exchange`; their quarter-res cells stand in for the
+    neighbour bands' halo cells at the slice edges, so the partial sums
+    of every slice add up to exactly the whole layout's cost. The caller
+    finishes the cross-host sum and the argmin
+    (:func:`probe_center_from_cost`)."""
     qs = _COARSE
     qsr = sr // qs
     B, H, W = cur_stack.shape
@@ -656,7 +685,17 @@ def banded_probe_cost(cur_stack, ref_stack, real_rows,
     # anyway and (b) the halo cells it lends (and its own bottom edge
     # replication) equal the full-frame probe's bottom edge padding
     rq = torch.gather(rq, 1, clamp[:, :, None].expand(B, hc, wc))
-    rq_ext = band_halo_exchange(rq, qsr)
+    # the injected neighbour rows are raw recon pixels (never a padded
+    # band — only the layout's last band pads, and it has no neighbour
+    # below), so their box sums equal the neighbour's own unclamped
+    # cells bit for bit
+    top_cells = _box_sum(top_ext, qs)[-qsr:] if top_ext is not None \
+        else None
+    bot_cells = _box_sum(bot_ext, qs)[:qsr] if bot_ext is not None \
+        else None
+    rq_ext = band_halo_exchange(rq, qsr, top_ext=top_cells,
+                                bot_ext=bot_cells, edge_top=edge_top,
+                                edge_bot=edge_bot)
     cols = torch.arange(-qsr, wc + qsr, device=rq.device).clamp(0, wc - 1)
     rq_ext = rq_ext[:, :, cols]
     n = 2 * qsr + 1
@@ -692,13 +731,16 @@ def probe_center_from_cost(cost, sr: int = SEARCH_RANGE):
 
 
 def banded_centers_from(cur_stack, ref_stack, pred_mv_h, real_rows,
-                        halo_rows: int):
+                        halo_rows: int, probe=None):
     """(3, 2) even-pel centers shared by every band: the summed probe,
     the carried global median, zero — the banded mirror of
     `centers_from`, with the vertical component additionally clamped to
     `halo_clamp(halo_rows)` so every candidate read stays inside the
-    halo."""
-    probe = banded_coarse_probe(cur_stack, ref_stack, real_rows)
+    halo. `probe` injects a pre-computed (unclamped) global center as a
+    (2,) int32 tensor — the farm path, where the probe's cross-host sum
+    resolves on the host (probe_center_from_cost) before the search."""
+    if probe is None:
+        probe = banded_coarse_probe(cur_stack, ref_stack, real_rows)
     med_pel = torch.clamp((pred_mv_h.to(torch.int32) + 2) >> 2,
                           -(_CLIM // 2), _CLIM // 2) * 2
     lims = (min(halo_clamp(halo_rows), _CLIM), _CLIM)
@@ -739,22 +781,31 @@ def median_from_counts(cnt, n, lim: int):
             - lim).astype(np.int32)
 
 
-def extend_bands(cur_y16, ref_y16, ref_u16, ref_v16, halo: int):
+def extend_bands(cur_y16, ref_y16, ref_u16, ref_v16, halo: int, ext=None,
+                 edge_top: bool = True, edge_bot: bool = True):
     """The kernels' inputs for a band stack: each plane extended by
     `halo` rows a side (chroma halo / 2), the references with their
-    neighbour bands' rows (:func:`band_halo_exchange`), cur by edge
-    replication — its halo rows only feed the discarded extension MBs'
-    SADs and stay in range. Contiguous (B, Hb + 2 halo, W) stacks."""
+    neighbour bands' rows (:func:`band_halo_exchange`; `ext`, `edge_top`
+    and `edge_bot` inject a band slice's cross-host neighbour rows as
+    there), cur by edge replication — its halo rows only feed the
+    discarded extension MBs' SADs and stay in range. Contiguous
+    (B, Hb + 2 halo, W) stacks."""
     B, Hb, W = cur_y16.shape
+    ty, by, tu, bu, tv, bv = ext if ext is not None else (None,) * 6
     cur_ext = torch.cat([cur_y16[:, :1].expand(B, halo, W), cur_y16,
                          cur_y16[:, Hb - 1:].expand(B, halo, W)], dim=1)
-    return (cur_ext, band_halo_exchange(ref_y16, halo),
-            band_halo_exchange(ref_u16, halo // 2),
-            band_halo_exchange(ref_v16, halo // 2))
+    return (cur_ext,
+            band_halo_exchange(ref_y16, halo, ty, by, edge_top, edge_bot),
+            band_halo_exchange(ref_u16, halo // 2, tu, bu, edge_top,
+                               edge_bot),
+            band_halo_exchange(ref_v16, halo // 2, tv, bv, edge_top,
+                               edge_bot))
 
 
 def me_search_banded(cur_y16, ref_y16, ref_u16, ref_v16, pred_mv_h,
-                     qp: int, *, halo_rows: int, real_rows):
+                     qp: int, *, halo_rows: int, real_rows, ext=None,
+                     edge_top: bool = True, edge_bot: bool = True,
+                     probe=None, return_hist: bool = False):
     """Full ME+MC for one P frame of a band stack (the SFE search).
 
     cur/ref planes are (B, Hb, W) stacks (Hb a multiple of 16), chroma
@@ -769,23 +820,35 @@ def me_search_banded(cur_y16, ref_y16, ref_u16, ref_v16, pred_mv_h,
     CUDA tensors go through the kernels, CPU tensors through the plain
     version, band by band.
 
+    Farm mode (a band slice of a cross-host layout): `ext` = (top_y,
+    bot_y, top_u, bot_u, top_v, bot_v) host-injected neighbour reference
+    rows for the slice edges, each (rows, W) or None, with `edge_top` /
+    `edge_bot` marking which edges are true frame edges; `probe` = the
+    host-resolved global probe center ((2,) int32 tensor: the summed
+    banded_probe_cost of every slice → probe_center_from_cost); and
+    `return_hist=True` swaps the median for this stack's histogram
+    partial (cnt, n), which the caller sums across slices
+    (median_from_counts). With identical injected values the per-MB (mv,
+    pred) results equal the whole layout's.
+
     Returns (mv (B, Hb/16, mbw, 2) int32 half-pel, pred_y, pred_u,
     pred_v int16 band stacks, med_mv_h (2,) int32 — the GLOBAL
-    median)."""
+    median), or with `return_hist` (mv, py, pu, pv, cnt, n)."""
     B, Hb, _ = cur_y16.shape
     if halo_rows <= 0 or halo_rows % 16:
         raise ValueError("halo_rows must be a positive multiple of 16")
     if len(real_rows) != B:
         raise ValueError(f"{len(real_rows)} real-row counts for {B} bands")
     halo = halo_rows
-    ext = extend_bands(cur_y16, ref_y16, ref_u16, ref_v16, halo)
+    planes = extend_bands(cur_y16, ref_y16, ref_u16, ref_v16, halo,
+                          ext=ext, edge_top=edge_top, edge_bot=edge_bot)
     centers = banded_centers_from(cur_y16, ref_y16, pred_mv_h, real_rows,
-                                  halo)
+                                  halo, probe=probe)
     lam = lambda_for(qp, cur_y16.device)
     if cur_y16.device.type == "cuda":
-        mv_e, py_e, pu_e, pv_e = me_search_cuda(*ext, centers, lam)
+        mv_e, py_e, pu_e, pv_e = me_search_cuda(*planes, centers, lam)
     else:
-        mv_e, py_e, pu_e, pv_e = me_search_ref(*ext, centers, lam)
+        mv_e, py_e, pu_e, pv_e = me_search_ref(*planes, centers, lam)
     hm = halo // 16
     mbh_b = Hb // 16
     mv = mv_e[:, hm:hm + mbh_b]
@@ -794,6 +857,10 @@ def me_search_banded(cur_y16, ref_y16, ref_u16, ref_v16, pred_mv_h,
     pv = pv_e[:, halo // 2:(halo + Hb) // 2]
     mb_rows, _ = _band_row_masks(tuple(real_rows), mbh_b, 16, mv.device)
     mb_mask = mb_rows.repeat_interleave(mv.shape[2], dim=1)
+    if return_hist:
+        cnt, n = hist_counts_banded(mv.reshape(B, -1, 2), mb_mask,
+                                    2 * SEARCH_RANGE)
+        return mv, py, pu, pv, cnt, n
     med = hist_median_banded(mv.reshape(B, -1, 2), mb_mask,
                              2 * SEARCH_RANGE)
     return mv, py, pu, pv, med

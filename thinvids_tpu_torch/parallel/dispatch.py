@@ -58,7 +58,7 @@ from ..core.devices import resolve_device
 from ..core.types import (BandPlan, EncodedSegment, Frame, GopSpec,
                           SegmentPlan, VideoMeta, is_yuv420)
 from ..obs import metrics as obs_metrics
-from ..codecs.h264 import torchcore, torchinter
+from ..codecs.h264 import torchcore, torchinter, torchme
 from ..codecs.h264.encoder import (FrameLevels, _mode_policy,
                                    gop_slice_thunks_planes, pack_slice,
                                    unpack_mode16)
@@ -1110,6 +1110,66 @@ def _sfe_p_step_dense(ys, us, vs, ry, ru, rv, pmv, qp: int, real_rows, *,
     return (mv8, flat) + carry
 
 
+# ---------------------------------------------------------------------------
+# farm-split SFE steps (cross-HOST band slices, parallel/sfefarm.py)
+#
+# The local steps above take every band of the frame as one stack, so
+# the halo exchange and the probe/median sums run over the whole layout.
+# When the layout spans HOSTS, each host holds a slice of it and the
+# cross-host halves move to the host side: neighbour reference rows
+# arrive as injected inputs (cluster/halo.py carries them between hosts
+# per frame), the probe splits into a per-slice partial cost + a host
+# argmin, and the median histogram leaves the card as a per-slice
+# partial. All three are integer sums, so the host-side reduction equals
+# the whole layout's — the farm stream equals the local SFE stream.
+# `edges` = (edge_top, edge_bot): whether the slice's first / last band
+# is the frame's.
+# ---------------------------------------------------------------------------
+
+
+def _sfe_probe_step(cur_y, ref_y, real_rows, top_y, bot_y, edges):
+    """Per-slice half of the split global-motion probe: the slice's
+    bands' partial per-window SAD cost, summed over the slice. Returns
+    the (n*n,) int32 cost vector; the host sums it with its peers' and
+    argmins the sum (torchme.probe_center_from_cost)."""
+    return torchme.banded_probe_cost(
+        cur_y.to(torch.int16), ref_y, real_rows, top_ext=top_y,
+        bot_ext=bot_y, edge_top=edges[0], edge_bot=edges[1])
+
+
+def _sfe_p_step_farm(ys, us, vs, ry, ru, rv, pred_mv, probe, ty, by, tu,
+                     bu, tv, bv, qp: int, real_rows, edges, *, mbw: int,
+                     mbh_band: int, halo_rows: int, rd=RD_OFF):
+    """One P frame of a band SLICE: the search runs on halo-extended
+    planes whose slice-edge rows were injected by the host (`ty..bv`,
+    (rows, W) each, or None at a frame edge), the probe center and the
+    temporal median arrive as host inputs, and the slice's histogram
+    partial rides out beside the compact level streams. Returns (mv8,
+    nblk, nval, n_esc, used, payload, cnt, n, ry, ru, rv)."""
+    mv8, flat, cnt, n, carry = torchinter.sfe_p_band(
+        ys, us, vs, (ry, ru, rv, pred_mv), qp, real_rows, mbw=mbw,
+        mbh_band=mbh_band, halo_rows=halo_rows,
+        ext=(ty, by, tu, bu, tv, bv), edge_top=edges[0],
+        edge_bot=edges[1], probe=probe, return_hist=True, rd=rd)
+    return (mv8,) + _sfe_pack_band(flat) + (cnt, n) + carry[:3]
+
+
+def _sfe_p_step_farm_dense(ys, us, vs, ry, ru, rv, pred_mv, probe, ty, by,
+                           tu, bu, tv, bv, qp: int, real_rows, edges, *,
+                           mbw: int, mbh_band: int, halo_rows: int,
+                           rd=RD_OFF):
+    """Escape fallback for the farm P step: same compute, uncompressed
+    int16 levels. The replay is host-local (the cached per-frame
+    injected inputs fully determine this slice's bits), so no histogram
+    leaves the card. Returns (mv8, flat, ry, ru, rv)."""
+    mv8, flat, _cnt, _n, carry = torchinter.sfe_p_band(
+        ys, us, vs, (ry, ru, rv, pred_mv), qp, real_rows, mbw=mbw,
+        mbh_band=mbh_band, halo_rows=halo_rows,
+        ext=(ty, by, tu, bu, tv, bv), edge_top=edges[0],
+        edge_bot=edges[1], probe=probe, return_hist=True, rd=rd)
+    return (mv8, flat) + carry[:3]
+
+
 class SfeShardEncoder(GopShardEncoder):
     """Split-frame encoding: ONE frame cut into horizontal MB-row bands,
     each entropy-coded as its own H.264 slice, all bands held on one
@@ -1132,8 +1192,10 @@ class SfeShardEncoder(GopShardEncoder):
     with `num_bands` slices per picture; downstream (MP4 mux) groups
     slices into access units by first_mb_in_slice.
 
-    Not ported yet: the cross-host band slice (`total_bands`,
-    `band_range`; ROADMAP A12)."""
+    A farm band slice (parallel/sfefarm.FarmBandEncoder) pins the GLOBAL
+    layout with `total_bands` and holds `band_range=(lo, hi)` of it as
+    its stack; band indices, and so the slices' first_mb coordinates,
+    stay global."""
 
     def __init__(self, meta: VideoMeta, qp: int = 27, gop_frames: int = 32,
                  max_segments: int = 200, bands: int = 0,
@@ -1144,18 +1206,36 @@ class SfeShardEncoder(GopShardEncoder):
                  total_bands: int = 0,
                  band_range: tuple[int, int] | None = None,
                  rd: RdConfig | None = None, device="cuda"):
-        if total_bands or band_range is not None:
-            raise NotImplementedError(
-                "cross-host band slices (total_bands / band_range) are not "
-                "ported yet (ROADMAP A12)")
         snap = get_settings()
         mbh = (meta.height + 15) // 16
         mbw = (meta.width + 15) // 16
-        #: pinned band layout: a pure function of (mbh, mbw, bands). The
-        #: reference caps `bands` at its device count; one card holds
-        #: every band here (bands=0 = one band per device = one)
-        self.band_plan: BandPlan = plan_bands(mbh, mbw,
-                                              max(1, int(bands) or 1))
+        #: pinned GLOBAL band layout: a pure function of (mbh, mbw,
+        #: bands). The reference caps `bands` at its device count; one
+        #: card holds every band here (bands=0 = one band per device =
+        #: one). On a farm the coordinator pins `total_bands` for the
+        #: whole frame and `band_range=(lo, hi)` assigns this encoder a
+        #: contiguous slice of it (the cross-host SFE shard,
+        #: parallel/sfefarm.py) — the layout (and so the slice structure
+        #: of the bitstream) never depends on any one host.
+        want = int(total_bands) or int(bands) or 1
+        self.global_band_plan: BandPlan = plan_bands(mbh, mbw,
+                                                     max(1, want))
+        lo, hi = band_range if band_range is not None \
+            else (0, self.global_band_plan.num_bands)
+        lo, hi = int(lo), min(int(hi), self.global_band_plan.num_bands)
+        if not 0 <= lo < hi:
+            raise ValueError(f"empty band range [{lo}, {hi})")
+        #: this encoder's slice of the layout (band indices, and hence
+        #: slice first_mb coordinates, stay GLOBAL)
+        self.band_lo, self.band_hi = lo, hi
+        self.band_plan: BandPlan = BandPlan(
+            bands=self.global_band_plan.bands[lo:hi],
+            band_mb_rows=self.global_band_plan.band_mb_rows,
+            mb_width=self.global_band_plan.mb_width)
+        #: frame 0 of each GOP opens the picture's access unit with
+        #: SPS/PPS — only the slice that owns band 0 emits them (a farm
+        #: peer's slices join the SAME access unit downstream)
+        self.emit_parameter_sets = lo == 0
         super().__init__(meta, qp=qp, gop_frames=gop_frames,
                          max_segments=max_segments, inter=True,
                          gops_per_wave=1, pack_workers=pack_workers,
@@ -1193,6 +1273,13 @@ class SfeShardEncoder(GopShardEncoder):
             import dataclasses as _dc
 
             self.rd = _dc.replace(self.rd, aq_q=0)
+        # the in-loop filter needs the cross-band halo of the whole
+        # layout, which a cross-host slice cannot exchange in one step
+        if self.rd.deblock and (self.band_lo, self.band_hi) != (
+                0, self.global_band_plan.num_bands):
+            raise ValueError(
+                "deblock is not supported on cross-host band slices; "
+                "the remote planner must fall back to GOP shards")
         #: the picture's REAL MB rows (band-grid padding rows beyond it
         #: carry no coded MBs): the deblock masks key off this
         self._total_mb_rows = mbh
@@ -1225,24 +1312,29 @@ class SfeShardEncoder(GopShardEncoder):
     def stage_waves(self, frames):
         """One GOP per staged wave: its frames padded to the band grid's
         height (edge replication — the padding rows are computed and
-        discarded), stacked and uploaded as (F, B, Hb, W) band stacks."""
+        discarded), stacked and uploaded as (F, B, Hb, W) band stacks. A
+        band SLICE (farm mode) pads to the GLOBAL grid height and
+        uploads only its own rows — each host decodes the full frame but
+        stages O(slice) pixels."""
         plan = self.plan(len(frames))
         cursor = _FrameCursor(frames, self.stages, require_420=True,
                               stats=self.staging_stats)
         bp = self.band_plan
         B, Hb = bp.num_bands, bp.band_mb_rows * 16
-        Hg = B * Hb
+        Hg = self.global_band_plan.padded_mb_height * 16
+        y0, y1 = self.band_lo * Hb, self.band_hi * Hb
         for gop in plan.gops:
             cursor.get(gop.end_frame - 1)   # decode outside "stage"
             with self.stages.stage("stage"):
                 planes = []
-                for name, rows in (("y", Hg), ("u", Hg // 2),
-                                   ("v", Hg // 2)):
+                for name, rows, div in (("y", Hg, 1), ("u", Hg // 2, 2),
+                                        ("v", Hg // 2, 2)):
                     a = np.stack([
-                        self._pad_rows(getattr(cursor.get(i), name), rows)
+                        self._pad_rows(getattr(cursor.get(i), name),
+                                       rows)[y0 // div:y1 // div]
                         for i in range(gop.start_frame, gop.end_frame)])
-                    planes.append(a.reshape(a.shape[0], B, rows // B,
-                                            a.shape[2]))
+                    planes.append(a.reshape(a.shape[0], B,
+                                            Hb // div, a.shape[2]))
                 self.stages.bump("h2d_bytes", sum(a.nbytes for a in planes))
                 ys, us, vs = (self._upload(a) for a in planes)
                 qp = int(self.gop_qp.get(gop.index, self.qp))
@@ -1427,7 +1519,7 @@ class SfeShardEncoder(GopShardEncoder):
 
     def _frame_nal(self, thunks: list, fi: int) -> bytes:
         frame_nal = b"".join(self._gather_frame(thunks))
-        if fi == 0:
+        if fi == 0 and self.emit_parameter_sets:
             frame_nal = self.sps.to_nal() + self.pps.to_nal() + frame_nal
         return frame_nal
 
@@ -1569,13 +1661,14 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
     `halo_rows` is given; else GOP waves).
 
     `rungs` selects the ladder form (abr/ladder.LadderShardEncoder, which
-    stages once and fans the renditions out on the card).
+    stages once and fans the renditions out on the card);
+    `band_range`/`total_bands` select the cross-host band-slice form
+    (parallel/sfefarm.FarmBandEncoder) with `session` carrying the halo
+    exchange.
 
-    The reference's other shapes are not ported yet, and each raises
-    NotImplementedError naming its ROADMAP item rather than encoding
-    something else in its place: a device mesh (multi-GPU waves, A2)
-    and cross-host band slices (`band_range` / `total_bands` /
-    `session`, A12)."""
+    A device mesh (multi-GPU waves) is not ported yet and raises
+    NotImplementedError naming its ROADMAP item (A2) rather than
+    encoding something else in its place."""
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh (multi-GPU waves) is not ported yet (ROADMAP "
@@ -1587,9 +1680,6 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
                                   gop_frames=int(settings.gop_frames),
                                   max_segments=int(settings.max_segments),
                                   device=device)
-    if band_range is not None or total_bands:
-        raise NotImplementedError(
-            "cross-host band slices are not ported yet (ROADMAP A12)")
     if shape is None:
         shape = "band" if int(settings.get("sfe_bands", 0) or 0) > 0 \
             else "gop"
@@ -1597,6 +1687,14 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
     if shape == "band":
         if halo_rows is None:
             halo_rows = int(settings.get("sfe_halo_rows", 32) or 32)
+        if band_range is not None or total_bands:
+            from .sfefarm import FarmBandEncoder
+
+            return FarmBandEncoder(
+                meta, qp=qp, gop_frames=int(settings.gop_frames),
+                max_segments=int(settings.max_segments),
+                total_bands=total_bands, band_range=band_range,
+                halo_rows=halo_rows, session=session, device=device)
         return SfeShardEncoder(
             meta, qp=qp, gop_frames=int(settings.gop_frames),
             max_segments=int(settings.max_segments),

@@ -10,6 +10,7 @@ prediction.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 from ..core.types import BandPlan, BandSpec, GopSpec, SegmentPlan
@@ -103,3 +104,86 @@ def plan_bands(mb_height: int, mb_width: int, num_bands: int) -> BandPlan:
     assert bands[-1].end_mb_row == mb_height
     return BandPlan(bands=tuple(bands), band_mb_rows=rows,
                     mb_width=mb_width)
+
+
+def plan_band_groups(num_bands: int, groups: int
+                     ) -> tuple[tuple[int, int], ...]:
+    """Partition a band layout into `groups` contiguous [lo, hi)
+    slices — one per band shard / worker host (cluster/remote.py farm
+    SFE). Near-equal sizes, first slices take the remainder; a pure
+    function of (num_bands, groups) so a crash-resumed plan (and every
+    peer's descriptor) reproduces the identical partition."""
+    if num_bands <= 0:
+        raise ValueError("num_bands must be positive")
+    groups = max(1, min(int(groups), num_bands))
+    base, extra = divmod(num_bands, groups)
+    out = []
+    lo = 0
+    for i in range(groups):
+        n = base + (1 if i < extra else 0)
+        out.append((lo, lo + n))
+        lo += n
+    assert lo == num_bands
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodePlan:
+    """The unified, shape-tagged shard plan record every encode path
+    keys off (the collapse of the GopShardEncoder / SfeShardEncoder /
+    LadderShardEncoder dispatch seams): `shape` picks the executor
+    form, `segments` pins the GOP grid, and the band fields pin the
+    cross-host SFE layout when `shape == "band"`. The record is pure
+    data — JSON-able via `record()` so the durable board checkpoint
+    (cluster/partstore.py) can journal it and a crash-resumed
+    coordinator re-plans deterministically from the record, never from
+    the live farm width."""
+
+    shape: str                        # "gop" | "band"
+    segments: SegmentPlan
+    total_bands: int = 0              # band shape: global layout width
+    halo_rows: int = 0                # band shape: pinned halo depth
+    band_groups: tuple[tuple[int, int], ...] = ()
+
+    def record(self) -> dict:
+        return {
+            "shape": self.shape,
+            "total_bands": int(self.total_bands),
+            "halo_rows": int(self.halo_rows),
+            "band_groups": [[int(lo), int(hi)]
+                            for lo, hi in self.band_groups],
+        }
+
+
+def plan_encode(num_frames: int, settings, *, num_devices: int,
+                shape: str | None = None, total_bands: int = 0,
+                group_count: int = 1, mb_height: int = 0) -> EncodePlan:
+    """Build the unified plan for one job. `shape=None` resolves from
+    settings (`sfe_bands > 0` → band shape); the band shape uses the
+    SFE fixed GOP grid (boundaries a pure function of the frame count,
+    never of mesh or farm width) and partitions `total_bands` over
+    `group_count` shards."""
+    gop_frames = int(settings.gop_frames)
+    max_segments = int(settings.max_segments)
+    if shape is None:
+        shape = "band" if int(settings.get("sfe_bands", 0) or 0) > 0 \
+            else "gop"
+    if shape == "gop":
+        return EncodePlan(
+            shape="gop",
+            segments=plan_segments(num_frames, gop_frames, num_devices,
+                                   max_segments))
+    if shape != "band":
+        raise ValueError(f"unknown plan shape {shape!r}")
+    # the SFE grid: honor max_segments by growing the GOP once up
+    # front (SfeShardEncoder.plan's cap semantics)
+    gop = max(gop_frames, -(-num_frames // max(1, max_segments)))
+    bands = plan_bands(max(1, mb_height), 1, max(1, total_bands))
+    groups = plan_band_groups(bands.num_bands, group_count)
+    halo = int(settings.get("sfe_halo_rows", 32) or 32)
+    return EncodePlan(
+        shape="band",
+        segments=plan_fixed_segments(num_frames, gop, num_devices),
+        total_bands=bands.num_bands,
+        halo_rows=max(16, (halo // 16) * 16),
+        band_groups=groups)
