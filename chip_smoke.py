@@ -185,6 +185,29 @@ Phases, in order; any failed check raises and the script exits non-zero:
               workers' stage_ms (halo, dispatch, ...) and the per-frame
               latency p50 / p99, beside the card's name and power
               limit; every process it starts is stopped in any case.
+17. mesh    — the device mesh (core.devices.DeviceMesh), after phase 16:
+              every card when the machine has two or more, else two
+              entries on cuda:0 (printed as "mesh: D entries on N
+              distinct cards"; an aliased run is no multi-card
+              measurement and says so). (c) Both ME kernels on a mesh
+              entry's run at the 4K split-frame point: two 608-row bands
+              a (2, 608, 3840) stack, the other run's rows injected, one
+              launch each on every entry's card against the plain
+              version, bit-exactly, and the first run's time beside its
+              bound. (a) bench's 1080p content, 16 frames, gop 4, qp 27
+              through GopShardEncoder(mesh=): the stream must equal the
+              JAX package's on two devices (MESH_POINT_JAX, from
+              scripts/jax_mesh_point.py) and each kernel's per-card
+              launch count (torchme's {card index: launches} maps, set
+              to 0 just before) the P frames of the entries on that card
+              (12 in all, 6 an entry on two entries); e2e fps over
+              pre-staged waves beside the same point on one entry and
+              phase 4's. (b) bench's 4K split-frame point with its 4
+              bands spread over the mesh: the stream must equal phase
+              10's, each kernel launched once per P frame per entry (28
+              on two entries); fps, the IDR step's seconds and the
+              per-frame latency p50 / p99 beside phase 10's. Every figure
+              names the mesh and the card.
 15. card = CPU — after every timed section, the 352x288 card == CPU
               checks of phases 9, 10 and 12, the CPU port's side of
               phases 9 and 10 in two worker processes (spawned, CPU only)
@@ -266,6 +289,12 @@ SFE_POINT_JAX = {
 #: python3 scripts/jax_farm_point.py` prints it
 FARM_POINT_JAX = (3221387, "ba283c3805c0cc930af0a67d9e52d138"
                             "7c7ff07fe4b1ceba2e2daff25f7d22d1")
+#: the JAX package's GOP-wave stream on a two-device mesh at the mesh
+#: point (bench content, 1920x1080, 16 frames, gop 4, qp 27, RD off):
+#: (length, sha256), as `XLA_FLAGS=--xla_force_host_platform_device_count=2
+#: JAX_PLATFORMS=cpu python3 scripts/jax_mesh_point.py` prints it
+MESH_POINT_JAX = (1580071, "a0eede0d15023e8689d2faa5a670972a"
+                           "555bec4ca2aa510b7981704ff8218e72")
 #: the JAX package's two-pass VBR result at the rc point (1920x1080, 32
 #: frames, gop 8, base qp 27, 8000 kbps, bench content), as
 #: `JAX_PLATFORMS=cpu python3 scripts/jax_rc_point.py` prints it
@@ -862,7 +891,7 @@ def main_path(w: int = 1920, h: int = 1080, n: int = 16, qp: int = 27,
           f"{n / t_dev:.3f} fps (best of 3, waves pre-staged)")
     print(f"stage_ms {json.dumps(stage_ms)}", flush=True)
     return {"launches": launches, "stream": stream,
-            "h2d_bytes": snap["h2d_bytes"]}
+            "h2d_bytes": snap["h2d_bytes"], "e2e_fps": round(n / t_e2e, 3)}
 
 
 def _sync_ms(fn, reps: int = 3) -> float:
@@ -1455,7 +1484,8 @@ def sfe_point(w: int = 3840, h: int = 2160, n: int = 16, gop: int = 8,
     print(f"sfe stage_ms {json.dumps(stage_ms)}", flush=True)
     print(f"sfe per-frame latencies ms (best pass, sorted gaps): "
           f"{[round(x, 3) for x in lat_sorted]}", flush=True)
-    return {"launches": launches, "enc": enc, "waves": waves, "qp": qp}
+    return {"launches": launches, "enc": enc, "waves": waves, "qp": qp,
+            "fig": fig}
 
 
 def sfe_breakdown(dev, point: dict) -> dict:
@@ -1465,17 +1495,32 @@ def sfe_breakdown(dev, point: dict) -> dict:
     median) and its two kernel launches alone."""
     enc, waves, qp = point["enc"], point["waves"], point["qp"]
     _, ys, us, vs, _ = waves[0]
-    carry = enc._intra_step(ys[0], us[0], vs[0], qp)[6:]
-    ry, ru, rv, pmv = carry
+    from thinvids_tpu_torch.parallel.dispatch import (_sfe_p_step,
+                                                      _sfe_probe_step)
+
+    _, carry = enc._intra_step(ys[0], us[0], vs[0], qp)
+    ry, ru, rv = carry
+    pmv = torch.zeros(2, dtype=torch.int32, device=dev)
     cy = ys[1].to(torch.int16)
     bp = enc.band_plan
     real = enc._real_rows
     halo = enc.halo_rows
+    edges = (True, True)
+
+    def p_step():
+        # one P frame as the one-entry walk steps it: the probe, its
+        # center, then the step
+        cost = _sfe_probe_step(ys[1], ry, real, None, None, edges)
+        return _sfe_p_step(ys[1], us[1], vs[1], carry, pmv,
+                           torchme.probe_center_t(cost), (None,) * 6, qp,
+                           real, edges, mbw=bp.mb_width,
+                           mbh_band=bp.band_mb_rows, halo_rows=halo,
+                           rd=enc.rd)
+
     ms = {
         "idr_step": _sync_ms(lambda: enc._intra_step(ys[0], us[0], vs[0],
                                                      qp), reps=2),
-        "p_step": _sync_ms(lambda: enc._p_step(ys[1], us[1], vs[1], carry,
-                                               qp), reps=2),
+        "p_step": _sync_ms(p_step, reps=2),
     }
     B, Hb, W = cy.shape
     cur_s, ref_s, ru_s, rv_s = torchme.extend_bands(cy, ry, ru, rv, halo)
@@ -1609,7 +1654,8 @@ def _cpu_side(name: str) -> dict:
 
 def sfe_phase(dev) -> dict:
     point = sfe_point()
-    sfe_breakdown(dev, point)
+    point["idr_step_ms"] = round(
+        sfe_breakdown(dev, point)["host_ms"]["idr_step"], 3)
     del point["enc"], point["waves"]
     sfe_rd_point()
     return point
@@ -2748,6 +2794,329 @@ def farm_phase(want_mp4: bytes, card: str, w: int = 3840, h: int = 2160,
             "stage_ms": delta, "latency": lat}
 
 
+# ---- phase 17 ------------------------------------------------------------
+
+def _mesh():
+    """The first 4 cards when the machine has four or more, else the
+    first 2 when it has two or more, else two entries on cuda:0
+    (aliased: the mesh path runs, but no two cards share the work). The
+    GOP plan rounds 17a's 4 GOPs up to the mesh width, so only a width
+    that divides 4 plans the GOPs that MESH_POINT_JAX (two devices)
+    recorded."""
+    from thinvids_tpu_torch.core.devices import DeviceMesh
+
+    cards = torch.cuda.device_count()
+    width = 4 if cards >= 4 else 2
+    mesh = DeviceMesh([f"cuda:{i if cards >= 2 else 0}"
+                       for i in range(width)])
+    note = "" if mesh.distinct_cards > 1 else \
+        " (aliased: both entries on cuda:0, no multi-card measurement)"
+    tag = f"mesh: {mesh.size} entries on {mesh.distinct_cards} distinct " \
+          f"cards of the {cards} visible{note}"
+    print(tag, flush=True)
+    return mesh, tag
+
+
+def _sync_all(mesh) -> None:
+    for d in sorted({d.index for d in mesh.devices}):
+        torch.cuda.synchronize(d)
+
+
+def _by_device() -> dict:
+    return {"me_halfpel": dict(torchme.ME_PREPASS_LAUNCHES_BY_DEVICE),
+            "me_search": dict(torchme.ME_KERNEL_LAUNCHES_BY_DEVICE)}
+
+
+def _check_by_device(what: str, got: dict, want: dict) -> None:
+    for name, counts in got.items():
+        check(counts == want, f"{what}: {name} launched {counts} times by "
+                              f"card index, want {want}")
+
+
+def _per_card(mesh, per_entry: list) -> dict:
+    out: dict = {}
+    for dev, n in zip(mesh.devices, per_entry):
+        out[dev.index] = out.get(dev.index, 0) + n
+    return out
+
+
+def mesh_run_kernels(mesh, tag: str) -> dict:
+    """Both kernels on the stacks the mesh's entries hand them at the 4K
+    split-frame point: 4 bands of 608 rows (halo 32) split into one run
+    an entry (dispatch._runs), each entry's (n, 608, 3840) run with the
+    runs beside it injected at its inner edges (torchme.extend_bands
+    with `ext`), one launch each on the entry's card against the plain
+    version, bit-exactly; then an inner run's time on its card (the
+    second entry's: rows injected above it, and below it too on more
+    than two entries) beside the bound over its planes."""
+    from thinvids_tpu_torch.parallel.dispatch import _runs
+
+    h, w, bands, halo = 2176, 3840, 4, 32
+    Hb = h // bands
+    cur, ref, ru, rv = (torch.from_numpy(a.astype(np.int16))
+                        for a in _me_inputs("pan", h, w, 6))
+    err = {"me_halfpel": 0, "me_search": 0}
+    offs = np.cumsum([0] + _runs(bands, mesh.size)).tolist()
+    runs = list(zip(offs[:-1], offs[1:]))
+    checked = []
+    timed = None
+    for r, (b0, b1) in enumerate(runs):
+        dev = mesh.devices[r]
+        with torch.cuda.device(dev):
+            y0, y1 = b0 * Hb, b1 * Hb
+            edge_top, edge_bot = b0 == 0, b1 == bands
+
+            def part(p, d):
+                return p[y0 // d:y1 // d].reshape(b1 - b0, Hb // d,
+                                                  p.shape[1]).to(dev)
+
+            def edge(p, d):
+                k = halo // d
+                return (None if edge_top else p[y0 // d - k:y0 // d].to(dev),
+                        None if edge_bot else p[y1 // d:y1 // d + k].to(dev))
+
+            ext = edge(ref, 1) + edge(ru, 2) + edge(rv, 2)
+            stacks = torchme.extend_bands(part(cur, 1), part(ref, 1),
+                                          part(ru, 2), part(rv, 2), halo,
+                                          ext=ext, edge_top=edge_top,
+                                          edge_bot=edge_bot)
+            check(tuple(stacks[0].shape) == (b1 - b0, Hb + 2 * halo, w),
+                  f"mesh run stack {tuple(stacks[0].shape)}")
+            centers = torchme.banded_centers_from(
+                part(cur, 1), part(ref, 1),
+                torch.tensor([4, -6], dtype=torch.int32, device=dev),
+                (Hb,) * (b1 - b0), halo)
+            lam = torchme.lambda_for(27, dev)
+            planes = torchme.halfpel_planes_cuda(stacks[1])
+            got = torchme.me_search_cuda(*stacks, centers, lam)
+            torch.cuda.synchronize(dev)
+            e = int((planes.to(torch.int32) - torchme.halfpel_planes_ref(
+                stacks[1]).to(torch.int32)).abs().max())
+            err["me_halfpel"] = max(err["me_halfpel"], e)
+            want = torchme.me_search_ref(*stacks, centers, lam)
+            for name, a, b in zip(("mv", "pred_y", "pred_u", "pred_v"),
+                                  got, want):
+                e = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+                err["me_search"] = max(err["me_search"], e)
+                check(a.shape == b.shape and e == 0,
+                      f"mesh run {r}: {name} differs (max |diff| {e})")
+            checked.append(f"entry {r} bands [{b0}, {b1}) on {dev}")
+            if r == min(1, len(runs) - 1):
+                timed = (stacks, centers, lam)
+    check(err["me_halfpel"] == 0,
+          f"mesh run planes differ (max |diff| {err['me_halfpel']})")
+    stacks, centers, lam = timed
+    B, He, W = stacks[0].shape
+    planes = torchme.halfpel_planes_cuda(stacks[1])
+    fns = {"me_halfpel": lambda: torchme.halfpel_planes_cuda(stacks[1]),
+           "me_search": lambda: torchme.me_search_planes_cuda(
+               stacks[0], planes, stacks[2], stacks[3], centers, lam)}
+    plain = {"me_halfpel": _median_ms(
+        lambda: torchme.halfpel_planes_ref(stacks[1]), reps=3),
+        "me_search": _median_ms(lambda: torchme.me_search_ref(
+            *stacks, centers, lam), reps=3)}
+    bounds = me_bounds(He, W, B)
+    print(f"mesh runs bit-exact against the plain version: "
+          f"{'; '.join(checked)}; {tag}", flush=True)
+    out = {}
+    with torch.cuda.device(stacks[0].device):
+        for name, fn in fns.items():
+            ms = min(_graph_ms(fn) for _ in range(2))
+            ops, nbytes = bounds[name]
+            bound_ms, bound_by = _bound(ops, nbytes)
+            print(f"{name} mesh run {B}x{He}x{W} on {stacks[0].device} "
+                  f"(entry {min(1, len(runs) - 1)}'s run, the runs beside "
+                  f"it injected): {ms:.4f} ms a launch (CUDA graph of 50, "
+                  f"best of 2 medians of 5), plain {plain[name]:.3f} ms, "
+                  f"bound {bound_ms:.4f} ms by {bound_by}, "
+                  f"{100 * bound_ms / ms:.1f}% of bound; {tag}", flush=True)
+            out[name] = {"shape": [B, He, W], "max_abs_err": err[name],
+                         "ms": ms, "plain_ms": plain[name],
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
+    return out
+
+
+def mesh_gop_point(mesh, tag: str, main: dict, w: int = 1920,
+                   h: int = 1080, n: int = 16, gop: int = 4,
+                   qp: int = 27) -> dict:
+    """Phase 17a: bench's 1080p content through GopShardEncoder on the
+    mesh; the stream against the JAX package's on two devices, the
+    launches per card, and e2e fps (pre-staged waves, best of 2) beside
+    the same point on one entry, timed in this phase."""
+    from thinvids_tpu_torch.parallel.dispatch import _runs
+
+    frames = make_frames(n, w, h)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    enc = GopShardEncoder(meta, qp=qp, gop_frames=gop, mesh=mesh)
+    concat_segments(enc.encode(frames))          # warm-up pass
+    _sync_all(mesh)
+    torchme.reset_launch_counts()
+    enc.stages.reset()
+    t0 = time.perf_counter()
+    stream = concat_segments(enc.encode(frames))
+    t_cold = time.perf_counter() - t0
+    by_dev = _by_device()
+    digest = hashlib.sha256(stream).hexdigest()
+    snap = enc.stages.snapshot()
+    plan = enc.plan(n)
+    # each wave's GOPs split into contiguous runs, one an entry
+    per_entry = [0] * mesh.size
+    per_wave = mesh.size * enc.gops_per_wave
+    gops = list(plan.gops)
+    for a in range(0, len(gops), per_wave):
+        wave = gops[a:a + per_wave]
+        full = wave + [wave[-1]] * ((-len(wave)) % mesh.size)
+        i = 0
+        for e, k in enumerate(_runs(len(full), mesh.size)):
+            per_entry[e] += sum(g.num_frames - 1 for g in full[i:i + k])
+            i += k
+    want = _per_card(mesh, per_entry)
+    print(f"mesh gop point {w}x{h} x{n} gop {gop} qp {qp}: {len(stream)} "
+          f"bytes, sha256 {digest}, {n / t_cold:.3f} fps through encode() "
+          f"(staging included), ME launches by card index {by_dev} (per "
+          f"entry {per_entry}), fetch_shards {snap['fetch_shards']}; {tag}",
+          flush=True)
+    check((len(stream), digest) == MESH_POINT_JAX,
+          f"mesh point: the stream ({len(stream)} bytes, {digest}) is not "
+          f"the JAX package's on two devices {MESH_POINT_JAX}")
+    check(sum(per_entry) == n - plan.num_gops,
+          f"per-entry P frames {per_entry}")
+    _check_by_device("mesh gop point", by_dev, want)
+
+    one = GopShardEncoder(meta, qp=qp, gop_frames=gop,
+                          device=mesh.devices[0])
+    figs = {}
+    for name, e in (("mesh", enc), ("one entry", one)):
+        _, waves = e.prepare_waves(frames)
+        concat_segments(e.encode_waves(waves))
+        _sync_all(mesh)
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            s2 = concat_segments(e.encode_waves(waves))
+            best = min(best, time.perf_counter() - t0)
+            if name == "mesh":
+                check(s2 == stream, "a repeated mesh encode changed bytes")
+        figs[name] = round(n / best, 3)
+    print(f"mesh gop point e2e fps (pre-staged waves, best of 2): "
+          f"{json.dumps(figs)}; phase 4 (one card, gop 8) e2e "
+          f"{main.get('e2e_fps')} fps; {tag}; card {card_line()}",
+          flush=True)
+    return {"launches_by_device": by_dev, "per_entry": per_entry,
+            "fps": figs}
+
+
+def mesh_sfe_point(mesh, tag: str, sfe: dict, w: int = 3840,
+                   h: int = 2160, n: int = 16, gop: int = 8, qp: int = 27,
+                   bands: int = 4, halo: int = 32) -> dict:
+    """Phase 17b: bench's 4K split-frame point with its 4 bands spread
+    over the mesh; the stream against phase 10's (the JAX package's),
+    each ME kernel once per P frame per entry, and fps, the IDR step's
+    seconds and the per-frame latency p50 / p99 beside phase 10's."""
+    import statistics
+
+    from thinvids_tpu_torch.parallel.dispatch import SfeShardEncoder
+
+    frames = make_frames(n, w, h)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    enc = SfeShardEncoder(meta, qp=qp, gop_frames=gop, bands=bands,
+                          halo_rows=halo, mesh=mesh)
+    entries = enc.num_devices
+    _, waves = enc.prepare_waves(frames)
+    concat_segments(enc.encode_waves(waves[:1]))         # warm-up GOP
+    _sync_all(mesh)
+    torchme.reset_launch_counts()
+    enc.stages.reset()
+    t0 = time.perf_counter()
+    stream = concat_segments(enc.encode(frames))
+    t_enc = time.perf_counter() - t0
+    by_dev = _by_device()
+    digest = hashlib.sha256(stream).hexdigest()
+    p_frames = n - len(enc.plan(n).gops)
+    want = _per_card(enc.mesh, [p_frames] * entries)
+    print(f"mesh sfe point {w}x{h} x{n} gop {gop} bands {bands} on "
+          f"{entries} entries (runs {list(enc._band_runs)}): {len(stream)} "
+          f"bytes, sha256 {digest}, {n / t_enc:.3f} fps through encode(), "
+          f"ME launches by card index {by_dev}; {tag}", flush=True)
+    check((len(stream), digest) == SFE_POINT_JAX["bench_2160p"],
+          f"mesh SFE point: the stream ({len(stream)}, {digest}) is not "
+          f"phase 10's {SFE_POINT_JAX['bench_2160p']}")
+    _check_by_device("mesh SFE point", by_dev, want)
+
+    runs, t_best, lat = 0, float("inf"), []
+    while runs < 1:
+        enc.frame_done_t.clear()
+        t0 = time.perf_counter()
+        s2 = concat_segments(enc.encode_waves(waves))
+        t = time.perf_counter() - t0
+        runs += 1
+        check(s2 == stream, "a repeated mesh SFE pass changed the bytes")
+        if t < t_best:
+            t_best, lat = t, enc.frame_latencies_ms()
+    _, ys, us, vs, _ = waves[0]
+
+    def idr():
+        list(enc._walk(1, ys, us, vs, qp))
+        _sync_all(mesh)
+
+    idr_ms = min(_timed_ms(idr) for _ in range(2))
+    if not sfe:
+        sfe = _one_entry_sfe(meta, frames, qp, gop, bands, halo,
+                             mesh.devices[0])
+    lat_sorted = sorted(lat) or [0.0]
+    fig = {"fps": round(n / t_best, 3),
+           "latency_ms_p50": round(statistics.median(lat_sorted), 3),
+           "latency_ms_p99": round(
+               lat_sorted[int(0.99 * (len(lat_sorted) - 1))], 3),
+           "idr_step_ms": round(idr_ms, 3), "entries": entries}
+    print(f"mesh sfe figures ({runs} timed pass over pre-staged waves): "
+          f"{json.dumps(fig)}; one card (phase 10, or this call): "
+          f"{json.dumps(sfe.get('fig', {}))}, idr_step_ms "
+          f"{sfe.get('idr_step_ms')}; {tag}; card {card_line()}",
+          flush=True)
+    return {"launches_by_device": by_dev, "per_entry": [p_frames] * entries,
+            "fig": fig}
+
+
+def _one_entry_sfe(meta, frames, qp: int, gop: int, bands: int,
+                   halo: int, dev) -> dict:
+    """Phase 10's figures at the same point on one entry, for a call that
+    runs phase 17 alone: one timed pass after a warm-up GOP, and the
+    banded IDR step's host-clock seconds."""
+    import statistics
+
+    enc = _sfe_encoder(meta, qp, gop, bands, halo, device=dev)
+    _, waves = enc.prepare_waves(frames)
+    concat_segments(enc.encode_waves(waves[:1]))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    concat_segments(enc.encode_waves(waves))
+    t = time.perf_counter() - t0
+    lat = sorted(enc.frame_latencies_ms()) or [0.0]
+    _, ys, us, vs, _ = waves[0]
+    idr = _sync_ms(lambda: enc._intra_step(ys[0], us[0], vs[0], qp), reps=2)
+    return {"fig": {"fps": round(len(frames) / t, 3),
+                    "latency_ms_p50": round(statistics.median(lat), 3),
+                    "latency_ms_p99": round(
+                        lat[int(0.99 * (len(lat) - 1))], 3)},
+            "idr_step_ms": round(idr, 3)}
+
+
+def _timed_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mesh_phase(main: dict, sfe: dict) -> dict:
+    mesh, tag = _mesh()
+    run = mesh_run_kernels(mesh, tag)
+    gop = mesh_gop_point(mesh, tag, main)
+    band = mesh_sfe_point(mesh, tag, sfe)
+    return {"mesh": tag, "run": run, "gop": gop, "sfe": band}
+
+
 # ---- phase 15 ------------------------------------------------------------
 
 def parity_phase() -> None:
@@ -2828,6 +3197,8 @@ def main() -> int:
     manager = manager_phase(job_mp4, ladder["job_tree"], card)
     phase("16 farm")
     farm = farm_phase(job_mp4, card)
+    phase("17 mesh")
+    mesh = mesh_phase(main, sfe)
     phase("15 card = CPU")
     parity_phase()
     for rec in recs:
@@ -2840,6 +3211,15 @@ def main() -> int:
         rec["manager_launches"] = manager[rec["name"]]
         rec["farm_slice"] = farm_slice[rec["name"]]
         rec["farm_launches"] = farm["launches"][rec["name"]]
+        rec["mesh"] = {
+            "mesh": mesh["mesh"],
+            "gop_launches_by_card": mesh["gop"]["launches_by_device"][
+                rec["name"]],
+            "gop_launches_per_entry": mesh["gop"]["per_entry"],
+            "sfe_launches_by_card": mesh["sfe"]["launches_by_device"][
+                rec["name"]],
+            "sfe_launches_per_entry": mesh["sfe"]["per_entry"],
+            "run_stack": mesh["run"][rec["name"]]}
     phase("end")
     print(json.dumps({"kernels": recs}))
     print(f"card: {card}")

@@ -4,7 +4,8 @@ comparison of two checkouts.
     python3 scripts/chip_points.py manager
     python3 scripts/chip_points.py farm
     python3 scripts/chip_points.py daemon-jobs
-    python3 scripts/chip_points.py sfe-ab PARENT_DIR CHANGE_DIR
+    python3 scripts/chip_points.py mesh
+    python3 scripts/chip_points.py ab PARENT_DIR CHANGE_DIR
 
 - `manager`: phase 14 alone — builds the kernels, makes phase 6's MP4
   (`chip_smoke._run_job`) and phase 12's ladder job tree
@@ -17,9 +18,15 @@ comparison of two checkouts.
   --device cuda` in a subprocess and the same clip posted to /add_job
   four times (unprofiled, unprofiled, with a per-job `profile_dir`,
   unprofiled); each job's run and submit-to-done seconds and job fps.
-- `sfe-ab`: phase 10's SFE point (`chip_smoke.sfe_point`) in two
-  checkouts in turns (parent, change, change, parent), each in its own
-  process, printing each run's figures.
+- `mesh`: phase 17 alone — builds the kernels, then runs
+  `chip_smoke.mesh_phase` (the kernels at a mesh entry's run, the 1080p
+  GOP point on the mesh against MESH_POINT_JAX, the 4K split-frame point
+  spread over the mesh against phase 10's stream), without phase 4's
+  and phase 10's one-card figures beside it.
+- `ab`: phase 4's main path (`chip_smoke.main_path`) and phase 10's SFE
+  point (`chip_smoke.sfe_point`) in two checkouts in turns (parent,
+  change, change, parent), each in its own process, printing each
+  run's figures.
 
 Every line that carries a time names the card and its power limit.
 Needs a CUDA card; run from the repository root.
@@ -132,10 +139,19 @@ def daemon_jobs(n: int = 16, w: int = 1920, h: int = 1080,
                 proc.wait(timeout=20)
 
 
-def sfe_ab(parent: str, change: str) -> None:
+def mesh() -> None:
+    print(f"card: {cs.card_line()}", flush=True)
+    cs.build_all()
+    t0 = time.perf_counter()
+    out = cs.mesh_phase({}, {})
+    print(f"mesh phase {time.perf_counter() - t0:.1f} s: {out['mesh']}",
+          flush=True)
+
+
+def ab(parent: str, change: str) -> None:
     print(f"card: {cs.card_line()}", flush=True)
     code = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
-            "cs.build_all(); cs.sfe_point()")
+            "cs.build_all(); cs.main_path(); cs.sfe_point()")
     trees = {"parent": parent, "change": change}
     for name in ("parent", "change", "change", "parent"):
         t0 = time.perf_counter()
@@ -144,7 +160,8 @@ def sfe_ab(parent: str, change: str) -> None:
         print(f"== {name} rc={res.returncode} "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for line in res.stdout.splitlines():
-            if line.startswith(("sfe point", "sfe stage_ms")):
+            if line.startswith(("main path", "stage_ms", "sfe point",
+                                "sfe stage_ms")):
                 print(line, flush=True)
         cs.check(res.returncode == 0, f"{name}: {res.stderr[-2000:]}")
 
@@ -155,9 +172,10 @@ def main() -> None:
     sub.add_parser("manager")
     sub.add_parser("farm")
     sub.add_parser("daemon-jobs")
-    ab = sub.add_parser("sfe-ab")
-    ab.add_argument("parent")
-    ab.add_argument("change")
+    sub.add_parser("mesh")
+    two = sub.add_parser("ab")
+    two.add_argument("parent")
+    two.add_argument("change")
     args = p.parse_args()
     if not cs.torch.cuda.is_available():
         raise SystemExit("chip_points: CUDA is not available")
@@ -167,8 +185,10 @@ def main() -> None:
         farm()
     elif args.cmd == "daemon-jobs":
         daemon_jobs()
+    elif args.cmd == "mesh":
+        mesh()
     else:
-        sfe_ab(os.path.abspath(args.parent), os.path.abspath(args.change))
+        ab(os.path.abspath(args.parent), os.path.abspath(args.change))
 
 
 if __name__ == "__main__":

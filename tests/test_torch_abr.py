@@ -348,9 +348,13 @@ def test_whole_ladder_equals_the_reference_where_planes_are_equal():
 def test_ladder_refuses_a_mesh_and_needs_the_card():
     rungs = tladder.plan_ladder(_meta(TMeta), _settings(tcfg, qp=QP,
                                                         ladder_rungs=RUNGS))
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tladder.LadderShardEncoder(_meta(TMeta), rungs, mesh=object(),
                                    device="cpu")
+    if torch.cuda.device_count() < 8:
+        with pytest.raises(RuntimeError):
+            tladder.LadderShardEncoder(_meta(TMeta), rungs,
+                                       mesh=["cuda:7"], device="cpu")
     with pytest.raises(ValueError, match="at least one rung"):
         tladder.LadderShardEncoder(_meta(TMeta), [], device="cpu")
     if not torch.cuda.is_available():

@@ -14,8 +14,8 @@ the same file.
   budget fails the job with attribution (one card has nothing to
   re-plan on); a stopped job halts between waves;
 - `profile_dir` writes a torch.profiler Chrome trace of the job;
-- without a card the executor refuses the default device, and a mesh is
-  refused as not ported.
+- without a card the executor refuses the default device, and a mesh
+  that is not a DeviceMesh is refused.
 """
 
 import contextlib
@@ -489,7 +489,7 @@ def test_profile_dir_writes_a_chrome_trace_of_the_job(tmp_path):
 
 def test_the_executor_needs_a_card_unless_asked_for_the_cpu(tmp_path):
     coord = tcluster.Coordinator()
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         texecutor.LocalExecutor(coord, str(tmp_path), device="cpu",
                                 mesh=object())
     if torch.cuda.is_available():

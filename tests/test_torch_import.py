@@ -115,7 +115,11 @@ def test_scan_sees_the_whole_port(tmp_path):
                  "thinvids_tpu_torch/farm/provider.py",
                  "thinvids_tpu_torch/tools/loadgen.py",
                  "thinvids_tpu_torch/parallel/sfefarm.py",
-                 "thinvids_tpu_torch/parallel/planner.py"):
+                 "thinvids_tpu_torch/parallel/planner.py",
+                 "thinvids_tpu_torch/core/devices.py",
+                 "thinvids_tpu_torch/codecs/h264/decoder.py",
+                 "thinvids_tpu_torch/tools/import_media.py",
+                 "thinvids_tpu_torch/tools/fuzz_native.py"):
         assert want in rel
     # the scan catches both spellings, at module level and in a function,
     # and lets relative imports and the port's own name through
@@ -305,5 +309,32 @@ def test_remote_halo_partstore_farm_and_loadgen_import_without_torch():
     res = subprocess.run([sys.executable, "-c", _FARM_TORCH_FREE_IMPORT],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+
+
+_LAST_MODULES = r"""
+import importlib, sys
+
+for name in ("torch", "jax", "jaxlib"):
+    sys.modules[name] = None
+for name in ("thinvids_tpu_torch.codecs.h264.decoder",
+             "thinvids_tpu_torch.tools.import_media",
+             "thinvids_tpu_torch.tools.fuzz_native"):
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] == "thinvids_tpu")
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_the_decoder_and_the_last_tools_need_neither_torch_nor_jax():
+    """The decoder, import_media and fuzz_native are host code: they
+    import with torch and JAX both unimportable, and nothing of the JAX
+    package comes in with them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", _LAST_MODULES], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "ok"

@@ -8,8 +8,9 @@ executor with the port's encoder.
   spool;
 - `make_shard_encoder` resolves the knobs the reference resolves (the RD
   features included, each of which gives the JAX package's bytes), builds
-  the farm's band slice as the reference does, and raises
-  NotImplementedError for a device mesh, which is not ported;
+  the farm's band slice as the reference does, and raises TypeError for
+  a mesh that is not a DeviceMesh (the mesh itself runs in
+  tests/test_torch_mesh.py);
 - every RD feature on (RD_ALL) through GopShardEncoder gives the JAX
   package's per-GOP `encode_gop` bytes with the compact, sparse2 and
   process pack backends, and the all-intra wave with mode decision + AQ
@@ -268,9 +269,11 @@ def test_make_shard_encoder_resolves_the_reference_knobs(monkeypatch, env):
 @pytest.mark.parametrize("case,item", [("mesh", "A2")])
 def test_make_shard_encoder_refuses_what_is_not_ported(case, item):
     over, kw = {}, {}
+    # ROADMAP A2 (the mesh) is ported: what is refused is a mesh that is
+    # not a DeviceMesh, never dropped in favour of one card
     kw["mesh"] = object()
     for shape in (None, "band"):
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             tdispatch.make_shard_encoder(TMeta(width=64, height=48),
                                          _settings(tcfg, **over),
                                          shape=shape, device="cpu", **kw)

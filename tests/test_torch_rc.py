@@ -12,8 +12,9 @@ the same seeded clips through the JAX package's rc and the port's.
 - `encode_vbr2pass` at 200 and 600 kbps, at an unreachable 5000 kbps and
   with aq_strength 1.0 gives the reference's gop_qps, passes and segment
   bytes;
-- the entry points default to the card and raise without one; a device
-  mesh raises NotImplementedError naming ROADMAP A2.
+- the entry points default to the card and raise without one; a mesh
+  that is not a DeviceMesh raises TypeError, and a mesh entry naming a
+  card the host lacks raises (tests/test_torch_mesh.py runs the mesh).
 
 The reference runs on a one-device mesh with the port's wave grouping
 (4 GOPs a wave), so the JAX side compiles one GOP program.
@@ -242,6 +243,10 @@ def test_entry_points_need_the_card_or_refuse_a_mesh():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             trc.encode_vbr2pass(frames, tmeta, 200.0, gop_frames=4)
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         trc.encode_vbr2pass(frames, tmeta, 200.0, gop_frames=4,
                             mesh=object(), device="cpu")
+    if torch.cuda.device_count() < 8:
+        with pytest.raises(RuntimeError):
+            trc.encode_vbr2pass(frames, tmeta, 200.0, gop_frames=4,
+                                mesh=["cuda:7"], device="cpu")

@@ -169,20 +169,20 @@ class LadderShardEncoder:
     invariant); the stager — the top encoder when the first rung is
     source-resolution, else a dedicated source-resolution encoder — owns
     decode + staging, so `h2d_bytes` accrues once per wave no matter how
-    many rungs ride on it. A device mesh (multi-GPU waves) is not ported
-    yet.
+    many rungs ride on it. On a device mesh the stager and every rung
+    encoder share the one mesh: each entry scales its own run of the
+    wave's GOPs on its card, one fixed-shape product per plane, so a
+    frame's scaled bits do not depend on the split.
     """
 
     def __init__(self, meta: VideoMeta, rungs: list[Rung],
                  mesh=None, gop_frames: int = 32,
                  max_segments: int = 200, device="cuda") -> None:
+        from ..core.devices import as_mesh
         from ..parallel.dispatch import GopShardEncoder   # lazy: torch
         from .scale import PlaneScaler
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (multi-GPU waves) is not ported yet "
-                "(ROADMAP A2); pass mesh=None for one card")
+        mesh = as_mesh(mesh, device)
         if not rungs:
             raise ValueError("ladder needs at least one rung")
         self.meta = meta
@@ -191,7 +191,7 @@ class LadderShardEncoder:
         def build(m: VideoMeta, qp: int) -> GopShardEncoder:
             return GopShardEncoder(m, qp=qp, gop_frames=int(gop_frames),
                                    max_segments=int(max_segments),
-                                   device=device)
+                                   device=device, mesh=mesh)
 
         self.encoders: list = []
         self.scalers: list = []         # None for the unscaled rung
@@ -202,7 +202,8 @@ class LadderShardEncoder:
             self.encoders.append(build(rmeta, rung.qp))
             self.scalers.append(
                 PlaneScaler(meta.width, meta.height, rung.width,
-                            rung.height, device=device) if scaled else None)
+                            rung.height, device=mesh.devices[0])
+                if scaled else None)
         if self.scalers[0] is None:
             # first rung IS the source resolution: it stages (and its
             # construction matches the executor's default encoder, the
@@ -226,6 +227,10 @@ class LadderShardEncoder:
     @property
     def num_devices(self) -> int:
         return self._stager.num_devices
+
+    @property
+    def mesh(self):
+        return self._stager.mesh
 
     @property
     def decode_ahead(self) -> int:
@@ -278,17 +283,23 @@ class LadderShardEncoder:
         """Fan one staged (source-resolution) wave across every rung:
         the unscaled rung dispatches the staged tensors directly; each
         scaled rung first derives its input on the card (two products
-        per plane) — no additional decode or upload."""
+        per plane; on a mesh, each entry its own run) —
+        no additional decode or upload."""
+        from ..parallel.dispatch import _join, _parts
+
         wave, ysd, usd, vsd, qpsd = staged
         base_qp = self.rungs[0].qp
         handles = []
+        ys, us, vs = _parts(ysd), _parts(usd), _parts(vsd)
         for rung, enc, scaler in zip(self.rungs, self.encoders,
                                      self.scalers):
             if scaler is None:
                 handles.append(enc.dispatch_wave(staged))
                 continue
             with self.stages.stage("scale"):
-                sy, su, sv = scaler.scale_wave(ysd, usd, vsd)
+                runs = self._stager.on_entries(
+                    lambda i, sc=scaler: sc.scale_wave(ys[i], us[i], vs[i]))
+                sy, su, sv = (_join([r[k] for r in runs]) for k in range(3))
                 # carry any per-GOP QP deltas across rungs relative to
                 # this rung's base operating point (host (G,) int32)
                 rqps = qpsd - base_qp + rung.qp

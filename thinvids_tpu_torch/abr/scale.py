@@ -156,14 +156,23 @@ class PlaneScaler:
                                    (src_h + 1) // 2, dst_h // 2)
         self.c_h = resample_matrix(spw // 2, dpw // 2,
                                    (src_w + 1) // 2, dst_w // 2)
-        self._dev = tuple(torch.from_numpy(m).to(dev) for m in
-                          (self.y_v, self.y_h, self.c_v, self.c_h))
+        #: the four matrices on each device that has scaled a wave (a
+        #: mesh's entries scale their own runs of the wave)
+        self._mats = {dev: self._place(dev)}
+        self._dev = self._mats[dev]
+
+    def _place(self, dev) -> tuple:
+        return tuple(torch.from_numpy(m).to(dev) for m in
+                     (self.y_v, self.y_h, self.c_v, self.c_h))
 
     def scale_wave(self, ys, us, vs) -> tuple:
         """Scale staged (…, H, W) uint8 plane tensors (any leading
-        batch dims — (G, F, H, W) wave stacks included) on the
-        scaler's device."""
-        y_v, y_h, c_v, c_h = self._dev
+        batch dims — (G, F, H, W) wave stacks included) on their own
+        device."""
+        mats = self._mats.get(ys.device)
+        if mats is None:
+            mats = self._mats.setdefault(ys.device, self._place(ys.device))
+        y_v, y_h, c_v, c_h = mats
         return (_apply_separable(ys, y_v, y_h),
                 _apply_separable(us, c_v, c_h),
                 _apply_separable(vs, c_v, c_h))

@@ -7,7 +7,9 @@ process — the union of the reference's gunicorn app + watcher daemon +
 housekeeping unit: durable coordinator, executor, HTTP API + dashboard,
 watch-folder ingest, orphan recovery, scheduler kicks. It encodes on the
 card (``--device cuda``, the default; it exits with an error when there
-is none) or, when asked, on the CPU (``--device cpu``).
+is none) or, when asked, on the CPU (``--device cpu``); ``--devices``
+(``all``, or a comma list such as ``cuda:0,cuda:1``) spreads its encodes
+over a device mesh.
 
 With ``--backend remote`` (``TVT_EXECUTION_BACKEND=remote``, or the
 live setting) the encode stage dispatches GOP shards (and farm SFE band
@@ -22,7 +24,8 @@ heartbeats to the coordinator API.
 `python -m thinvids_tpu_torch.cli worker` is an encode-farm node: the
 agent's heartbeats PLUS the claim → encode → stream-back loop against
 the coordinator's /work API, encoding on ``--device`` (the card by
-default; it exits with an error when there is none).
+default; it exits with an error when there is none) or on the mesh
+``--devices`` names.
 
 The reference's `check` (static analysis of the JAX package) has no
 counterpart here.
@@ -48,6 +51,20 @@ def _require_device(device: str) -> None:
             from None
 
 
+def _mesh_arg(args: argparse.Namespace):
+    """`--devices` → a DeviceMesh, or None (the one `--device`). Exits
+    with the reason when an entry names a card this host lacks."""
+    spec = (getattr(args, "devices", None) or "").strip()
+    if not spec:
+        return None
+    from .core.devices import parse_devices
+
+    try:
+        return parse_devices(spec, args.device)
+    except (RuntimeError, ValueError) as exc:
+        raise SystemExit(f"--devices {spec}: {exc}") from None
+
+
 def run_coordinator(args: argparse.Namespace) -> None:
     from .api import ApiServer
     from .cluster.agent import NodeAgent, coordinator_submitter
@@ -61,6 +78,7 @@ def run_coordinator(args: argparse.Namespace) -> None:
 
     log = get_logging("thinvids_tpu_torch.coordinator")
     _require_device(args.device)
+    mesh = _mesh_arg(args)
     state_dir = args.state_dir or os.environ.get("TVT_STATE_DIR")
     co = Coordinator(state_dir=state_dir)
     backend = str(getattr(args, "backend", "") or
@@ -77,7 +95,8 @@ def run_coordinator(args: argparse.Namespace) -> None:
         spool = str(get_settings().get("part_spool_dir", "") or "") \
             or os.path.join(state_dir or args.output_dir, "part-spool")
         execu = RemoteExecutor(co, args.output_dir, sync=False,
-                               spool_dir=spool, device=args.device)
+                               spool_dir=spool, device=args.device,
+                               mesh=mesh)
         work = execu.board
         log.info("remote execution backend: encode shards dispatch to "
                  "worker daemons via /work (part spool at %s)", spool)
@@ -92,7 +111,7 @@ def run_coordinator(args: argparse.Namespace) -> None:
         farm.start()
     else:
         execu = LocalExecutor(co, args.output_dir, sync=False,
-                              device=args.device)
+                              device=args.device, mesh=mesh)
         work = None
     co._launcher = execu.launch
 
@@ -178,9 +197,10 @@ def run_worker(args: argparse.Namespace) -> None:
     from .core.log import get_logging
 
     _require_device(args.device)
+    mesh = _mesh_arg(args)
     log = get_logging("thinvids_tpu_torch.worker")
     daemon = WorkerDaemon(args.coordinator, host=args.node_name,
-                          poll_s=args.poll, device=args.device)
+                          poll_s=args.poll, device=args.device, mesh=mesh)
     # liveness + health metrics ride the agent heartbeat; the daemon's
     # shard counters merge in via the extra_metrics seam
     agent = NodeAgent(http_submitter(args.coordinator), host=daemon.host,
@@ -188,7 +208,7 @@ def run_worker(args: argparse.Namespace) -> None:
                       extra_metrics=daemon.metrics, device=args.device)
     agent.start()
     log.info("worker %s claiming from %s (poll %.1fs) on %s", daemon.host,
-             args.coordinator, daemon.poll_s, args.device)
+             args.coordinator, daemon.poll_s, mesh or args.device)
 
     stop = threading.Event()
 
@@ -328,6 +348,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where jobs encode locally (all of them on the "
                         "local backend): cuda (the card; the default) or "
                         "cpu")
+    c.add_argument("--devices", default="",
+                   help="a device mesh for the local encodes: all (every "
+                        "visible card) or a comma list such as "
+                        "cuda:0,cuda:1; default: the one --device")
     c.set_defaults(fn=run_coordinator)
 
     a = sub.add_parser("agent", help="node: metrics heartbeats only")
@@ -355,6 +379,10 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--device", default="cuda",
                    help="where shards encode: cuda (the card; the "
                         "default) or cpu")
+    w.add_argument("--devices", default="",
+                   help="a device mesh for the shards: all (every "
+                        "visible card) or a comma list such as "
+                        "cuda:0,cuda:1; default: the one --device")
     w.set_defaults(fn=run_worker)
 
     f = sub.add_parser("feed", help="pace a y4m into a growing .live "

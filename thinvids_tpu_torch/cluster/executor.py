@@ -3,16 +3,18 @@ file (a copy of the reference package's executor, on the port's
 encoders).
 
 The worker task chain `transcode → split → encode×N → stitch` runs on
-one card: "split" is the GOP plan, "encode×N" is the wave loop over the
-port's GopShardEncoder / SfeShardEncoder / LadderShardEncoder, "stitch"
-is the ordered concat + MP4 mux (or the HLS package). Progress,
-heartbeats and completion flow back through the coordinator's
-token-fenced callbacks; a stale token halts the run between waves.
+one card or a device mesh: "split" is the GOP plan, "encode×N" is the
+wave loop over the port's GopShardEncoder / SfeShardEncoder /
+LadderShardEncoder, "stitch" is the ordered concat + MP4 mux (or the
+HLS package). Progress, heartbeats and completion flow back through the
+coordinator's token-fenced callbacks; a stale token halts the run
+between waves.
 
 Wave-level fault handling: a wave that raises is re-dispatched up to
-`part_failure_max_retries` times before the job fails with stage/host
-attribution. One card has no smaller mesh to re-plan on, so an
-exhausted wave fails the job, as the reference does on one device.
+`part_failure_max_retries` times; when its budget is spent, the
+remaining frames are re-planned on a mesh with fewer entries (the
+elastic replan). One card has no smaller mesh to re-plan on, so there an
+exhausted wave fails the job with stage/host attribution.
 
 Live jobs run :func:`run_live`: tail a growing source, encode each
 completed GOP on the card, package LL-HLS as it goes. The coordinator
@@ -75,29 +77,29 @@ class _WaveExhausted(RuntimeError):
 
 
 class LocalExecutor:
-    """Runs reserved jobs on this process's card.
+    """Runs reserved jobs on this process's card, or on a device mesh.
 
     Plugs into :class:`Coordinator` as its launcher: `launch()` spawns a
     worker thread per job (pass ``sync=True`` for deterministic tests).
     `device` defaults to the card and raises without one; ``"cpu"`` runs
-    the same code on the CPU (the tests). A device mesh (multi-GPU
-    waves) is not ported yet (ROADMAP A2): `mesh` must be None.
+    the same code on the CPU (the tests). `mesh` (a core.devices.
+    DeviceMesh) spreads every job's waves over its entries; None is the
+    one `device` (the reference's None is every device — the port keeps
+    one card so a stream never depends on the host's card count).
     """
 
     def __init__(self, coordinator: Coordinator, output_dir: str,
                  mesh=None, host: str = "local", sync: bool = False,
                  encoder_factory: Callable | None = None,
                  device="cuda") -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (multi-GPU waves) is not ported yet "
-                "(ROADMAP A2); pass mesh=None for one card")
         # torch loads inside the calls that need the device, never at
         # import: cluster.remote subclasses this executor and must
         # import on a control plane without torch
-        from ..core.devices import resolve_device
+        from ..core.devices import as_mesh, resolve_device
 
         resolve_device(device)      # no card, no executor: raise now
+        if mesh is not None:
+            mesh = as_mesh(mesh)
         self.device = device
         self.coordinator = coordinator
         self.output_dir = output_dir
@@ -330,7 +332,7 @@ class LocalExecutor:
         retry: a live edge cannot rewind, so a failure fails the job
         with attribution."""
         run_live(job.input_path, self.output_dir, settings,
-                 device=self.device,
+                 device=self.device, mesh=self.mesh,
                  hooks=_JobLiveHooks(self, job, token, settings),
                  stage=stage)
 
@@ -483,11 +485,19 @@ class LocalExecutor:
                              note="paused: live QoS preemption")
 
     def _shrink_encoder(self, enc, settings, attempt: int):
-        """None: the port's encoders run on one card and have no mesh to
-        shrink, so an exhausted wave fails the job with attribution, as
-        the reference's does on one device. (A multi-card executor would
-        return an encoder over the surviving cards here; ROADMAP A2.)"""
-        return None
+        """Encoder over a shrunken copy of enc's mesh, or None when it
+        cannot shrink further (one entry) or the encoder exposes no mesh.
+
+        A wave failure carries no device attribution, so the shrink is
+        blind: it drops entries from the tail, doubling the count each
+        consecutive attempt (1, 2, 4, ...) so a bad card at a low index
+        is excluded in O(log n) rounds rather than n retry budgets."""
+        mesh = getattr(enc, "mesh", None)
+        meta = getattr(enc, "meta", None)
+        if mesh is None or meta is None or mesh.size <= 1:
+            return None
+        drop = min(mesh.size - 1, 2 ** (attempt - 1))
+        return self._encoder_factory(meta, settings, mesh.shrink(drop))
 
     def _encode_range(self, job: Job, token: str, enc, frames,
                       start_frame: int, settings, total_gops: int,
@@ -670,26 +680,26 @@ class LiveHooks:
                                  count, gop_n, sfe_live)
 
 
-def live_encoder(meta, settings, rungs, *, device="cuda"):
+def live_encoder(meta, settings, rungs, *, device="cuda", mesh=None):
     """Live-edge encoder selection (plan-driven, like every other path):
     the ladder stack by default; a SINGLE-rung stream with
     `sfe_bands > 0` runs the split-frame encoder at the live edge
-    instead — every frame cut into band slices on the card, so
-    glass-to-playlist latency rides the per-frame SFE pipeline rather
-    than whole-GOP waves. Returns (encoder, sfe_mode)."""
+    instead — every frame cut into band slices on the card (or the
+    mesh), so glass-to-playlist latency rides the per-frame SFE pipeline
+    rather than whole-GOP waves. Returns (encoder, sfe_mode)."""
     from ..parallel.dispatch import make_shard_encoder
 
     sfe_bands = int(settings.get("sfe_bands", 0) or 0)
     if sfe_bands > 0 and len(rungs) == 1:
-        return make_shard_encoder(meta, settings, None, shape="band",
+        return make_shard_encoder(meta, settings, mesh, shape="band",
                                   device=device), True
-    return make_shard_encoder(meta, settings, None, rungs=rungs,
+    return make_shard_encoder(meta, settings, mesh, rungs=rungs,
                               device=device), False
 
 
 def live_backlog_cap(enc) -> int:
     """Whole GOPs one catch-up dispatch may batch: one local wave (4
-    GOPs for the ladder on one card, 1 for split-frame)."""
+    GOPs a mesh entry for the ladder, 1 for split-frame)."""
     return enc.num_devices * enc.gops_per_wave
 
 
@@ -742,7 +752,8 @@ def warm_live_shapes(enc, meta, gop_n: int) -> None:
 
 def run_live(input_path: str, output_dir: str, settings, *,
              device="cuda", hooks: LiveHooks | None = None,
-             stage: list | None = None, on_bundles=None) -> dict:
+             stage: list | None = None, on_bundles=None,
+             mesh=None) -> dict:
     """Live LL-HLS pipeline: tail the growing source, encode each
     completed GOP through the ladder (or split-frame) encoder batch by
     batch, and hand every finished GOP bundle to the incremental
@@ -762,7 +773,8 @@ def run_live(input_path: str, output_dir: str, settings, *,
     The tree lands in `<output_dir>/<input stem>.hls/`. `stage` (a
     one-element list) tracks the stage for failure attribution;
     `on_bundles(bundles)` sees each batch's bundles after packaging.
-    Returns the master playlist's path, the GOPs and frames done and the
+    `mesh` (a DeviceMesh) spreads each batch over its entries. Returns
+    the master playlist's path, the GOPs and frames done and the
     packager's counters."""
     import shutil
 
@@ -783,7 +795,8 @@ def run_live(input_path: str, output_dir: str, settings, *,
         raise HaltedError("fenced before start")
     gop_n = int(settings.gop_frames)
     rungs = plan_ladder(meta, settings)
-    enc, sfe_live = live_encoder(meta, settings, rungs, device=device)
+    enc, sfe_live = live_encoder(meta, settings, rungs, device=device,
+                                 mesh=mesh)
     hooks.bind_trace(enc)
     base = os.path.splitext(os.path.basename(input_path))[0]
     out_dir = os.path.join(output_dir, base + ".hls")

@@ -1218,8 +1218,9 @@ class RemoteExecutor(LocalExecutor):
                  host: str = "coordinator", sync: bool = False,
                  poll_s: float | None = None,
                  clock: Callable[[], float] = time.time,
-                 spool_dir: str | None = None, device="cuda") -> None:
-        super().__init__(coordinator, output_dir, mesh=None, host=host,
+                 spool_dir: str | None = None, device="cuda",
+                 mesh=None) -> None:
+        super().__init__(coordinator, output_dir, mesh=mesh, host=host,
                          sync=sync, device=device)
         self._clock = clock
         self.poll_s = poll_s if poll_s is not None else self.POLL_S
@@ -1990,7 +1991,7 @@ class UnsupportedShardShape(RuntimeError):
 
 
 def _encode_band_shard(desc: Mapping[str, Any], frames, tracer=None,
-                       halo_transport=None, device="cuda"
+                       halo_transport=None, device="cuda", mesh=None
                        ) -> list[EncodedSegment]:
     """Encode one frame-band shard: this host owns bands
     [start, start+count) of the job's `total`-band layout, steps the
@@ -2021,7 +2022,7 @@ def _encode_band_shard(desc: Mapping[str, Any], frames, tracer=None,
         session = HaloSession(halo_transport, band_lo=lo,
                               band_hi=lo + cnt, groups=groups)
     enc = make_shard_encoder(
-        meta, get_settings(), None, shape="band",
+        meta, get_settings(), mesh, shape="band",
         qp=int(desc["qp"]), total_bands=total,
         band_range=(lo, lo + cnt),
         halo_rows=int(band.get("halo_rows", 32) or 32),
@@ -2044,9 +2045,12 @@ def _encode_band_shard(desc: Mapping[str, Any], frames, tracer=None,
 
 
 def encode_shard(desc: Mapping[str, Any], frames, tracer=None,
-                 halo_transport=None, device="cuda") -> list[EncodedSegment]:
+                 halo_transport=None, device="cuda",
+                 mesh=None) -> list[EncodedSegment]:
     """Encode one claimed shard on `device` (the card by default; it
-    raises without one unless ``"cpu"`` is asked for). Pure w.r.t.
+    raises without one unless ``"cpu"`` is asked for), or on `mesh` (a
+    DeviceMesh: a GOP shard's waves spread over its entries; a band
+    slice stays on its first entry). Pure w.r.t.
     the descriptor: the plan override pins the coordinator's exact GOP
     boundaries and the index/frame offsets re-base the emitted segments
     to global coordinates, so the part is bit-identical to what a
@@ -2074,7 +2078,7 @@ def encode_shard(desc: Mapping[str, Any], frames, tracer=None,
     if shape == "band":
         return _encode_band_shard(desc, frames, tracer=tracer,
                                   halo_transport=halo_transport,
-                                  device=device)
+                                  device=device, mesh=mesh)
     if shape != "gop":
         raise UnsupportedShardShape(
             f"shard shape {shape!r} not implemented by this worker")
@@ -2097,11 +2101,11 @@ def encode_shard(desc: Mapping[str, Any], frames, tracer=None,
         enc = LadderShardEncoder(meta, [rung],
                                  gop_frames=int(desc.get("gop_frames",
                                                          32)),
-                                 device=device)
+                                 device=device, mesh=mesh)
     else:
         enc = GopShardEncoder(meta, qp=int(desc["qp"]),
                               gop_frames=int(desc.get("gop_frames", 32)),
-                              device=device)
+                              device=device, mesh=mesh)
     if tracer is not None:
         enc.stages.set_tracer(tracer)
     enc.plan_override = SegmentPlan(
@@ -2232,7 +2236,8 @@ class WorkerDaemon:
 
     One daemon per worker host (`python -m thinvids_tpu_torch.cli
     worker`), encoding on `device` (the card by default; it raises
-    without one unless ``"cpu"`` is asked for).
+    without one unless ``"cpu"`` is asked for), or on `mesh` (a
+    core.devices.DeviceMesh, advertised as the host's device count).
     The source cache holds the last `CACHE_CLIPS` OPENED inputs keyed
     by path+signature (header/demux state, compressed samples for mp4 —
     never decoded frames), and each claimed shard decodes only its own
@@ -2246,11 +2251,12 @@ class WorkerDaemon:
     def __init__(self, coordinator_url: str, host: str | None = None,
                  poll_s: float | None = None,
                  client: WorkerClient | None = None,
-                 device="cuda") -> None:
+                 device="cuda", mesh=None) -> None:
         from ..core.config import get_settings
-        from ..core.devices import resolve_device
+        from ..core.devices import as_mesh, resolve_device
 
         resolve_device(device)      # no card, no worker: raise now
+        self.mesh = as_mesh(mesh) if mesh is not None else None
 
         self.host = host or socket.gethostname()
         self.client = client or WorkerClient(coordinator_url)
@@ -2280,7 +2286,9 @@ class WorkerDaemon:
             try:
                 import torch
 
-                if torch.device(self.device).type == "cpu":
+                if self.mesh is not None:
+                    self._device_count = self.mesh.size
+                elif torch.device(self.device).type == "cpu":
                     self._device_count = 1
                 else:
                     self._device_count = max(1, torch.cuda.device_count())
@@ -2350,7 +2358,7 @@ class WorkerDaemon:
                     frames = self._frames(shard["input_path"])
                 segments = encode_shard(shard, frames, tracer=buf,
                                         halo_transport=halo_transport,
-                                        device=self.device)
+                                        device=self.device, mesh=self.mesh)
                 # the board may refuse the part (lease moved on, job
                 # gone): only an ACCEPTED part counts toward the gauge
                 with sink.span("upload_part"):

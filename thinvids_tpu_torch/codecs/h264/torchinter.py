@@ -386,8 +386,25 @@ def encode_gop_planes(ys, us, vs, qp: int, *, mbw: int, mbh: int,
 # ---------------------------------------------------------------------------
 
 
+def sfe_deblock_edges(ry, ru, rv, nz4=None, mv=None, *, mbw: int,
+                      mbh_band: int):
+    """A run of bands' first and last MB rows of deblock input, as the
+    runs above and below it read them for their halo: 16 luma / 8
+    chroma recon rows, and for a P frame (`nz4`, `mv` given) the 4 rows
+    of the 4x4 nz map and the MV row. Returns (top, bottom) dicts."""
+    B = ry.shape[0]
+    top = {"y": ry[0, :16], "u": ru[0, :8], "v": rv[0, :8]}
+    bot = {"y": ry[-1, -16:], "u": ru[-1, -8:], "v": rv[-1, -8:]}
+    if nz4 is not None:
+        mvr = mv.reshape(B, mbh_band, 2 * mbw)
+        top.update(nz=nz4[0, :4], mv=mvr[0, :1])
+        bot.update(nz=nz4[-1, -4:], mv=mvr[-1, -1:])
+    return top, bot
+
+
 def _deblock_band(ry, ru, rv, qp: int, *, intra: bool, nz4, mv, mbw: int,
-                  mbh_band: int, total_mb_rows: int):
+                  mbh_band: int, total_mb_rows: int, band0: int = 0,
+                  above=None, below=None):
     """Deblock a band stack's recon with a ONE-MB-ROW cross-band halo.
 
     The §8.7 filter's vertical passes are row-local, and its horizontal
@@ -400,29 +417,52 @@ def _deblock_band(ry, ru, rv, qp: int, *, intra: bool, nz4, mv, mbw: int,
     boundary H edge is computed identically on both sides, and each
     band's slice backs out byte-identical to the unbanded program.
     Frame edges and the last band's padding rows are masked via the
-    global (mb_row0, total_mb_rows) coordinates of each band."""
+    global (mb_row0, total_mb_rows) coordinates of each band.
+
+    A mesh entry's run of bands (`band0` = the global index of its first
+    band) gets the rows beyond its run from the runs beside it: `above`
+    is the bottom edge of the run above, `below` the top edge of the run
+    below (:func:`sfe_deblock_edges`; None at a frame edge)."""
     B = ry.shape[0]
-    ry_e = torchme.band_halo_exchange(ry, 16)
-    ru_e = torchme.band_halo_exchange(ru, 8)
-    rv_e = torchme.band_halo_exchange(rv, 8)
+
+    def ext(stack, halo, key):
+        return torchme.band_halo_exchange(
+            stack, halo, None if above is None else above[key],
+            None if below is None else below[key], above is None,
+            below is None)
+
+    ry_e = ext(ry, 16, "y")
+    ru_e = ext(ru, 8, "u")
+    rv_e = ext(rv, 8, "v")
     qp_map = torch.full((mbh_band + 2, mbw), int(qp), dtype=torch.int32,
                         device=ry.device)
     nz_e = mv_e = None
     if not intra:
-        nz_e = torchme.band_halo_exchange(nz4.to(torch.int16), 4) != 0
-        mv_e = torchme.band_halo_exchange(
-            mv.reshape(B, mbh_band, 2 * mbw), 1).reshape(
-                B, mbh_band + 2, mbw, 2)
+        nz_e = ext(nz4.to(torch.int16), 4, "nz") != 0
+        mv_e = ext(mv.reshape(B, mbh_band, 2 * mbw), 1, "mv").reshape(
+            B, mbh_band + 2, mbw, 2)
     outs = []
     for b in range(B):
         y2, u2, v2 = deblock_frame_torch(
             ry_e[b], ru_e[b], rv_e[b], qp_map, intra=intra,
             nz4=None if intra else nz_e[b], mv=None if intra else mv_e[b],
-            mb_row0=b * mbh_band - 1,       # extended: 1 MB row above
+            mb_row0=(band0 + b) * mbh_band - 1,  # extended: 1 MB row above
             total_mb_rows=total_mb_rows)
         outs.append((y2[16:16 + 16 * mbh_band], u2[8:8 + 8 * mbh_band],
                      v2[8:8 + 8 * mbh_band]))
     return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def sfe_deblock(ry, ru, rv, qp: int, real_rows, *, nz4=None, mv=None,
+                mbw: int, mbh_band: int, total_mb_rows: int, band0: int = 0,
+                above=None, below=None):
+    """The in-loop filter of a run of bands whose step was told to
+    `defer_deblock`: :func:`_deblock_band` (an IDR frame when `nz4` is
+    None) and the recon fixup, on the unfiltered carry."""
+    return _fixup_carry(*_deblock_band(
+        ry, ru, rv, qp, intra=nz4 is None, nz4=nz4, mv=mv, mbw=mbw,
+        mbh_band=mbh_band, total_mb_rows=total_mb_rows, band0=band0,
+        above=above, below=below), real_rows)
 
 
 def _fixup_band_recon(stack, real_rows, scale: int = 1):
@@ -452,28 +492,30 @@ def _fixup_carry(ry, ru, rv, real_rows):
 
 
 def _sfe_intra_common(ys, us, vs, qp: int, real_rows, *, mbw: int,
-                      mbh_band: int, rd, total_mb_rows: int):
+                      mbh_band: int, rd, total_mb_rows: int,
+                      defer_deblock: bool = False):
     """Shared intra compute of a band stack: the slice-local core per
-    band + recon fixup + (with rd.deblock) the cross-band-halo in-loop
-    filter on the carry. Returns (per-band core outputs, (ry, ru, rv,
-    zero_mv))."""
+    band + recon fixup + (with rd.deblock, unless `defer_deblock` leaves
+    it to :func:`sfe_deblock`) the cross-band-halo in-loop filter on the
+    carry. Returns (per-band core outputs, (ry, ru, rv, zero_mv))."""
     outs = [_intra_core(ys[b], us[b], vs[b], qp, mbw=mbw, mbh=mbh_band,
                         rd=rd) for b in range(ys.shape[0])]
     ry, ru, rv = (torch.stack([o[i] for o in outs]).to(torch.int16)
                   for i in (4, 5, 6))
     ry, ru, rv = _fixup_carry(ry, ru, rv, real_rows)
-    if rd.deblock:
+    if rd.deblock and not defer_deblock:
         # SFE runs AQ-free (enforced at encoder construction), so the
         # band qp map is flat and no qp metadata crosses bands
-        ry, ru, rv = _fixup_carry(*_deblock_band(
-            ry, ru, rv, qp, intra=True, nz4=None, mv=None, mbw=mbw,
-            mbh_band=mbh_band, total_mb_rows=total_mb_rows), real_rows)
+        ry, ru, rv = sfe_deblock(ry, ru, rv, qp, real_rows, mbw=mbw,
+                                 mbh_band=mbh_band,
+                                 total_mb_rows=total_mb_rows)
     zero_mv = torch.zeros(2, dtype=torch.int32, device=ys.device)
     return outs, (ry, ru, rv, zero_mv)
 
 
 def sfe_intra_band(ys, us, vs, qp: int, real_rows, *, mbw: int,
-                   mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0):
+                   mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0,
+                   defer_deblock: bool = False):
     """The IDR step of a band stack: slice-local intra prediction — each
     band's first MB row predicts like a frame's row 0 because the MBs
     above live in ANOTHER slice and are unavailable to intra prediction
@@ -490,7 +532,7 @@ def sfe_intra_band(ys, us, vs, qp: int, real_rows, *, mbw: int,
     temporal predictor restarts at its IDR)."""
     outs, carry = _sfe_intra_common(
         ys, us, vs, int(qp), real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
-        total_mb_rows=total_mb_rows)
+        total_mb_rows=total_mb_rows, defer_deblock=defer_deblock)
     dense, rest = [], []
     for o in outs:
         il_dc, il_ac, ic_dc, ic_ac = o[:4]
@@ -505,14 +547,15 @@ def sfe_intra_band(ys, us, vs, qp: int, real_rows, *, mbw: int,
 
 
 def sfe_intra_band_dense(ys, us, vs, qp: int, real_rows, *, mbw: int,
-                         mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0):
+                         mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0,
+                         defer_deblock: bool = False):
     """Dense-transfer variant of :func:`sfe_intra_band`: one flat int16
     vector per band in the standard intra layout (layout.unflatten_intra's
     inverse, mode/dqp tail appended when rd.ships_modes) — the escape
     fallback path. Returns ((B, L), carry)."""
     outs, carry = _sfe_intra_common(
         ys, us, vs, int(qp), real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
-        total_mb_rows=total_mb_rows)
+        total_mb_rows=total_mb_rows, defer_deblock=defer_deblock)
     flats = []
     for o in outs:
         parts = [a.reshape(-1).to(torch.int16) for a in o[:4]]
@@ -526,7 +569,7 @@ def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,
                mbh_band: int, halo_rows: int, ext=None,
                edge_top: bool = True, edge_bot: bool = True, probe=None,
                return_hist: bool = False, rd=RD_OFF,
-               total_mb_rows: int = 0):
+               total_mb_rows: int = 0, defer_deblock: bool = False):
     """The P step of a band stack: the banded motion search (halo
     exchange + band-summed global centers/median,
     torchme.me_search_banded) + the shared residual core over the whole
@@ -546,11 +589,16 @@ def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,
     `return_hist=True` returns the slice's histogram partial instead of
     the median (the host finishes it across the slices and feeds it back
     as the next frame's `pred_mv`): the tail is then (cnt, n, (ry, ru,
-    rv, pred_mv))."""
+    rv, pred_mv)).
+
+    A mesh entry's run of bands takes the same inputs from the entries
+    beside it. Its in-loop filter needs the runs beside it too:
+    `defer_deblock` leaves the carry unfiltered and appends the filter's
+    (nz4, mv) to it, for :func:`sfe_deblock`."""
     if 2 * SEARCH_RANGE > 127:
         raise ValueError("SEARCH_RANGE exceeds the int8 MV transfer")
-    if rd.deblock and (ext is not None or probe is not None
-                       or return_hist):
+    if rd.deblock and not defer_deblock and (
+            ext is not None or probe is not None or return_hist):
         # Farm band slices exchange halos over the host relay once per
         # frame; the in-loop filter would need a second (post-recon)
         # relay round. The remote planner falls back to GOP-range
@@ -578,11 +626,15 @@ def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,
     ry2, ru2, rv2 = _fixup_carry(ry2.reshape(B, Hb, W),
                                  ru2.reshape(B, Hb // 2, W // 2),
                                  rv2.reshape(B, Hb // 2, W // 2), real_rows)
+    db_in = ()
     if rd.deblock:
-        ry2, ru2, rv2 = _fixup_carry(*_deblock_band(
-            ry2, ru2, rv2, qp, intra=False,
-            nz4=nz4.reshape(B, 4 * mbh_band, 4 * mbw), mv=mv, mbw=mbw,
-            mbh_band=mbh_band, total_mb_rows=total_mb_rows), real_rows)
+        nz4 = nz4.reshape(B, 4 * mbh_band, 4 * mbw)
+        if defer_deblock:
+            db_in = (nz4, mv)
+        else:
+            ry2, ru2, rv2 = sfe_deblock(
+                ry2, ru2, rv2, qp, real_rows, nz4=nz4, mv=mv, mbw=mbw,
+                mbh_band=mbh_band, total_mb_rows=total_mb_rows)
     cdc = cdc.reshape(2, B, nmb * 4)
     cac = cac.reshape(2, B, -1)
     flat = torch.cat([lp.reshape(B, -1), cdc[0], cdc[1], cac[0], cac[1]],
@@ -593,5 +645,5 @@ def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,
         # (ignored — the next step receives the cross-host median as a
         # fresh input) so the carry shape matches the local chain's
         cnt, n = out[4:]
-        return mv8, flat, cnt, n, (ry2, ru2, rv2, pred_mv)
-    return mv8, flat, (ry2, ru2, rv2, out[4])
+        return mv8, flat, cnt, n, (ry2, ru2, rv2, pred_mv) + db_in
+    return mv8, flat, (ry2, ru2, rv2, out[4]) + db_in

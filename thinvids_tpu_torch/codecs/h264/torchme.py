@@ -331,6 +331,10 @@ ME_KERNEL_LAUNCHES = 0
 #: number of half-pel prepass launches in this process
 #: (halfpel_planes_cuda adds one per launch and nowhere else)
 ME_PREPASS_LAUNCHES = 0
+#: the same two counts per card: {device index: launches}. A mesh
+#: launches the kernels of each entry on the entry's card.
+ME_KERNEL_LAUNCHES_BY_DEVICE: dict[int, int] = {}
+ME_PREPASS_LAUNCHES_BY_DEVICE: dict[int, int] = {}
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -397,11 +401,23 @@ def load_me_library() -> ctypes.CDLL:
         return lib
 
 
+def reset_launch_counts() -> None:
+    """Zero every launch count, the process totals and the per-card
+    maps."""
+    global ME_KERNEL_LAUNCHES, ME_PREPASS_LAUNCHES
+    with _count_lock:
+        ME_KERNEL_LAUNCHES = ME_PREPASS_LAUNCHES = 0
+        ME_KERNEL_LAUNCHES_BY_DEVICE.clear()
+        ME_PREPASS_LAUNCHES_BY_DEVICE.clear()
+
+
 def _ensure_table(lib, device: torch.device) -> None:
     """Copy OFFSET_TABLE into the kernel's device table once per device
-    (the table's single source of truth is this module)."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
+    (the table's single source of truth is this module). `device` is a
+    tensor's device, which always names its card."""
+    idx = device.index
+    if idx is None:
+        raise ValueError("_ensure_table needs a device with an index")
     with _build_lock:
         if idx in _table_ready:
             return
@@ -479,6 +495,8 @@ def halfpel_planes_cuda(ref_y):
         raise RuntimeError(f"ME prepass launch failed (cuda error {rc})")
     with _count_lock:
         ME_PREPASS_LAUNCHES += 1
+        ME_PREPASS_LAUNCHES_BY_DEVICE[dev.index] = \
+            ME_PREPASS_LAUNCHES_BY_DEVICE.get(dev.index, 0) + 1
     return planes
 
 
@@ -530,6 +548,8 @@ def me_search_planes_cuda(cur_y, planes, ref_u, ref_v, centers, lam):
         raise RuntimeError(f"ME kernel launch failed (cuda error {rc})")
     with _count_lock:
         ME_KERNEL_LAUNCHES += 1
+        ME_KERNEL_LAUNCHES_BY_DEVICE[dev.index] = \
+            ME_KERNEL_LAUNCHES_BY_DEVICE.get(dev.index, 0) + 1
     return mv, py, pu, pv
 
 
@@ -714,6 +734,15 @@ def banded_coarse_probe(cur_stack, ref_stack, real_rows,
     qsr = sr // qs
     n = 2 * qsr + 1
     cost = banded_probe_cost(cur_stack, ref_stack, real_rows, sr=sr)
+    return probe_center_t(cost, sr)
+
+
+def probe_center_t(cost, sr: int = SEARCH_RANGE):
+    """The probe's tail on the device: argmin (the first minimum) of the
+    summed per-window cost → the (2,) int32 pel center."""
+    qs = _COARSE
+    qsr = sr // qs
+    n = 2 * qsr + 1
     bi = torch.argmin(cost).to(torch.int32)
     return torch.stack([bi // n - qsr, bi % n - qsr]) * qs
 
@@ -768,6 +797,12 @@ def hist_median_banded(mv, mb_mask, lim: int):
     every band carries the same global median (the next frame's
     temporal search center)."""
     cnt, n = hist_counts_banded(mv, mb_mask, lim)
+    return median_from_counts_t(cnt, n, lim)
+
+
+def median_from_counts_t(cnt, n, lim: int):
+    """The median's tail on the device: cumsum/argmax over (summed)
+    histogram counts → the (2,) int32 half-pel median."""
     cum = torch.cumsum(cnt, dim=0)
     hit = (cum >= (n + 1) // 2).to(torch.int32)
     return (torch.argmax(hit, dim=0) - lim).to(torch.int32)

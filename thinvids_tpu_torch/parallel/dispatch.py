@@ -36,8 +36,11 @@ thread up to `decode_ahead` waves ahead of dispatch.
 
 Split-frame encoding (:class:`SfeShardEncoder`, ``sfe_bands > 0``) is
 the single-stream latency mode: every frame is cut into MB-row bands,
-each band its own slice, held on the card as one band stack and stepped
-one frame at a time.
+each band its own slice, held on the card as a band stack (one run of
+bands a mesh entry) and stepped one frame at a time.
+
+On a :class:`~..core.devices.DeviceMesh` one host thread enqueues every
+entry's work in entry order, each on its own card's default stream.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ import numpy as np
 import torch
 
 from ..core.config import as_bool, get_settings
-from ..core.devices import resolve_device
+from ..core.devices import DeviceMesh, as_mesh
 from ..core.types import (BandPlan, EncodedSegment, Frame, GopSpec,
                           SegmentPlan, VideoMeta, is_yuv420)
 from ..obs import metrics as obs_metrics
@@ -433,13 +436,65 @@ def _encode_wave_dense(ys, us, vs, qps, *, mbw: int, mbh: int,
         for g in range(ys.shape[0])]).to(torch.int16)
 
 
+class Shards(tuple):
+    """One array of a wave spread over a device mesh: entry i's
+    contiguous run of the leading dimension, on entry i's device, in
+    entry order (the port's form of the reference's `P("gop")`-sharded
+    array). `shape` is the whole array's."""
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((sum(int(t.shape[0]) for t in self),)
+                          + tuple(self[0].shape[1:]))
+
+
+def _parts(x) -> list:
+    """The per-entry parts of `x` (a lone tensor is one part)."""
+    return list(x) if isinstance(x, Shards) else [x]
+
+
+def _join(parts):
+    """Per-entry parts → one array: the lone tensor of a one-entry
+    mesh, else Shards."""
+    return parts[0] if len(parts) == 1 else Shards(parts)
+
+
 def _to_host(t) -> np.ndarray:
+    if isinstance(t, Shards):
+        return np.concatenate([p.cpu().numpy() for p in t])
     return t.cpu().numpy()
+
+
+def _wait(events) -> None:
+    """Host-wait on a done event, or on each of a mesh's (None: the CPU,
+    nothing to wait for)."""
+    for ev in events if isinstance(events, list) else [events]:
+        if ev is not None:
+            ev.synchronize()
+
+
+def _runs(n: int, d: int) -> list[int]:
+    """Contiguous run lengths of `n` items over `d` entries, the first
+    entries taking one more when `d` does not divide `n`."""
+    q, r = divmod(int(n), int(d))
+    return [q + (1 if i < r else 0) for i in range(int(d))]
 
 
 class GopShardEncoder:
     """Encode a clip as closed GOPs (IDR + P, or all-intra) on one
-    device, in waves."""
+    device, or fanned across a :class:`~..core.devices.DeviceMesh`, in
+    waves.
+
+    On a mesh of D entries a wave holds D × `gops_per_wave` GOPs (padded
+    to a multiple of D with repeats of its last GOP, encoded and then
+    discarded, as the reference pads its `shard_map` wave), entry i's
+    contiguous run of GOPs is staged on entry i's device, and this
+    thread enqueues each entry's run in turn on its card's default
+    stream (:meth:`on_entries`): a card runs one entry's work while the
+    host enqueues the next's. Each entry records its own done event, and
+    the fetch moves one transfer per entry on a fetch pool, concatenated
+    in GOP order. The GOP plan rounds the GOP count to the mesh width,
+    so a stream depends on D: `mesh=None` is the one `device`."""
 
     def __init__(self, meta: VideoMeta, qp: int = 27, gop_frames: int = 32,
                  max_segments: int = 200, inter: bool = True,
@@ -449,8 +504,13 @@ class GopShardEncoder:
                  decode_ahead: int | None = None,
                  compact_transfer: bool | None = None,
                  pack_backend: str | None = None,
-                 rd: RdConfig | None = None, device="cuda"):
-        self.device = resolve_device(device)
+                 rd: RdConfig | None = None, device="cuda",
+                 mesh=None):
+        #: the entries the waves spread over (one, `device`, unless a
+        #: mesh is given); `device` is its first entry, the device of
+        #: everything that is per encoder
+        self.mesh = as_mesh(mesh, device)
+        self.device = self.mesh.devices[0]
         self.meta = meta
         self.qp = qp
         #: inter=True encodes each GOP as IDR + P frames (motion-coded);
@@ -509,6 +569,8 @@ class GopShardEncoder:
         self.staging_stats: dict = {"peak_resident_frames": 0}
         #: eager so concurrent collect_wave threads never race a lazy init
         self._pack_pool = self._new_pack_pool()
+        #: the per-entry fetch threads (None on one entry)
+        self._fetch_pool = self._new_fetch_pool()
         #: entropy-pack execution backend: "thread" (slice thunks on
         #: the pack pool) or "process" (GOP-granular shared-memory
         #: sidecars, packproc.py — unpack+pack outside this process's
@@ -541,7 +603,7 @@ class GopShardEncoder:
 
     @property
     def num_devices(self) -> int:
-        return 1
+        return self.mesh.size
 
     def plan(self, num_frames: int) -> SegmentPlan:
         if self.plan_override is not None:
@@ -549,65 +611,142 @@ class GopShardEncoder:
         return plan_segments(num_frames, self.gop_frames, self.num_devices,
                              self.max_segments)
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+    def _new_fetch_pool(self):
+        """min(32, 2D) fetch threads for a multi-entry mesh (None on one
+        entry), shut down with the encoder."""
+        if self.num_devices <= 1:
+            return None
+        import concurrent.futures as cf
+        import weakref
+
+        pool = cf.ThreadPoolExecutor(min(32, 2 * self.num_devices),
+                                     thread_name_prefix="tvt-fetch")
+        weakref.finalize(self, pool.shutdown, False)
+        return pool
+
+    def on_entries(self, fn) -> list:
+        """[fn(i) for each mesh entry i], in entry order from this
+        thread, each call with its entry's device and stream current.
+        The calls only enqueue work, so a card runs one entry's while the
+        host enqueues the next's."""
+        out = []
+        for i in range(self.num_devices):
+            with self.mesh.on(i):
+                out.append(fn(i))
+        return out
+
+    def _upload(self, arr: np.ndarray, entry: int = 0) -> torch.Tensor:
         t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        dev = self.mesh.devices[entry]
+        if dev.type != "cuda":
+            return t
+        # on the entry's stream, where its compute runs (the caching host
+        # allocator keeps the pinned buffer until the copy is done)
+        with self.mesh.on(entry):
+            return t.pin_memory().to(dev, non_blocking=True)
+
+    def _upload_split(self, arr: np.ndarray, runs, axis: int = 0):
+        """A host stack → entry i's run [a, b) of `axis` on entry i's
+        device, joined (_join: the lone tensor on one entry)."""
+        return _join([self._upload(np.ascontiguousarray(
+            arr[(slice(None),) * axis + (slice(a, b),)]), i)
+            for i, (a, b) in enumerate(runs)])
+
+    def _upload_runs(self, arr: np.ndarray):
+        """A (G, ...) host stack → entry i's contiguous run of G/D rows
+        on entry i's device (the lone tensor on one entry)."""
+        offs = np.cumsum([0] + _runs(arr.shape[0], self.num_devices))
+        return self._upload_split(arr, zip(offs[:-1], offs[1:]))
+
+    def _event(self, entry: int = 0):
+        """An event recorded on entry `entry`'s current stream after its
+        last enqueued kernel (None on the CPU)."""
+        dev = self.mesh.devices[entry]
+        if dev.type != "cuda":
+            return None
+        with torch.cuda.device(dev):
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+        return done
+
+    def _run_wave(self, fn, ysd, usd, vsd, qps):
+        """fn(ys, us, vs, qps) on each entry's run of the wave. Returns (the outputs joined over the entries,
+        one done event per entry)."""
+        ys, us, vs = _parts(ysd), _parts(usd), _parts(vsd)
+        offs = np.cumsum([0] + [int(y.shape[0]) for y in ys])
+
+        def one(i):
+            out = fn(ys[i], us[i], vs[i], qps[offs[i]:offs[i + 1]])
+            return out, self._event(i)
+
+        res = self.on_entries(one)
+        outs = [r[0] for r in res]
+        if isinstance(outs[0], tuple):
+            joined = tuple(_join([o[j] for o in outs])
+                           for j in range(len(outs[0])))
+        else:
+            joined = _join(outs)
+        return joined, [r[1] for r in res]
 
     def stage_waves(self, frames):
         """Host-side staging generator: stack frames into per-wave
         (G, F, H, W) device arrays, lazily, one wave per iteration, so a
         long clip never pins more than the pipeline window of waves on
         the device. The per-GOP QPs stay on the host (G,) int32."""
-        for wave, F, cursor in self._wave_groups(frames, require_420=True):
+        for wave, full, F, cursor in self._wave_groups(frames,
+                                                       require_420=True):
             # prefetch the wave's frames OUTSIDE the "stage" timer so
             # the breakdown keeps decode (source pull) and stage
             # (stack + H2D) disjoint
             cursor.get(wave[-1].end_frame - 1)
             with self.stages.stage("stage"):
                 ys = np.stack([self._gop_plane(cursor, g, F, "y")
-                               for g in wave])
+                               for g in full])
                 us = np.stack([self._gop_plane(cursor, g, F, "u")
-                               for g in wave])
+                               for g in full])
                 vs = np.stack([self._gop_plane(cursor, g, F, "v")
-                               for g in wave])
+                               for g in full])
                 qps = np.asarray([self.gop_qp.get(g.index, self.qp)
-                                  for g in wave], np.int32)
+                                  for g in full], np.int32)
                 self.stages.bump("h2d_bytes",
                                  ys.nbytes + us.nbytes + vs.nbytes)
-                staged = (wave, self._upload(ys), self._upload(us),
-                          self._upload(vs), qps)
+                staged = (wave, self._upload_runs(ys),
+                          self._upload_runs(us), self._upload_runs(vs),
+                          qps)
             yield staged
 
     def stage_luma_waves(self, frames):
         """Luma-only staging for analysis passes (rate control): chroma
         never leaves the host, halving the upload of a pass that only
         reads Y. Yields (wave, ys), ys the (G, F, H, W) uint8 stack on
-        this encoder's device."""
-        for wave, F, cursor in self._wave_groups(frames):
+        this encoder's device (Shards on a mesh, pad GOPs included)."""
+        for wave, full, F, cursor in self._wave_groups(frames):
             cursor.get(wave[-1].end_frame - 1)   # decode outside "stage"
             with self.stages.stage("stage"):
                 ys = np.stack([self._gop_plane(cursor, g, F, "y")
-                               for g in wave])
+                               for g in full])
                 self.stages.bump("h2d_bytes", ys.nbytes)
-                staged = (wave, self._upload(ys))
+                staged = (wave, self._upload_runs(ys))
             yield staged
 
     def _wave_groups(self, frames, require_420: bool = False):
-        """Wave grouping: (wave, static F, frame cursor). Stacks into
-        (G, F, ...) with tail-repeat padding to static F. The cursor
+        """Wave grouping: (wave, mesh-padded wave, static F, frame
+        cursor). Stacks into (G, F, ...) with tail-repeat padding to
+        static F; the wave itself pads to a multiple of D GOPs with
+        repeats of its last GOP (encoded, then discarded). The cursor
         decodes frames on demand and each wave's frames are released
         once the caller has staged them."""
         plan = self.plan(len(frames))
         cursor = _FrameCursor(frames, self.stages, require_420=require_420,
                               stats=self.staging_stats)
+        D = self.num_devices
         gops = list(plan.gops)
-        per_wave = self.gops_per_wave if self.inter else 1
+        per_wave = D * (self.gops_per_wave if self.inter else 1)
         for wave_start in range(0, len(gops), per_wave):
             wave = gops[wave_start:wave_start + per_wave]
             F = max(g.num_frames for g in wave)
-            yield wave, F, cursor
+            full = wave + [wave[-1]] * ((-len(wave)) % D)
+            yield wave, full, F, cursor
             cursor.release_below(wave[-1].end_frame)
 
     def prepare_waves(self, frames) -> tuple[SegmentPlan, list[tuple]]:
@@ -636,17 +775,14 @@ class GopShardEncoder:
             ph, pw = ysd.shape[2], ysd.shape[3]
             mbh, mbw = ph // 16, pw // 16
             if self.inter:
-                out = _encode_gop_single(ysd, usd, vsd, qps, mbw=mbw,
-                                         mbh=mbh,
-                                         compact=self.compact_transfer,
-                                         rd=self.rd)
+                fn = functools.partial(_encode_gop_single, mbw=mbw,
+                                       mbh=mbh,
+                                       compact=self.compact_transfer,
+                                       rd=self.rd)
             else:
-                out = _encode_wave(ysd, usd, vsd, qps, mbw=mbw, mbh=mbh,
-                                   rd=self.rd)
-            done = None
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+                fn = functools.partial(_encode_wave, mbw=mbw, mbh=mbh,
+                                       rd=self.rd)
+            out, done = self._run_wave(fn, ysd, usd, vsd, qps)
             return (wave, ysd, usd, vsd, qps, mbw, mbh, out, done)
 
     def _new_pack_pool(self):
@@ -688,9 +824,25 @@ class GopShardEncoder:
         return pool
 
     def _fetch_bulk(self, arrays) -> list[np.ndarray]:
-        """Device→host fetch of whole arrays (one device: plain copies)."""
-        host = [_to_host(a) for a in arrays]
-        self.stages.bump("d2h_bytes", sum(int(a.nbytes) for a in host))
+        """Device→host fetch of whole arrays: plain copies on one entry;
+        on a mesh one transfer per entry, every entry of every array in
+        flight at once on the fetch pool, concatenated in GOP order."""
+        pool = self._fetch_pool
+        if pool is None:
+            host = [_to_host(a) for a in arrays]
+            self.stages.bump("d2h_bytes", sum(int(a.nbytes) for a in host))
+            return host
+        futss = []
+        for arr in arrays:
+            parts = _parts(arr)
+            self.stages.bump("fetch_shards", len(parts))
+            futss.append([pool.submit(_to_host, p) for p in parts])
+        host = []
+        for futs in futss:
+            parts = [f.result() for f in futs]
+            a = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            self.stages.bump("d2h_bytes", int(a.nbytes))
+            host.append(a)
         return host
 
     #: payload fetch slice quantum cap (bytes): used prefixes round up
@@ -711,9 +863,26 @@ class GopShardEncoder:
         def cut(n) -> int:
             return min(PB, -(-max(int(n), 1) // q) * q)
 
-        host = _to_host(payload[:, :cut(used.max())])
-        self.stages.bump("d2h_bytes", int(host.nbytes))
-        return list(host)
+        pool = self._fetch_pool
+        if pool is None or not isinstance(payload, Shards):
+            host = _to_host(payload[:, :cut(used.max())])
+            self.stages.bump("d2h_bytes", int(host.nbytes))
+            return list(host)
+        # one transfer per entry, each cut to its own GOPs' longest use
+        self.stages.bump("fetch_shards", len(payload))
+        futs, a = [], 0
+        for part in payload:
+            n = int(part.shape[0])
+            futs.append(pool.submit(
+                lambda d=part, m=cut(used[a:a + n].max()):
+                _to_host(d[:, :m])))
+            a += n
+        rows: list = []
+        for f in futs:
+            part = f.result()
+            self.stages.bump("d2h_bytes", int(part.nbytes))
+            rows.extend(part)
+        return rows
 
     @staticmethod
     def _release_spool(shm, spools: list) -> None:
@@ -811,8 +980,7 @@ class GopShardEncoder:
         # from the bulk D2H fetch in the stage breakdown — and letting
         # a budget overflow skip the bulk sparse fetch entirely.
         with prof.stage("device_wait"):
-            if done is not None:
-                done.synchronize()
+            _wait(done)
             if self.inter:
                 tiny = [_to_host(t) for t in (out[2:6] if compact
                                               else out[2:5])]
@@ -855,12 +1023,12 @@ class GopShardEncoder:
             # counter so overflow-prone content is visible.
             prof.bump("dense_fallback_waves")
             with prof.stage("dense_retry"):
-                if self.inter:
-                    flat = _to_host(_encode_gop_single_dense(
-                        ysd, usd, vsd, qps, mbw=mbw, mbh=mbh, rd=self.rd))
-                else:
-                    flat = _to_host(_encode_wave_dense(
-                        ysd, usd, vsd, qps, mbw=mbw, mbh=mbh, rd=self.rd))
+                fn = functools.partial(
+                    _encode_gop_single_dense if self.inter
+                    else _encode_wave_dense, mbw=mbw, mbh=mbh, rd=self.rd)
+                dense, events = self._run_wave(fn, ysd, usd, vsd, qps)
+                _wait(events)
+                flat = _to_host(dense)
                 prof.bump("d2h_bytes", int(flat.nbytes))
                 if self.inter:
                     # the dense program re-emits levels only; MVs still
@@ -1040,10 +1208,11 @@ class GopShardEncoder:
 # slices is a legal picture with no host-side re-mux.
 #
 # The reference puts one band on each device of a ("band",) mesh and caps
-# the band count at the device count; here every band lives on the one
-# card as a leading band dimension, and the layout is plan_bands(mbh,
-# mbw, sfe_bands) whatever the device count — the reference's streams on
-# as many devices as there are bands, byte for byte.
+# the band count at the device count; here a mesh entry holds a run of
+# bands on its card as a leading band dimension, and the layout is
+# plan_bands(mbh, mbw, sfe_bands) whatever the device count — the
+# reference's streams on as many devices as there are bands, byte for
+# byte.
 # ---------------------------------------------------------------------------
 
 
@@ -1065,115 +1234,78 @@ def _sfe_pack_band(flat):
 
 
 def _sfe_intra_step(ys, us, vs, qp: int, real_rows, *, mbw: int,
-                    mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0):
+                    mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0,
+                    dense: bool = False, defer_deblock: bool = False):
     """One IDR frame of a band stack (ys (B, Hb, W)): the slice-local
-    intra core per band and the compact pack of each band's levels.
-    Returns (dense, nblk, nval, n_esc, used, payload) with a leading band
-    dimension, then the recon carry (ry, ru, rv, pred_mv)."""
-    dense, rest, carry = torchinter.sfe_intra_band(
-        ys, us, vs, qp, real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
-        total_mb_rows=total_mb_rows)
-    return (dense,) + _sfe_pack_band(rest) + carry
-
-
-def _sfe_p_step(ys, us, vs, ry, ru, rv, pmv, qp: int, real_rows, *,
-                mbw: int, mbh_band: int, halo_rows: int, rd=RD_OFF,
-                total_mb_rows: int = 0):
-    """One P frame of a band stack: the banded search, the residual and
-    the compact pack of each band's levels. Returns (mv8, nblk, nval,
-    n_esc, used, payload) with a leading band dimension, then the carry
-    (ry, ru, rv, med_mv)."""
-    mv8, flat, carry = torchinter.sfe_p_band(
-        ys, us, vs, (ry, ru, rv, pmv), qp, real_rows, mbw=mbw,
-        mbh_band=mbh_band, halo_rows=halo_rows, rd=rd,
-        total_mb_rows=total_mb_rows)
-    return (mv8,) + _sfe_pack_band(flat) + carry
-
-
-def _sfe_intra_step_dense(ys, us, vs, qp: int, real_rows, *, mbw: int,
-                          mbh_band: int, rd=RD_OFF, total_mb_rows: int = 0):
-    """Escape fallback: the same intra step emitting each band's flat
-    int16 levels uncompressed (layout.unflatten_intra's inverse)."""
-    flat, carry = torchinter.sfe_intra_band_dense(
-        ys, us, vs, qp, real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
-        total_mb_rows=total_mb_rows)
-    return (flat,) + carry
-
-
-def _sfe_p_step_dense(ys, us, vs, ry, ru, rv, pmv, qp: int, real_rows, *,
-                      mbw: int, mbh_band: int, halo_rows: int, rd=RD_OFF,
-                      total_mb_rows: int = 0):
-    mv8, flat, carry = torchinter.sfe_p_band(
-        ys, us, vs, (ry, ru, rv, pmv), qp, real_rows, mbw=mbw,
-        mbh_band=mbh_band, halo_rows=halo_rows, rd=rd,
-        total_mb_rows=total_mb_rows)
-    return (mv8, flat) + carry
+    intra core per band and each band's levels, with a leading band
+    dimension: (dense, nblk, nval, n_esc, used, payload), the hadamard DC
+    prefix uncompressed and the rest compact-packed — or, when `dense`
+    (the escape fallback), (flat,), every level uncompressed
+    (layout.unflatten_intra's inverse). Returns (levels, (ry, ru, rv));
+    `defer_deblock` leaves the carry for torchinter.sfe_deblock."""
+    kw = dict(mbw=mbw, mbh_band=mbh_band, rd=rd, total_mb_rows=total_mb_rows,
+              defer_deblock=defer_deblock)
+    if dense:
+        flat, carry = torchinter.sfe_intra_band_dense(ys, us, vs, qp,
+                                                      real_rows, **kw)
+        return (flat,), carry[:3]
+    head, rest, carry = torchinter.sfe_intra_band(ys, us, vs, qp, real_rows,
+                                                  **kw)
+    return (head,) + _sfe_pack_band(rest), carry[:3]
 
 
 # ---------------------------------------------------------------------------
-# farm-split SFE steps (cross-HOST band slices, parallel/sfefarm.py)
+# the P step of a RUN of bands
 #
-# The local steps above take every band of the frame as one stack, so
-# the halo exchange and the probe/median sums run over the whole layout.
-# When the layout spans HOSTS, each host holds a slice of it and the
-# cross-host halves move to the host side: neighbour reference rows
-# arrive as injected inputs (cluster/halo.py carries them between hosts
-# per frame), the probe splits into a per-slice partial cost + a host
-# argmin, and the median histogram leaves the card as a per-slice
-# partial. All three are integer sums, so the host-side reduction equals
-# the whole layout's — the farm stream equals the local SFE stream.
-# `edges` = (edge_top, edge_bot): whether the slice's first / last band
-# is the frame's.
+# A run is a mesh entry's contiguous bands, or a farm host's slice of a
+# cross-host layout (parallel/sfefarm.py), or the whole layout on one
+# entry. The halo exchange and the probe/median sums span the whole
+# layout, so their cross-run halves move outside the step: neighbour
+# reference rows arrive as injected inputs (a peer copy between the
+# entries of a mesh; cluster/halo.py between hosts), the probe splits
+# into a per-run partial cost + an argmin of the sum, and the median
+# histogram leaves the step as a per-run partial. All three are integer
+# sums, so the reduction equals the whole layout's — every split's
+# stream equals one stack's. `edges` = (edge_top, edge_bot): whether the
+# run's first / last band is the frame's.
 # ---------------------------------------------------------------------------
 
 
 def _sfe_probe_step(cur_y, ref_y, real_rows, top_y, bot_y, edges):
-    """Per-slice half of the split global-motion probe: the slice's
-    bands' partial per-window SAD cost, summed over the slice. Returns
-    the (n*n,) int32 cost vector; the host sums it with its peers' and
-    argmins the sum (torchme.probe_center_from_cost)."""
+    """Per-run half of the split global-motion probe: the run's bands'
+    partial per-window SAD cost, summed over the run. Returns the (n*n,)
+    int32 cost vector; the caller sums it with the other runs' and
+    argmins the sum (torchme.probe_center_t)."""
     return torchme.banded_probe_cost(
         cur_y.to(torch.int16), ref_y, real_rows, top_ext=top_y,
         bot_ext=bot_y, edge_top=edges[0], edge_bot=edges[1])
 
 
-def _sfe_p_step_farm(ys, us, vs, ry, ru, rv, pred_mv, probe, ty, by, tu,
-                     bu, tv, bv, qp: int, real_rows, edges, *, mbw: int,
-                     mbh_band: int, halo_rows: int, rd=RD_OFF):
-    """One P frame of a band SLICE: the search runs on halo-extended
-    planes whose slice-edge rows were injected by the host (`ty..bv`,
-    (rows, W) each, or None at a frame edge), the probe center and the
-    temporal median arrive as host inputs, and the slice's histogram
-    partial rides out beside the compact level streams. Returns (mv8,
-    nblk, nval, n_esc, used, payload, cnt, n, ry, ru, rv)."""
+def _sfe_p_step(ys, us, vs, carry3, pred_mv, probe, ext, qp: int,
+                real_rows, edges, *, mbw: int, mbh_band: int,
+                halo_rows: int, rd=RD_OFF, dense: bool = False,
+                defer_deblock: bool = False):
+    """One P frame of a run of bands: the search runs on halo-extended
+    planes whose run-edge rows are injected (`ext` = (ty, by, tu, bu,
+    tv, bv), (rows, W) each, None at a frame edge), the probe center and
+    the temporal median are inputs, and the run's histogram partial
+    comes out beside its levels — (mv8, nblk, nval, n_esc, used,
+    payload), or (mv8, flat) uncompressed when `dense`. Returns (levels,
+    (cnt, n), (ry, ru, rv), the deblock inputs: (nz4, mv) with
+    `defer_deblock` and rd.deblock, else ())."""
     mv8, flat, cnt, n, carry = torchinter.sfe_p_band(
-        ys, us, vs, (ry, ru, rv, pred_mv), qp, real_rows, mbw=mbw,
-        mbh_band=mbh_band, halo_rows=halo_rows,
-        ext=(ty, by, tu, bu, tv, bv), edge_top=edges[0],
-        edge_bot=edges[1], probe=probe, return_hist=True, rd=rd)
-    return (mv8,) + _sfe_pack_band(flat) + (cnt, n) + carry[:3]
-
-
-def _sfe_p_step_farm_dense(ys, us, vs, ry, ru, rv, pred_mv, probe, ty, by,
-                           tu, bu, tv, bv, qp: int, real_rows, edges, *,
-                           mbw: int, mbh_band: int, halo_rows: int,
-                           rd=RD_OFF):
-    """Escape fallback for the farm P step: same compute, uncompressed
-    int16 levels. The replay is host-local (the cached per-frame
-    injected inputs fully determine this slice's bits), so no histogram
-    leaves the card. Returns (mv8, flat, ry, ru, rv)."""
-    mv8, flat, _cnt, _n, carry = torchinter.sfe_p_band(
-        ys, us, vs, (ry, ru, rv, pred_mv), qp, real_rows, mbw=mbw,
-        mbh_band=mbh_band, halo_rows=halo_rows,
-        ext=(ty, by, tu, bu, tv, bv), edge_top=edges[0],
-        edge_bot=edges[1], probe=probe, return_hist=True, rd=rd)
-    return (mv8, flat) + carry[:3]
+        ys, us, vs, tuple(carry3) + (pred_mv,), qp, real_rows, mbw=mbw,
+        mbh_band=mbh_band, halo_rows=halo_rows, ext=ext,
+        edge_top=edges[0], edge_bot=edges[1], probe=probe,
+        return_hist=True, rd=rd, defer_deblock=defer_deblock)
+    levels = (mv8, flat) if dense else (mv8,) + _sfe_pack_band(flat)
+    return levels, (cnt, n), carry[:3], carry[4:]
 
 
 class SfeShardEncoder(GopShardEncoder):
     """Split-frame encoding: ONE frame cut into horizontal MB-row bands,
-    each entropy-coded as its own H.264 slice, all bands held on one
-    card as a band stack.
+    each entropy-coded as its own H.264 slice, the bands held as band
+    stacks: one contiguous run of bands a mesh entry.
 
     The GOP walk is sequential (this is the single-stream latency mode —
     GOP-level parallelism is the parent class); within a GOP, frames
@@ -1205,19 +1337,21 @@ class SfeShardEncoder(GopShardEncoder):
                  decode_ahead: int | None = None,
                  total_bands: int = 0,
                  band_range: tuple[int, int] | None = None,
-                 rd: RdConfig | None = None, device="cuda"):
+                 rd: RdConfig | None = None, device="cuda", mesh=None):
         snap = get_settings()
+        mesh = as_mesh(mesh, device)
         mbh = (meta.height + 15) // 16
         mbw = (meta.width + 15) // 16
         #: pinned GLOBAL band layout: a pure function of (mbh, mbw,
-        #: bands). The reference caps `bands` at its device count; one
-        #: card holds every band here (bands=0 = one band per device =
-        #: one). On a farm the coordinator pins `total_bands` for the
-        #: whole frame and `band_range=(lo, hi)` assigns this encoder a
-        #: contiguous slice of it (the cross-host SFE shard,
-        #: parallel/sfefarm.py) — the layout (and so the slice structure
-        #: of the bitstream) never depends on any one host.
-        want = int(total_bands) or int(bands) or 1
+        #: bands). The reference caps `bands` at its device count; here
+        #: an explicit count is never capped (a card holds any number of
+        #: bands), and bands=0 = one band per mesh entry. On a farm the
+        #: coordinator pins `total_bands` for the whole frame and
+        #: `band_range=(lo, hi)` assigns this encoder a contiguous slice
+        #: of it (the cross-host SFE shard, parallel/sfefarm.py) — the
+        #: layout (and so the slice structure of the bitstream) never
+        #: depends on any one host.
+        want = int(total_bands) or int(bands) or mesh.size
         self.global_band_plan: BandPlan = plan_bands(mbh, mbw,
                                                      max(1, want))
         lo, hi = band_range if band_range is not None \
@@ -1236,12 +1370,22 @@ class SfeShardEncoder(GopShardEncoder):
         #: SPS/PPS — only the slice that owns band 0 emits them (a farm
         #: peer's slices join the SAME access unit downstream)
         self.emit_parameter_sets = lo == 0
+        #: the bands split into contiguous runs, one a mesh entry (a mesh
+        #: wider than the layout leaves its last entries idle). A slice of
+        #: a larger layout (a farm shard) stays on the first entry: its
+        #: neighbours are other hosts, reached over the halo relay.
+        whole = (lo, hi) == (0, self.global_band_plan.num_bands)
+        entries = min(mesh.size, hi - lo) if whole else 1
+        offs = np.cumsum([0] + _runs(hi - lo, entries))
+        self._band_runs = tuple(zip(offs[:-1].tolist(), offs[1:].tolist()))
+        if entries < mesh.size:
+            mesh = DeviceMesh(mesh.devices[:entries])
         super().__init__(meta, qp=qp, gop_frames=gop_frames,
                          max_segments=max_segments, inter=True,
                          gops_per_wave=1, pack_workers=pack_workers,
                          pipeline_window=pipeline_window,
                          decode_ahead=decode_ahead, pack_backend="thread",
-                         rd=rd, device=device)
+                         rd=rd, device=device, mesh=mesh)
         if halo_rows is None:
             halo_rows = int(snap.get("sfe_halo_rows", 32) or 32)
         #: reference rows exchanged per side (multiple of 16). >= 23
@@ -1336,7 +1480,9 @@ class SfeShardEncoder(GopShardEncoder):
                     planes.append(a.reshape(a.shape[0], B,
                                             Hb // div, a.shape[2]))
                 self.stages.bump("h2d_bytes", sum(a.nbytes for a in planes))
-                ys, us, vs = (self._upload(a) for a in planes)
+                # entry r's run of bands, (F, n_r, Hb, W), on entry r
+                ys, us, vs = (self._upload_split(a, self._band_runs, 1)
+                              for a in planes)
                 qp = int(self.gop_qp.get(gop.index, self.qp))
             yield (gop, ys, us, vs, qp)
             cursor.release_below(gop.end_frame)
@@ -1361,52 +1507,148 @@ class SfeShardEncoder(GopShardEncoder):
         return 1
 
     def _intra_step(self, ys, us, vs, qp: int, dense: bool = False):
+        """The IDR step of this encoder's whole stack (a farm slice's
+        lockstep walk): (levels, (ry, ru, rv)), as _sfe_intra_step."""
         bp = self.band_plan
-        step = _sfe_intra_step_dense if dense else _sfe_intra_step
-        return step(ys, us, vs, qp, self._real_rows, mbw=bp.mb_width,
-                    mbh_band=bp.band_mb_rows, rd=self.rd,
-                    total_mb_rows=self._total_mb_rows)
-
-    def _p_step(self, ys, us, vs, carry, qp: int, dense: bool = False):
-        bp = self.band_plan
-        step = _sfe_p_step_dense if dense else _sfe_p_step
-        return step(ys, us, vs, *carry, qp, self._real_rows,
-                    mbw=bp.mb_width, mbh_band=bp.band_mb_rows,
-                    halo_rows=self.halo_rows, rd=self.rd,
-                    total_mb_rows=self._total_mb_rows)
-
-    def _frame_event(self):
-        """An event recorded after the frame's last kernel (CUDA), for the
-        collector thread to wait on before it copies."""
-        if self.device.type != "cuda":
-            return None
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return done
+        return _sfe_intra_step(ys, us, vs, qp, self._real_rows,
+                               mbw=bp.mb_width, mbh_band=bp.band_mb_rows,
+                               rd=self.rd, total_mb_rows=self._total_mb_rows,
+                               dense=dense)
 
     def dispatch_wave(self, staged: tuple) -> tuple:
-        """Enqueue one GOP's per-frame steps (the card runs them in order
-        as the recon carry chains). Returns the per-frame outputs, each
-        frame's carry (the keep_recon hook only) and each frame's done
-        event."""
+        """Enqueue one GOP's per-frame steps (:meth:`_walk`; the cards run
+        them in order as the recon carry chains). Returns the per-frame
+        outputs, each frame's carry (the keep_recon hook only) and each
+        frame's done events, one per entry."""
         with self.stages.stage("dispatch"):
             gop, ys, us, vs, qp = staged
-            outs: list[tuple] = []
-            carries: list = []
-            events: list = []
-            carry = None
-            for fi in range(gop.num_frames):
-                if fi == 0:
-                    r = self._intra_step(ys[0], us[0], vs[0], qp)
-                else:
-                    r = self._p_step(ys[fi], us[fi], vs[fi], carry, qp)
-                carry = r[6:]
-                outs.append(r[:6])
-                # per-frame carries stay alive ONLY for the test hook:
-                # each is a full set of band recon planes
-                carries.append(carry if self.keep_recon else None)
-                events.append(self._frame_event())
+            outs, carries, events = (list(x) for x in zip(
+                *self._walk(gop.num_frames, ys, us, vs, qp)))
             return (gop, staged, outs, carries, events)
+
+    # -- the runs of bands ------------------------------------------------
+
+    def _walk(self, nf: int, ys, us, vs, qp: int, dense: bool = False):
+        """Step one GOP over every entry's run of bands, a frame at a time:
+        each entry's step is enqueued on its card, and between the steps
+        the inputs that cross runs move — the edge rows of the runs
+        beside it, the probe cost and the median histograms summed over
+        every run, and with rd.deblock the filter's one-MB-row halo. All
+        reductions are integer sums, so each run's levels and recon equal
+        those rows of one stack's step. Yields per frame (the levels
+        joined over the entries in band order, the carry joined — for the
+        keep_recon hook, else None — and one done event per entry)."""
+        bp = self.band_plan
+        E = self.num_devices
+        ys, us, vs = _parts(ys), _parts(us), _parts(vs)
+        rows = [self._real_rows[b0:b1] for b0, b1 in self._band_runs]
+        edges = [(r == 0, r == E - 1) for r in range(E)]
+        kw = dict(mbw=bp.mb_width, mbh_band=bp.band_mb_rows, rd=self.rd,
+                  dense=dense, defer_deblock=self.rd.deblock)
+        carry = ext = pred = hists = None
+        for fi in range(nf):
+            if fi == 0:
+                levels, carry = zip(*self.on_entries(
+                    lambda r: _sfe_intra_step(ys[r][0], us[r][0], vs[r][0],
+                                              qp, rows[r], **kw)))
+                db_in = [()] * E
+            else:
+                cost = self.on_entries(lambda r: _sfe_probe_step(
+                    ys[r][fi], carry[r][0], rows[r], ext[r][0], ext[r][1],
+                    edges[r]))
+                probe = self._to_all(torchme.probe_center_t(
+                    self._sum(cost)))
+                levels, hists, carry, db_in = zip(*self.on_entries(
+                    lambda r: _sfe_p_step(
+                        ys[r][fi], us[r][fi], vs[r][fi], carry[r], pred[r],
+                        probe[r], ext[r], qp, rows[r], edges[r],
+                        halo_rows=self.halo_rows, **kw)))
+            if self.rd.deblock:
+                carry = self._deblock_runs(carry, db_in, qp)
+            events = [self._event(r) for r in range(E)]
+            yield (tuple(_join(list(p)) for p in zip(*levels)),
+                   tuple(_join(list(p)) for p in zip(*carry))
+                   if self.keep_recon else None, events)
+            if fi < nf - 1:
+                ext = self._run_edges(carry)
+                if hists is None:
+                    pred = self._to_all(torch.zeros(
+                        2, dtype=torch.int32, device=self.device))
+                else:
+                    pred = self._to_all(torchme.median_from_counts_t(
+                        self._sum([h[0] for h in hists]),
+                        self._sum([h[1] for h in hists]),
+                        2 * torchme.SEARCH_RANGE))
+
+    def _recv(self, t, src: int, dst: int):
+        """Entry `src`'s tensor `t` on entry `dst`'s device: `t` itself on
+        one device (this thread enqueues both entries' work on the one
+        stream, in order), else a peer copy, ordered on both cards'
+        streams after `t` is made and before `dst` reads it."""
+        mesh = self.mesh
+        if t is None or mesh.devices[src] == mesh.devices[dst]:
+            return t
+        with torch.cuda.stream(mesh.stream(src)), \
+                torch.cuda.stream(mesh.stream(dst)):
+            return t.to(mesh.devices[dst], non_blocking=True)
+
+    def _sum(self, parts):
+        """The sum of every entry's tensor, on the first entry (integer
+        sums: exact in any order)."""
+        total = parts[0]
+        for src in range(1, len(parts)):
+            total = total + self._recv(parts[src], src, 0)
+        return total
+
+    def _to_all(self, t) -> list:
+        """The first entry's tensor `t` on every entry."""
+        return [self._recv(t, 0, r) for r in range(self.num_devices)]
+
+    def _run_edges(self, carry) -> list:
+        """Each run's injected rows for the next frame's search, on its
+        entry: (ty, by, tu, bu, tv, bv), the last halo rows of the run
+        above and the first of the run below (None at a frame edge)."""
+        halo, hc = self.halo_rows, self.halo_rows // 2
+        E = self.num_devices
+        out = []
+        for r in range(E):
+            ext = [None] * 6
+            if r > 0:
+                ry, ru, rv = carry[r - 1]
+                ext[0::2] = [self._recv(t, r - 1, r) for t in (
+                    ry[-1, -halo:], ru[-1, -hc:], rv[-1, -hc:])]
+            if r < E - 1:
+                ry, ru, rv = carry[r + 1]
+                ext[1::2] = [self._recv(t, r + 1, r) for t in (
+                    ry[0, :halo], ru[0, :hc], rv[0, :hc])]
+            out.append(tuple(ext))
+        return out
+
+    def _deblock_runs(self, carry, db_in, qp: int) -> list:
+        """The in-loop filter of every run on its unfiltered carry, each
+        run extended by one MB row of the runs beside it."""
+        bp = self.band_plan
+        E = self.num_devices
+        kw = dict(mbw=bp.mb_width, mbh_band=bp.band_mb_rows)
+        halos = [torchinter.sfe_deblock_edges(*carry[r], *db_in[r], **kw)
+                 for r in range(E)]
+
+        def side(src: int, dst: int, which: int):
+            if not 0 <= src < E:
+                return None
+            return {k: self._recv(t, src, dst)
+                    for k, t in halos[src][which].items()}
+
+        def one(r: int):
+            b0, b1 = self._band_runs[r]
+            return torchinter.sfe_deblock(
+                *carry[r], qp, self._real_rows[b0:b1],
+                **dict(zip(("nz4", "mv"), db_in[r])),
+                total_mb_rows=self._total_mb_rows,
+                band0=self.band_lo + b0, above=side(r - 1, r, 1),
+                below=side(r + 1, r, 0), **kw)
+
+        return self.on_entries(one)
 
     # -- per-frame collect ---------------------------------------------
 
@@ -1512,7 +1754,7 @@ class SfeShardEncoder(GopShardEncoder):
     def _keep_recon(self, carry, frame_index: int) -> None:
         h, w = self.meta.height, self.meta.width
         self.recon_frames[frame_index] = tuple(
-            _to_host(p.reshape(-1, p.shape[-1]))[:rows, :cols].astype(
+            _to_host(p).reshape(-1, p.shape[-1])[:rows, :cols].astype(
                 np.uint8)
             for p, rows, cols in zip(carry[:3], (h, h // 2, h // 2),
                                      (w, w // 2, w // 2)))
@@ -1547,8 +1789,7 @@ class SfeShardEncoder(GopShardEncoder):
         for fi, out in enumerate(outs):
             head, nblk, nval, n_esc, used, payload = out
             with prof.stage("device_wait"):
-                if events[fi] is not None:
-                    events[fi].synchronize()
+                _wait(events[fi])
                 tiny = [_to_host(t) for t in (nblk, nval, n_esc, used)]
             prof.bump("d2h_bytes", sum(int(a.nbytes) for a in tiny))
             nblk_h, nval_h, nesc_h, used_h = tiny
@@ -1595,20 +1836,11 @@ class SfeShardEncoder(GopShardEncoder):
         path are kept — levels are identical either way."""
         prof = self.stages
         bp = self.band_plan
-        _, ys, us, vs, qp = staged
+        qp = staged[4]
         idr_pic_id = gop.index % 65536
         prof.bump("dense_fallback_waves")
         with prof.stage("dense_retry"):
-            carry = None
-            for fi in range(gop.num_frames):
-                if fi == 0:
-                    r = self._intra_step(ys[0], us[0], vs[0], qp,
-                                         dense=True)
-                    head, flat, carry = None, r[0], r[1:]
-                else:
-                    r = self._p_step(ys[fi], us[fi], vs[fi], carry, qp,
-                                     dense=True)
-                    head, flat, carry = r[0], r[1], r[2:]
+            for fi, head, flat, carry in self._dense_frames(gop, staged):
                 if fi < dense_from:
                     continue            # already packed from sparse
                 if head is None:
@@ -1630,6 +1862,16 @@ class SfeShardEncoder(GopShardEncoder):
                 if self.keep_recon:
                     self._keep_recon(carry, gop.start_frame + fi)
         return nals
+
+    def _dense_frames(self, gop: GopSpec, staged: tuple):
+        """The dense-transfer steps of one GOP: (fi, mv8 or None, flat,
+        carry) per frame, ready to fetch."""
+        _, ys, us, vs, qp = staged
+        for fi, (levels, carry, events) in enumerate(self._walk(
+                gop.num_frames, ys, us, vs, qp, dense=True)):
+            _wait(events)
+            head, flat = (None, levels[0]) if fi == 0 else levels
+            yield fi, head, flat, carry
 
     def frame_latencies_ms(self) -> list[float]:
         """Per-frame pipeline latency: the gap between consecutive
@@ -1666,17 +1908,16 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
     (parallel/sfefarm.FarmBandEncoder) with `session` carrying the halo
     exchange.
 
-    A device mesh (multi-GPU waves) is not ported yet and raises
-    NotImplementedError naming its ROADMAP item (A2) rather than
-    encoding something else in its place."""
+    `mesh` (a core.devices.DeviceMesh) spreads the GOP waves, the
+    ladder's waves or the split-frame bands over its entries; None is
+    the one `device`. A farm band slice stays on the mesh's first
+    entry."""
     if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (multi-GPU waves) is not ported yet (ROADMAP "
-            "A2); pass mesh=None for one card")
+        mesh = as_mesh(mesh)
     if rungs:
         from ..abr.ladder import LadderShardEncoder
 
-        return LadderShardEncoder(meta, list(rungs),
+        return LadderShardEncoder(meta, list(rungs), mesh=mesh,
                                   gop_frames=int(settings.gop_frames),
                                   max_segments=int(settings.max_segments),
                                   device=device)
@@ -1694,26 +1935,27 @@ def make_shard_encoder(meta: VideoMeta, settings, mesh=None, *,
                 meta, qp=qp, gop_frames=int(settings.gop_frames),
                 max_segments=int(settings.max_segments),
                 total_bands=total_bands, band_range=band_range,
-                halo_rows=halo_rows, session=session, device=device)
+                halo_rows=halo_rows, session=session, device=device,
+                mesh=mesh)
         return SfeShardEncoder(
             meta, qp=qp, gop_frames=int(settings.gop_frames),
             max_segments=int(settings.max_segments),
             bands=int(settings.get("sfe_bands", 0) or 0),
-            halo_rows=halo_rows, device=device)
+            halo_rows=halo_rows, device=device, mesh=mesh)
     if shape != "gop":
         raise ValueError(f"unknown shard shape {shape!r}")
     return GopShardEncoder(meta, qp=qp,
                            gop_frames=int(settings.gop_frames),
                            max_segments=int(settings.max_segments),
-                           device=device)
+                           device=device, mesh=mesh)
 
 
 def encode_clip_sharded(frames: list[Frame], meta: VideoMeta, qp: int = 27,
                         gop_frames: int = 32, inter: bool = True,
-                        device="cuda") -> bytes:
+                        device="cuda", mesh=None) -> bytes:
     """Convenience: plan → shard encode → order-restoring concat."""
     from ..core.types import concat_segments
 
     enc = GopShardEncoder(meta, qp=qp, gop_frames=gop_frames, inter=inter,
-                          device=device)
+                          device=device, mesh=mesh)
     return concat_segments(enc.encode(frames))

@@ -1,11 +1,14 @@
-"""Rate control: complexity-adaptive QP + two-pass VBR on one card.
+"""Rate control: complexity-adaptive QP + two-pass VBR on a card or a
+device mesh.
 
 Per-GOP complexity stats come from a device analysis program over the
 luma planes (`GopShardEncoder.stage_luma_waves`); the host then solves
 per-GOP QPs against the bitrate target using the standard
 R ∝ 2^(-qp/6) H.264 rate model. The reference exchanges the wave total
-with a `psum` over its ``gop`` mesh axis; on one card it is a sum (an
-all-reduce once the port spreads GOPs over cards).
+with a `psum` over its ``gop`` mesh axis; here each mesh entry computes
+its GOPs' stats from exact int64 sums on its own card, and the host sums
+the per-GOP values once (an exactly rounded sum, so the shares do not
+depend on how the GOPs were split over the entries).
 
 Two-pass flow (`encode_vbr2pass`):
   pass 1: encode at the base QP → exact per-GOP byte counts (the
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from ..core.types import EncodedSegment, Frame, VideoMeta
-from .dispatch import GopShardEncoder
+from .dispatch import GopShardEncoder, _parts
 
 QP_MIN, QP_MAX = 10, 48
 #: bits halve roughly every 6 QP steps (H.264 quantizer step doubles)
@@ -62,20 +65,18 @@ def _complexity_stats(ys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def analyze_complexity(enc: GopShardEncoder, frames) -> np.ndarray:
-    """Per-GOP complexity shares for a clip (sums to 1). Per-wave totals
-    come from the device program; the host only sums the wave totals."""
+    """Per-GOP complexity shares for a clip (sums to 1). Each mesh entry
+    computes its run of the wave's GOPs on its own card; the host joins
+    them in GOP order and divides by their exact sum."""
     comp: list[float] = []
-    wave_totals: list[float] = []
     for wave, ysd in enc.stage_luma_waves(frames):
-        local, total = _complexity_stats(ysd)
-        local = local.cpu().numpy().astype(np.float64)
-        # pad GOPs at the wave tail (the reference's multi-device waves)
-        # repeat a real GOP: drop them, and deduct them from the total
-        pad_sum = float(local[len(wave):].sum())
-        comp.extend(local[:len(wave)])
-        wave_totals.append(float(total[0].item()) - pad_sum)
+        ys = _parts(ysd)
+        local = np.concatenate(enc.on_entries(
+            lambda i: _complexity_stats(ys[i])[0].cpu().numpy()))
+        # pad GOPs at the wave tail repeat a real GOP: drop them
+        comp.extend(local[:len(wave)].astype(np.float64))
     arr = np.asarray(comp, np.float64)
-    return arr / max(sum(wave_totals), 1e-9)
+    return arr / max(math.fsum(comp), 1e-9)
 
 
 def jnd_masked_shares(shares: np.ndarray, aq_strength: float
@@ -170,20 +171,17 @@ def encode_vbr2pass(frames: list[Frame], meta: VideoMeta,
     its own `enc` (settings-built) and `encode_fn(enc) -> segments`
     (its retry/halt/progress wrapper); `on_pass(pass_no, gop_qps|None)`
     is a progress hook (heartbeat notes). The encoder it builds when
-    `enc` is None runs on `device`; a device mesh (multi-GPU waves) is
-    not ported yet.
+    `enc` is None runs on `mesh` (a DeviceMesh), or on `device` when
+    there is none.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (multi-GPU waves) is not ported yet (ROADMAP "
-            "A2); pass mesh=None for one card")
     fps = meta.fps_num / max(1, meta.fps_den)
     duration_s = len(frames) / max(fps, 1e-9)
     target_bits = target_bitrate_kbps * 1000.0 * duration_s
 
     if enc is None:
         enc = GopShardEncoder(meta, qp=base_qp, gop_frames=gop_frames,
-                              gops_per_wave=gops_per_wave, device=device)
+                              gops_per_wave=gops_per_wave, device=device,
+                              mesh=mesh)
     if encode_fn is None:
         def encode_fn(e):
             return e.encode_waves(e.stage_waves(frames))

@@ -44,8 +44,8 @@ import torch
 from ..codecs.h264 import torchme
 from ..core.types import EncodedSegment, VideoMeta
 from ..codecs.h264.layout import unpack_compact_auto
-from .dispatch import (SfeShardEncoder, _sfe_p_step_farm,
-                       _sfe_p_step_farm_dense, _sfe_probe_step, _to_host)
+from .dispatch import (SfeShardEncoder, _sfe_p_step, _sfe_probe_step,
+                       _to_host)
 
 
 class FarmBandEncoder(SfeShardEncoder):
@@ -55,7 +55,13 @@ class FarmBandEncoder(SfeShardEncoder):
                  max_segments: int = 200, total_bands: int = 0,
                  band_range: tuple[int, int] | None = None,
                  halo_rows: int | None = None, session=None,
-                 pack_workers: int | None = None, device="cuda"):
+                 pack_workers: int | None = None, device="cuda",
+                 mesh=None):
+        from ..core.devices import DeviceMesh, as_mesh
+
+        # the slice's lockstep walk steps one stack: on a mesh, it runs
+        # on the first entry
+        mesh = DeviceMesh(as_mesh(mesh, device).devices[:1])
         super().__init__(meta, qp=qp, gop_frames=gop_frames,
                          max_segments=max_segments, halo_rows=halo_rows,
                          pack_workers=pack_workers,
@@ -64,7 +70,7 @@ class FarmBandEncoder(SfeShardEncoder):
                          # staged GOPs on worker hosts
                          pipeline_window=1,
                          total_bands=total_bands, band_range=band_range,
-                         device=device)
+                         device=device, mesh=mesh)
         #: cluster/halo.HaloSession (or None for a single-group layout
         #: covering the whole frame — no peers to talk to)
         self.session = session
@@ -172,8 +178,7 @@ class FarmBandEncoder(SfeShardEncoder):
             seq = gop_g.start_frame + fi
             if fi == 0:
                 with self.stages.stage("dispatch"):
-                    r = self._intra_step(ys[0], us[0], vs[0], qp)
-                outs, carry3 = r[:6], r[6:9]
+                    outs, carry3 = self._intra_step(ys[0], us[0], vs[0], qp)
                 hist_local = None
             else:
                 with self.stages.stage("halo"):
@@ -181,20 +186,19 @@ class FarmBandEncoder(SfeShardEncoder):
                         if sess is not None else (None, None)
                 pred = self._global_median(seq - 1, hist_local) \
                     if fi >= 2 else np.zeros(2, np.int32)
-                ty, by, tu, bu, tv, bv = self._ext_triplet(top_in, bot_in)
-                probe = self._global_probe(seq, ys[fi], carry3[0], ty, by)
+                ext = self._ext_triplet(top_in, bot_in)
+                probe = self._global_probe(seq, ys[fi], carry3[0], ext[0],
+                                           ext[1])
                 with self.stages.stage("dispatch"):
-                    r = _sfe_p_step_farm(
-                        ys[fi], us[fi], vs[fi], *carry3,
-                        self._host_vec(pred), self._host_vec(probe),
-                        ty, by, tu, bu, tv, bv, qp, self._real_rows,
-                        self._edges, mbw=bp.mb_width,
+                    outs, (cnt, n), carry3, _ = _sfe_p_step(
+                        ys[fi], us[fi], vs[fi], carry3,
+                        self._host_vec(pred), self._host_vec(probe), ext,
+                        qp, self._real_rows, self._edges, mbw=bp.mb_width,
                         mbh_band=bp.band_mb_rows,
                         halo_rows=self.halo_rows, rd=self.rd)
-                outs, carry3 = r[:6], r[8:11]
                 with self.stages.stage("device_wait"):
-                    cnt_h = _to_host(r[6])
-                    n_h = int(_to_host(r[7]).reshape(-1)[0])
+                    cnt_h = _to_host(cnt)
+                    n_h = int(_to_host(n).reshape(-1)[0])
                 hist_local = (cnt_h.astype(np.int64), n_h)
                 replay.append((pred, probe, top_in, bot_in))
             # unblock the peers FIRST: their next frame's search waits
@@ -276,21 +280,18 @@ class FarmBandEncoder(SfeShardEncoder):
             carry3 = None
             for fi in range(gop_g.num_frames):
                 if fi == 0:
-                    r = self._intra_step(ys[0], us[0], vs[0], qp,
-                                         dense=True)
-                    head, flat, carry3 = None, r[0], r[1:4]
+                    (flat,), carry3 = self._intra_step(ys[0], us[0], vs[0],
+                                                       qp, dense=True)
+                    head = None
                 else:
                     pred, probe, top_in, bot_in = replay[fi - 1]
-                    ty, by, tu, bu, tv, bv = self._ext_triplet(top_in,
-                                                               bot_in)
-                    r = _sfe_p_step_farm_dense(
-                        ys[fi], us[fi], vs[fi], *carry3,
+                    (head, flat), _, carry3, _ = _sfe_p_step(
+                        ys[fi], us[fi], vs[fi], carry3,
                         self._host_vec(pred), self._host_vec(probe),
-                        ty, by, tu, bu, tv, bv, qp, self._real_rows,
-                        self._edges, mbw=bp.mb_width,
+                        self._ext_triplet(top_in, bot_in), qp,
+                        self._real_rows, self._edges, mbw=bp.mb_width,
                         mbh_band=bp.band_mb_rows,
-                        halo_rows=self.halo_rows, rd=self.rd)
-                    head, flat, carry3 = r[0], r[1], r[2:5]
+                        halo_rows=self.halo_rows, rd=self.rd, dense=True)
                 if fi < dense_from:
                     continue        # already packed from sparse
                 if head is None:

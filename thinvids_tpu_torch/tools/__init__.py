@@ -1,1 +1,3 @@
-"""Host tools: the libavcodec decode oracle and the quality metrics."""
+"""Host tools: the libavcodec decode oracle, the quality metrics, the
+player-session load harness, the media import CLI and the native-code
+fuzz harness."""
