@@ -222,6 +222,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
               CPU port's rung encoders, fed the card's scaled planes,
               give the card's rung bytes.
 
+18. check   — after phase 15. (a) `python -m thinvids_tpu_torch.cli
+              check --json` in a subprocess under `-X importtime`: it
+              must exit 0 with no open finding and no stale waiver, and
+              import neither torch nor jax; prints the module count and
+              the waived keys. (b) The runtime counterpart of TVT-S001 /
+              X002: phase 4's main path (1080p, 16 frames, gop 8, qp 27,
+              the ME launch counts set to 0 just before and read just
+              after: 14 each) and one all-intra IDR frame run under
+              torch.cuda.set_sync_debug_mode("warn"), then one IDR
+              frame's and one P frame's device step alone; every
+              warning's innermost thinvids_tpu_torch frame is taken from
+              a warnings.showwarning hook (traceback.extract_stack()),
+              and the syncs are printed per module:function for each
+              run. It fails if a site lies outside the manifest's
+              sync_allowlist and no S001/S002 waiver names its module,
+              or lies in a declared hot loop; it also prints whether the
+              debug mode reports an explicit torch.cuda.synchronize()
+              and Event.synchronize(). (c) encode_waves(...,
+              pack_workers=1) and pack_workers=8 give phase 4's stream.
+
 Before the last line it prints one JSON object of kernel records and the
 card's name and power limit; the last line is the device JSON object.
 """
@@ -3117,6 +3137,217 @@ def mesh_phase(main: dict, sfe: dict) -> dict:
     return {"mesh": tag, "run": run, "gop": gop, "sfe": band}
 
 
+# ---- phase 18 ------------------------------------------------------------
+
+def check_cli() -> dict:
+    """`cli check --json` in its own process, with `-X importtime` so
+    the modules it imported are listed: exit 0, no open finding, no
+    stale waiver, and neither torch nor jax among its imports."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "thinvids_tpu_torch.cli",
+         "check", "--json"], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    check(res.returncode == 0, f"cli check exited {res.returncode}: "
+          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    doc = json.loads(res.stdout)
+    imported = {line.rsplit("|", 1)[-1].strip()
+                for line in res.stderr.splitlines()
+                if line.startswith("import time:")}
+    device = sorted(m for m in imported
+                    if m.split(".")[0] in ("torch", "jax", "triton"))
+    check(not device, f"cli check imported {device}")
+    check(doc["open"] == [] and doc["stale_waivers"] == [],
+          f"cli check: open {doc['open']}, stale {doc['stale_waivers']}")
+    waived = [w["key"] for w in doc["waived"]]
+    print(f"cli check: {doc['modules_scanned']} modules, 0 open, "
+          f"waived {json.dumps(waived)}, {len(imported)} modules imported "
+          f"(no torch, no jax), {secs:.2f} s", flush=True)
+    return {"modules": doc["modules_scanned"], "waived": waived}
+
+
+class SyncAudit:
+    """Counts the host syncs torch.cuda.set_sync_debug_mode("warn")
+    reports while it is active, per site: the innermost frame in
+    thinvids_tpu_torch of the stack that issued the warning (taken in a
+    warnings.showwarning hook: `record=True` would lose the stack). The
+    hook sees the warnings of every thread (collectors, pack pool)."""
+
+    ROOT = os.path.dirname(os.path.abspath(__file__))
+    PKG = os.path.join(ROOT, "thinvids_tpu_torch") + os.sep
+
+    def __init__(self) -> None:
+        self.sites: dict = {}
+        self.unattributed = 0
+
+    def _site(self) -> tuple | None:
+        import traceback
+
+        for fr in reversed(traceback.extract_stack()):
+            if fr.filename.startswith(self.PKG):
+                rel = os.path.relpath(fr.filename[:-3], self.ROOT)
+                mod = rel.replace(os.sep, ".").removesuffix(".__init__")
+                return mod, fr.name, fr.lineno
+        return None
+
+    def __enter__(self):
+        import warnings
+
+        self._ctx = warnings.catch_warnings()
+        self._ctx.__enter__()
+        warnings.simplefilter("always")
+        orig = warnings.showwarning
+
+        def hook(message, category, filename, lineno, file=None,
+                 line=None):
+            if "synchronizing CUDA operation" not in str(message):
+                return orig(message, category, filename, lineno, file, line)
+            site = self._site()
+            if site is None:
+                self.unattributed += 1
+            else:
+                self.sites[site] = self.sites.get(site, 0) + 1
+
+        warnings.showwarning = hook
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        torch.cuda.set_sync_debug_mode("default")
+        self._ctx.__exit__(*exc)
+
+    def total(self) -> int:
+        return sum(self.sites.values()) + self.unattributed
+
+    def by_function(self) -> dict:
+        out: dict = {}
+        for (mod, fn, line), n in sorted(self.sites.items()):
+            key = f"{mod}:{fn}"
+            out[key] = out.get(key, 0) + n
+        return out
+
+
+def _judge_sites(audits: dict) -> None:
+    """Every runtime sync site against the manifest: inside the
+    sync_allowlist or named by an S001/S002 waiver, and never in a
+    declared hot loop."""
+    from thinvids_tpu_torch.analysis.astutil import matches_any
+    from thinvids_tpu_torch.analysis.manifest import default_manifest
+
+    m = default_manifest()
+    waived_mods = {k.split(":")[1] for k in m.waivers
+                   if k.startswith(("TVT-S001:", "TVT-S002:"))}
+    hot = {tuple(h.split(":")) for h in m.hot_loops}
+    bad = []
+    for name, audit in audits.items():
+        check(audit.unattributed == 0,
+              f"{name}: {audit.unattributed} syncs outside the package")
+        for mod, fn, line in audit.sites:
+            where = f"{name}: {mod}:{fn} (line {line})"
+            if any(hm == mod and hq.split(".")[-1] == fn
+                   for hm, hq in hot):
+                bad.append(f"{where} is a declared hot loop")
+            elif not (matches_any(mod, m.sync_allowlist)
+                      or mod in waived_mods):
+                bad.append(f"{where} is outside the sync allowlist")
+    check(not bad, "runtime sync sites: " + "; ".join(bad))
+
+
+def explicit_sync_seen() -> dict:
+    """How many syncs the debug mode reports for each explicit wait."""
+    ev = torch.cuda.Event()
+    out = {}
+    for name, fn in (("torch.cuda.synchronize", torch.cuda.synchronize),
+                     ("Event.synchronize",
+                      lambda: (ev.record(), ev.synchronize())),
+                     ("Stream.synchronize",
+                      lambda: torch.cuda.current_stream().synchronize())):
+        with SyncAudit() as a:
+            fn()
+        out[name] = a.total()
+    return out
+
+
+def sync_audit(main: dict, w: int = 1920, h: int = 1080, n: int = 16,
+               qp: int = 27, gop: int = 8) -> dict:
+    """Phase 18 (b) and (c): the runtime sync sites of the main path and
+    of one IDR frame, then the pack_workers resize."""
+    from thinvids_tpu_torch.codecs.h264 import torchcore, torchinter
+
+    frames = make_frames(n, w, h)
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    enc = GopShardEncoder(meta, qp=qp, gop_frames=gop, device="cuda")
+    concat_segments(enc.encode(frames))          # warm-up, unaudited
+    _zero_me_counts()
+    with SyncAudit() as main_audit:
+        stream = concat_segments(enc.encode(frames))
+    launches = _me_counts()
+    p_frames = n - len(enc.plan(n).gops)
+    check(stream == main["stream"], "the audited main path changed bytes")
+    for name, count in launches.items():
+        check(count == p_frames, f"audited main path: {name} launched "
+              f"{count} times, want {p_frames}")
+
+    meta1 = VideoMeta(width=w, height=h, fps_num=30, fps_den=1,
+                      num_frames=1)
+    ienc = GopShardEncoder(meta1, qp=qp, gop_frames=1, inter=False,
+                           device="cuda")
+    concat_segments(ienc.encode(frames[:1]))      # warm-up
+    with SyncAudit() as idr_audit:
+        concat_segments(ienc.encode(frames[:1]))
+
+    # one IDR frame's and one P frame's device step alone
+    dev = torch.device("cuda", 0)
+    pf = [f.padded(16) for f in frames[:2]]
+    ys, us, vs = (torch.from_numpy(np.stack([getattr(f, p) for f in pf]))
+                  .to(dev) for p in "yuv")
+    mbh, mbw = ys.shape[1] // 16, ys.shape[2] // 16
+    qpc = torchcore.chroma_qp(qp)
+    pmv = torch.zeros(2, dtype=torch.int32, device=dev)
+    with SyncAudit() as idr_step:
+        _, (ry, ru, rv) = torchinter._intra_frame_outputs(
+            ys[0], us[0], vs[0], qp, mbw=mbw, mbh=mbh)
+    with SyncAudit() as p_step:
+        torchinter._encode_p_plane(ys[1], us[1], vs[1], ry, ru, rv, pmv,
+                                   qp, qpc, mbw=mbw, mbh=mbh)
+    torch.cuda.synchronize()
+
+    audits = {"main": main_audit, "idr_frame": idr_audit,
+              "idr_step": idr_step, "p_step": p_step}
+    for name, a in audits.items():
+        print(f"syncs {name}: {a.total()} "
+              f"{json.dumps(a.by_function())}", flush=True)
+    print(f"syncs per frame: main path {main_audit.total() / n:.2f} "
+          f"({n} frames), all-intra IDR frame {idr_audit.total()}, IDR "
+          f"device step {idr_step.total()}, P device step "
+          f"{p_step.total()}; ME launches {launches}", flush=True)
+    seen = explicit_sync_seen()
+    print(f"sync debug mode reports the explicit waits: "
+          f"{json.dumps(seen)}", flush=True)
+    _judge_sites(audits)
+
+    # (c) the pack pool resized per call
+    _, waves = enc.prepare_waves(frames)
+    for pw in (1, 8):
+        s2 = concat_segments(enc.encode_waves(waves, pack_workers=pw))
+        check(enc.pack_workers == pw and s2 == main["stream"],
+              f"encode_waves(pack_workers={pw}) changed the stream")
+    print("encode_waves(pack_workers=1) and (pack_workers=8) give phase "
+          "4's stream", flush=True)
+    return {"syncs": {k: a.by_function() for k, a in audits.items()},
+            "explicit": seen, "launches": launches}
+
+
+def check_phase(main: dict, card: str) -> dict:
+    t0 = time.perf_counter()
+    out = {"cli": check_cli(), "audit": sync_audit(main)}
+    print(f"check phase {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
+    return out
+
+
 # ---- phase 15 ------------------------------------------------------------
 
 def parity_phase() -> None:
@@ -3201,6 +3432,8 @@ def main() -> int:
     mesh = mesh_phase(main, sfe)
     phase("15 card = CPU")
     parity_phase()
+    phase("18 check")
+    checked = check_phase(main, card)
     for rec in recs:
         rec["banded"] = dict(banded[rec["name"]],
                              launches=sfe["launches"][rec["name"]])
@@ -3220,6 +3453,8 @@ def main() -> int:
                 rec["name"]],
             "sfe_launches_per_entry": mesh["sfe"]["per_entry"],
             "run_stack": mesh["run"][rec["name"]]}
+        rec["sync_audit_launches"] = checked["audit"]["launches"][
+            rec["name"]]
     phase("end")
     print(json.dumps({"kernels": recs}))
     print(f"card: {card}")

@@ -5,6 +5,7 @@ comparison of two checkouts.
     python3 scripts/chip_points.py farm
     python3 scripts/chip_points.py daemon-jobs
     python3 scripts/chip_points.py mesh
+    python3 scripts/chip_points.py check
     python3 scripts/chip_points.py ab PARENT_DIR CHANGE_DIR
 
 - `manager`: phase 14 alone — builds the kernels, makes phase 6's MP4
@@ -23,6 +24,11 @@ comparison of two checkouts.
   GOP point on the mesh against MESH_POINT_JAX, the 4K split-frame point
   spread over the mesh against phase 10's stream), without phase 4's
   and phase 10's one-card figures beside it.
+- `check`: phase 18 alone — builds the kernels, runs phase 4's main
+  path (`chip_smoke.main_path`, for its stream), then
+  `chip_smoke.check_phase`: `cli check --json` with no torch in its
+  process, the runtime sync audit of the main path and of one IDR and
+  one P frame, and the pack_workers resize.
 - `ab`: phase 4's main path (`chip_smoke.main_path`) and phase 10's SFE
   point (`chip_smoke.sfe_point`) in two checkouts in turns (parent,
   change, change, parent), each in its own process, printing each
@@ -148,6 +154,14 @@ def mesh() -> None:
           flush=True)
 
 
+def check_point() -> None:
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    cs.build_all()
+    main = cs.main_path()
+    cs.check_phase(main, card)
+
+
 def ab(parent: str, change: str) -> None:
     print(f"card: {cs.card_line()}", flush=True)
     code = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
@@ -173,6 +187,7 @@ def main() -> None:
     sub.add_parser("farm")
     sub.add_parser("daemon-jobs")
     sub.add_parser("mesh")
+    sub.add_parser("check")
     two = sub.add_parser("ab")
     two.add_argument("parent")
     two.add_argument("change")
@@ -187,6 +202,8 @@ def main() -> None:
         daemon_jobs()
     elif args.cmd == "mesh":
         mesh()
+    elif args.cmd == "check":
+        check_point()
     else:
         ab(os.path.abspath(args.parent), os.path.abspath(args.change))
 

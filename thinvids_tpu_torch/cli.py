@@ -27,8 +27,11 @@ the coordinator's /work API, encoding on ``--device`` (the card by
 default; it exits with an error when there is none) or on the mesh
 ``--devices`` names.
 
-The reference's `check` (static analysis of the JAX package) has no
-counterpart here.
+`python -m thinvids_tpu_torch.cli check` is the static analyzer over
+this package (tools/check.py, analysis/): device and sync confinement,
+the thread-safety audit, config discipline, the control-plane protocol
+model check, and the kernel-build and hot-loop discipline. It imports
+neither torch nor jax.
 """
 
 from __future__ import annotations
@@ -307,6 +310,22 @@ def run_trace(args: argparse.Namespace) -> None:
              other.get("trace_id", "?"), out)
 
 
+def run_check(args: argparse.Namespace) -> None:
+    """Static analysis over this package (tools/check.py): device and
+    sync confinement, thread-safety audit, config discipline, the
+    control-plane protocol model check, and kernel and hot-loop
+    discipline. Imports neither torch nor jax. Delegates to
+    tools.check.main so the documented exit codes (0 clean / 1
+    findings or stale waivers / 2 internal error) hold from this entry
+    point too."""
+    from .tools.check import main as check_main
+
+    argv = (["--json"] if args.json else []) \
+        + (["--sarif"] if getattr(args, "sarif", False) else []) \
+        + (["--quiet"] if args.quiet else [])
+    raise SystemExit(check_main(argv))
+
+
 def run_agent(args: argparse.Namespace) -> None:
     from .cluster.agent import NodeAgent, http_submitter
     from .core.log import get_logging
@@ -406,6 +425,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="output path (default <job>.trace.json)")
     t.set_defaults(fn=run_trace)
 
+    k = sub.add_parser("check", help="static analysis: device/sync "
+                                     "confinement, thread safety, "
+                                     "config discipline, protocol "
+                                     "model check, kernel discipline")
+    k.add_argument("--json", action="store_true",
+                   help="machine-readable findings")
+    k.add_argument("--sarif", action="store_true",
+                   help="SARIF 2.1.0 findings for CI/editors")
+    k.add_argument("--quiet", action="store_true",
+                   help="suppress the clean-run summary")
+    k.set_defaults(fn=run_check)
     return p
 
 

@@ -125,11 +125,12 @@ def _dc_mask(H, W, device):
 
 def _dc_pos_expand(dcr_grid, h, wd_):
     """Place a (h/4, wd_/4) grid at the (0, 0) position of every 4x4
-    block of an (h, wd_) zero plane — an outer-product broadcast, not a
-    scatter."""
-    m4 = torch.zeros((4, 4), dtype=dcr_grid.dtype, device=dcr_grid.device)
-    m4[0, 0] = 1
-    out = dcr_grid[:, None, :, None] * m4[None, :, None, :]
+    block of an (h, wd_) zero plane: a strided copy into the zero plane,
+    on the card (a Python number stored into a one-element view would be
+    a synchronous host→device copy)."""
+    out = torch.zeros((h // 4, 4, wd_ // 4, 4), dtype=dcr_grid.dtype,
+                      device=dcr_grid.device)
+    out[:, 0, :, 0] = dcr_grid
     return out.reshape(h, wd_)
 
 

@@ -57,7 +57,8 @@ import numpy as np
 import torch
 
 from ..core.config import as_bool, get_settings
-from ..core.devices import DeviceMesh, as_mesh
+# re-exported: the reference's default_mesh lives in parallel/dispatch
+from ..core.devices import DeviceMesh, as_mesh, default_mesh  # noqa: F401
 from ..core.types import (BandPlan, EncodedSegment, Frame, GopSpec,
                           SegmentPlan, VideoMeta, is_yuv420)
 from ..obs import metrics as obs_metrics
@@ -1143,7 +1144,8 @@ class GopShardEncoder:
     #: default staged-waves-ahead depth for the background staging thread
     DECODE_AHEAD = 2
 
-    def encode_waves(self, waves, window: int | None = None
+    def encode_waves(self, waves, window: int | None = None,
+                     pack_workers: int | None = None
                      ) -> list[EncodedSegment]:
         """Dispatch staged waves: device compute → compact fetch → host
         entropy pack, in wave order.
@@ -1151,10 +1153,16 @@ class GopShardEncoder:
         Up to `window` (default: `pipeline_window`) waves are dispatched
         ahead, each wave's fetch+unpack runs on a collector thread per
         in-flight wave, and every slice of every in-flight GOP packs on
-        this encoder's `pack_workers` pool."""
+        this encoder's `pack_workers` pool (`pack_workers=` resizes it
+        for this call and the ones after)."""
         import concurrent.futures as cf
 
         window = window or self.pipeline_window
+        if pack_workers is not None and int(pack_workers) != self.pack_workers:
+            self.pack_workers = int(pack_workers)
+            if self._pack_pool is not None:   # resize: retire the old pool
+                self._pack_pool.shutdown(wait=False)
+            self._pack_pool = self._new_pack_pool()
         segments: list[EncodedSegment] = []
         waves = iter(waves)
         pending: list[cf.Future] = []
@@ -1489,12 +1497,14 @@ class SfeShardEncoder(GopShardEncoder):
 
     # -- device steps ---------------------------------------------------
 
-    def encode_waves(self, waves, window: int | None = None
+    def encode_waves(self, waves, window: int | None = None,
+                     pack_workers: int | None = None
                      ) -> list[EncodedSegment]:
         # fresh latency baseline per encode pass: the idle gap since a
         # previous pass's last frame is not a per-frame latency
         self._last_frame_done = None
-        return super().encode_waves(waves, window=window)
+        return super().encode_waves(waves, window=window,
+                                    pack_workers=pack_workers)
 
     def _collect_threads(self, window: int) -> int:
         """One collector, whatever the window: frames finish in frame
