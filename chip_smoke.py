@@ -29,7 +29,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
               plan_bands(135, 240, 2) at 4K as a (1, 1152, 3840) stack,
               its halo toward the other slice injected as the relay
               delivers it, one launch of each kernel against the plain
-              version, bit-exactly.
+              version, bit-exactly, and the second slice's stack timed as
+              the banded launch is, beside its bound.
 4. main     — the 1080p closed-GOP encode (16 frames, gop 8, qp 27)
               through GopShardEncoder(device="cuda").encode →
               concat_segments, with every kernel's launch count set to 0
@@ -241,6 +242,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
               debug mode reports an explicit torch.cuda.synchronize()
               and Event.synchronize(). (c) encode_waves(...,
               pack_workers=1) and pack_workers=8 give phase 4's stream.
+19. spec    — after phase 18, no ME kernel (the launch counts set to 0
+              just before must read 0 just after): the card's intra
+              program against the numpy specification
+              (codecs.h264.encoder.encode_frame_arrays). Bench content
+              at 352x288, qp 27, for RD off, mode decision, AQ and both:
+              torchcore.encode_intra's levels and _intra_core's recon,
+              fetched, must equal the spec's; then one 1080p RD-off IDR
+              frame the same way; each side's seconds are printed. Then
+              DeviceMesh([cuda:0] * 8): encode_clip_sharded's all-intra
+              stream of 16 iid-noise frames at 64x48 (gop 2, qp 27)
+              must equal H264Encoder(use_device=False)'s frames in the
+              8-wide GOP plan, SPS/PPS at each GOP head.
 
 Before the last line it prints one JSON object of kernel records and the
 card's name and power limit; the last line is the device JSON object.
@@ -840,8 +853,28 @@ def check_farm_slice_kernels(dev) -> dict:
           f"{w}) stacks, the other slice's rows injected: one launch each, "
           "planes and outputs bit-exact against the plain version",
           flush=True)
-    return {k: {"shape": [1, Hb + 2 * halo, w], "max_abs_err": v}
-            for k, v in err.items()}
+    # timing on the second slice's stack, as the banded launch is timed
+    He = Hb + 2 * halo
+    fns = {"me_halfpel": (lambda: torchme.halfpel_planes_cuda(stacks[1]),
+                          lambda: torchme.halfpel_planes_ref(stacks[1])),
+           "me_search": (lambda: torchme.me_search_planes_cuda(
+               stacks[0], planes, stacks[2], stacks[3], centers, lam),
+               lambda: torchme.me_search_ref(*stacks, centers, lam))}
+    bounds = me_bounds(He, w, 1)
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        runs = [_graph_ms(kernel) for _ in range(2)]
+        ms = min(runs)
+        plain_ms = _median_ms(plain, reps=3)
+        bound_ms, bound_by = _bound(*bounds[name])
+        print(f"{name} farm slice (1, {He}, {w}): {ms:.4f} ms a launch (CUDA "
+              f"graph of 50, median of 5; runs {runs}); plain "
+              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
+              f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
+        out[name] = {"shape": [1, He, w], "max_abs_err": err[name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    return out
 
 
 # ---- phase 4 -----------------------------------------------------------
@@ -3348,6 +3381,100 @@ def check_phase(main: dict, card: str) -> dict:
     return out
 
 
+# ---- phase 19 ------------------------------------------------------------
+
+#: the intra RD configs phase 19 holds the card against the numpy spec in
+SPEC_RD = {"off": RD_OFF, "md": RdConfig(mode_decision=True),
+           "aq": RdConfig(aq_q=aq_from_strength(1.0)),
+           "md_aq": RdConfig(mode_decision=True, aq_q=aq_from_strength(1.0))}
+
+
+def _spec_frame(dev, y, u, v, qp: int, rd, tag: str) -> dict:
+    """One padded frame through the card's intra program
+    (torchcore.encode_intra's levels, _intra_core's recon) and through
+    the numpy specification (encoder.encode_frame_arrays): levels and
+    recon must be equal. Returns each side's seconds (the card's warm:
+    upload, compute and fetch, after one untimed call)."""
+    from thinvids_tpu_torch.codecs.h264 import torchcore
+    from thinvids_tpu_torch.codecs.h264.encoder import encode_frame_arrays
+
+    mbh, mbw = y.shape[0] // 16, y.shape[1] // 16
+    torchcore.encode_intra(y, u, v, qp, rd, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = torchcore.encode_intra(y, u, v, qp, rd, device=dev)
+    card_s = time.perf_counter() - t0
+    yd, ud, vd = (torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                  for p in (y, u, v))
+    recon = [r.cpu().numpy() for r in torchcore._intra_core(
+        yd, ud, vd, qp, mbw=mbw, mbh=mbh, rd=rd)[4:7]]
+    t0 = time.perf_counter()
+    want, want_recon = encode_frame_arrays(y, u, v, qp, rd=rd)
+    spec_s = time.perf_counter() - t0
+    for name in ("luma_mode", "chroma_mode", "luma_dc", "luma_ac",
+                 "chroma_dc", "chroma_ac", "qp_delta"):
+        a, b = getattr(got, name), getattr(want, name)
+        check((a is None) == (b is None)
+              and (a is None or np.array_equal(a, b)),
+              f"spec {tag}: the card's {name} differs from "
+              "encode_frame_arrays'")
+    for plane, a, b in zip("yuv", recon, want_recon):
+        check(np.array_equal(a, b), f"spec {tag}: the card's recon {plane} "
+                                    "differs from encode_frame_arrays'")
+    return {"card_s": card_s, "spec_s": spec_s}
+
+
+def spec_phase(dev, card: str) -> None:
+    """The card's intra program against the reference's numpy
+    specification: bench content at 352x288 for RD off, mode decision,
+    AQ and both; one 1080p RD-off IDR frame; then an 8-entry mesh
+    aliased on one card, whose all-intra sharded stream must equal the
+    per-frame numpy encode in the 8-wide GOP plan. No ME kernel runs."""
+    from thinvids_tpu_torch.codecs.h264.encoder import H264Encoder
+    from thinvids_tpu_torch.core.devices import DeviceMesh
+    from thinvids_tpu_torch.parallel.dispatch import encode_clip_sharded
+    from thinvids_tpu_torch.parallel.planner import plan_segments
+
+    t_phase = time.perf_counter()
+    _zero_me_counts()
+    f = make_frames(1, 352, 288, seed=3)[0].padded(16)
+    secs = {}
+    for tag, rd in SPEC_RD.items():
+        secs[f"352x288_{tag}"] = _spec_frame(dev, f.y, f.u, f.v, 27, rd,
+                                             f"352x288 {tag}")
+    f = make_frames(1, 1920, 1080, seed=1)[0].padded(16)
+    secs["1080p_off"] = _spec_frame(dev, f.y, f.u, f.v, 27, RD_OFF,
+                                    "1080p off")
+    print(f"spec intra == encode_frame_arrays (levels and recon, qp 27), "
+          f"seconds per frame {json.dumps(secs)}; {card}", flush=True)
+
+    w, h, n, gop, qp = 64, 48, 16, 2, 27
+    rng = np.random.default_rng(0)
+    frames = [Frame(y=rng.integers(0, 256, (h, w), dtype=np.uint8),
+                    u=rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+                    v=rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+              for _ in range(n)]
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
+    mesh = DeviceMesh([dev] * 8)
+    got = encode_clip_sharded(frames, meta, qp=qp, gop_frames=gop,
+                              inter=False, device=dev, mesh=mesh)
+    spec = H264Encoder(meta, qp=qp, use_device=False)
+    want = b"".join(
+        spec.encode_frame(frames[i], idr_pic_id=i,
+                          with_headers=(i == g.start_frame))
+        for g in plan_segments(n, gop, mesh.size).gops
+        for i in range(g.start_frame, g.end_frame))
+    check(got == want, f"8-entry aliased mesh all-intra stream "
+                       f"({len(got)} bytes) differs from the numpy spec's "
+                       f"({len(want)} bytes)")
+    check(all(v == 0 for v in _me_counts().values()),
+          f"phase 19 launched ME kernels: {_me_counts()}")
+    print(f"spec mesh {mesh}: all-intra {w}x{h} x{n} gop {gop} qp {qp} "
+          f"stream == the numpy spec's in the 8-wide plan ({len(got)} bytes,"
+          f" sha256 {hashlib.sha256(got).hexdigest()}); spec phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
 # ---- phase 15 ------------------------------------------------------------
 
 def parity_phase() -> None:
@@ -3434,6 +3561,8 @@ def main() -> int:
     parity_phase()
     phase("18 check")
     checked = check_phase(main, card)
+    phase("19 spec")
+    spec_phase(dev, card)
     for rec in recs:
         rec["banded"] = dict(banded[rec["name"]],
                              launches=sfe["launches"][rec["name"]])

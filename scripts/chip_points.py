@@ -6,6 +6,7 @@ comparison of two checkouts.
     python3 scripts/chip_points.py daemon-jobs
     python3 scripts/chip_points.py mesh
     python3 scripts/chip_points.py check
+    python3 scripts/chip_points.py spec
     python3 scripts/chip_points.py ab PARENT_DIR CHANGE_DIR
 
 - `manager`: phase 14 alone — builds the kernels, makes phase 6's MP4
@@ -29,6 +30,12 @@ comparison of two checkouts.
   `chip_smoke.check_phase`: `cli check --json` with no torch in its
   process, the runtime sync audit of the main path and of one IDR and
   one P frame, and the pack_workers resize.
+- `spec`: phase 19 alone, after the farm slices' stacks — builds the
+  kernels, holds and times them at the farm slice's stacks
+  (`chip_smoke.check_farm_slice_kernels`), then runs
+  `chip_smoke.spec_phase`: the card's intra program against the numpy
+  specification at 352x288 and 1080p, and the 8-entry aliased mesh's
+  all-intra stream against it.
 - `ab`: phase 4's main path (`chip_smoke.main_path`) and phase 10's SFE
   point (`chip_smoke.sfe_point`) in two checkouts in turns (parent,
   change, change, parent), each in its own process, printing each
@@ -162,6 +169,15 @@ def check_point() -> None:
     cs.check_phase(main, card)
 
 
+def spec() -> None:
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    cs.build_all()
+    dev = cs.torch.device("cuda", 0)
+    cs.check_farm_slice_kernels(dev)
+    cs.spec_phase(dev, card)
+
+
 def ab(parent: str, change: str) -> None:
     print(f"card: {cs.card_line()}", flush=True)
     code = ("import sys; sys.path.insert(0, '.'); import chip_smoke as cs; "
@@ -188,6 +204,7 @@ def main() -> None:
     sub.add_parser("daemon-jobs")
     sub.add_parser("mesh")
     sub.add_parser("check")
+    sub.add_parser("spec")
     two = sub.add_parser("ab")
     two.add_argument("parent")
     two.add_argument("change")
@@ -204,6 +221,8 @@ def main() -> None:
         mesh()
     elif args.cmd == "check":
         check_point()
+    elif args.cmd == "spec":
+        spec()
     else:
         ab(os.path.abspath(args.parent), os.path.abspath(args.change))
 

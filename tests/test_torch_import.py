@@ -338,3 +338,64 @@ def test_the_decoder_and_the_last_tools_need_neither_torch_nor_jax():
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "ok"
+
+
+_SPEC_PATH_TORCH_FREE = r"""
+import hashlib, importlib.abc, sys
+
+import numpy as np
+
+for name in ("torch", "jax", "jaxlib"):
+    sys.modules[name] = None
+
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "thinvids_tpu" or name.startswith("thinvids_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, RefuseReference())
+from thinvids_tpu_torch.codecs.h264.encoder import encode_frames
+from thinvids_tpu_torch.core.types import Frame, VideoMeta
+
+rng = np.random.default_rng(4)
+frames = [Frame(rng.integers(0, 256, (48, 80), dtype=np.uint8),
+                rng.integers(0, 256, (24, 40), dtype=np.uint8),
+                rng.integers(0, 256, (24, 40), dtype=np.uint8))
+          for _ in range(2)]
+stream = encode_frames(frames, VideoMeta(width=80, height=48), qp=27,
+                       use_device=False)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("torch", "jax", "jaxlib", "thinvids_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print(hashlib.sha256(stream).hexdigest())
+"""
+
+
+def test_numpy_encode_path_runs_without_torch():
+    """codecs.h264.encoder imports with torch and jax unimportable and
+    the reference refused, and `encode_frames(..., use_device=False)`
+    there gives the reference's ``use_jax=False`` stream (equal sha256)."""
+    import hashlib
+
+    import numpy as np
+
+    from thinvids_tpu.codecs.h264.encoder import encode_frames
+    from thinvids_tpu.core.types import Frame, VideoMeta
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _SPEC_PATH_TORCH_FREE],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    rng = np.random.default_rng(4)
+    frames = [Frame(rng.integers(0, 256, (48, 80), dtype=np.uint8),
+                    rng.integers(0, 256, (24, 40), dtype=np.uint8),
+                    rng.integers(0, 256, (24, 40), dtype=np.uint8))
+              for _ in range(2)]
+    want = encode_frames(frames, VideoMeta(width=80, height=48), qp=27,
+                         use_jax=False)
+    assert res.stdout.split()[-1] == hashlib.sha256(want).hexdigest()

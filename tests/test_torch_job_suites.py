@@ -72,37 +72,58 @@ ANALYSIS_TERMS = (
 )
 
 
-def reference_cases(name: str, terms=()) -> types.ModuleType:
+def reference_cases(name: str, terms=(), standins=None,
+                    pins=()) -> types.ModuleType:
     """tests/<name>.py with its `thinvids_tpu` imports pointed at the
     port (and `terms` rewritten), executed as a module of its own
     (tracebacks keep the reference file's lines); the names it imports
-    from the port at module scope are swapped for their CPU stand-ins."""
+    from the port at module scope are swapped for their CPU stand-ins
+    (`standins`, CPU_STANDINS by default). Each pin (old, new) replaces
+    an exact text of the reference module, which must appear in it."""
     path = pathlib.Path(__file__).with_name(f"{name}.py")
     src = re.sub(r"\bthinvids_tpu\b", "thinvids_tpu_torch", path.read_text())
     src = re.sub(r'("thinvids_tpu_torch\.cli", "coordinator",)',
                  r'\1 "--device", "cpu",', src)
     for pattern, repl in terms:
         src = re.sub(pattern, repl, src)
+    for old, new in pins:
+        assert old in src, f"{name}: pin {old!r} no longer applies"
+        src = src.replace(old, new)
     mod = types.ModuleType(f"{name}_over_the_port")
     mod.__file__ = str(path)
     exec(compile(src, str(path), "exec"), mod.__dict__)
-    for (owner, attr), standin in CPU_STANDINS.items():
+    for (owner, attr), standin in (standins or CPU_STANDINS).items():
         if mod.__dict__.get(attr) is getattr(owner, attr):
             mod.__dict__[attr] = standin
     return mod
 
 
-def collect(mod: types.ModuleType, namespace: dict, names=None) -> None:
+def collect(mod: types.ModuleType, namespace: dict, names=None,
+            leave_out=()) -> None:
     """Put `mod`'s test classes, test functions and fixtures (or only
     `names`) into a test module's namespace, where pytest collects
-    them."""
+    them. `leave_out` names cases not to collect: ``"test_x"`` or
+    ``"TestClass.test_x"`` (the class is collected as a subclass
+    without that method)."""
+    left = set(leave_out)
     for name, obj in vars(mod).items():
         if names is not None:
-            if name in names:
-                namespace[name] = obj
-        elif name.startswith(("test_", "Test")) or \
-                type(obj).__name__ == "FixtureFunctionDefinition":
-            namespace[name] = obj
+            if name not in names:
+                continue
+        elif not (name.startswith(("test_", "Test")) or
+                  type(obj).__name__ == "FixtureFunctionDefinition"):
+            continue
+        if name in left:
+            left.discard(name)
+            continue
+        drop = {m.split(".", 1)[1] for m in leave_out
+                if m.startswith(name + ".")}
+        if drop:
+            assert all(callable(getattr(obj, m, None)) for m in drop), drop
+            obj = type(name, (obj,), dict.fromkeys(drop))
+            left -= {f"{name}.{m}" for m in drop}
+        namespace[name] = obj
+    assert not left, f"{mod.__name__}: no case named {sorted(left)}"
 
 
 @pytest.fixture(autouse=True)

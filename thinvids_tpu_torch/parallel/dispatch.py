@@ -800,6 +800,10 @@ class GopShardEncoder:
         weakref.finalize(self, pool.shutdown, False)
         return pool
 
+    def _slice_pool(self):
+        """The slice-pack pool (None when packing inline)."""
+        return self._pack_pool
+
     def _new_proc_pool(self):
         """GOP-granular pack sidecar processes (pack_backend=process),
         or None for the threaded backend. Spawn context: children
