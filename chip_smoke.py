@@ -30,7 +30,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
               its halo toward the other slice injected as the relay
               delivers it, one launch of each kernel against the plain
               version, bit-exactly, and the second slice's stack timed as
-              the banded launch is, beside its bound.
+              the banded launch is, beside its bound (phase 17d holds the
+              4-band layout's runs the same way).
 4. main     — the 1080p closed-GOP encode (16 frames, gop 8, qp 27)
               through GopShardEncoder(device="cuda").encode →
               concat_segments, with every kernel's launch count set to 0
@@ -207,8 +208,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
               bands spread over the mesh: the stream must equal phase
               10's, each kernel launched once per P frame per entry (28
               on two entries); fps, the IDR step's seconds and the
-              per-frame latency p50 / p99 beside phase 10's. Every figure
-              names the mesh and the card.
+              per-frame latency p50 / p99 beside phase 10's. (d) The farm
+              on meshes: bench's 4K split-frame point as a farm SFE job
+              with sfe_bands 4 through a remote coordinator daemon (as
+              phase 16 starts it), taken by two in-process WorkerDaemon
+              threads, each on a two-entry mesh (cuda:0,1 and cuda:2,3 on
+              four cards, else cuda:0 twice each: aliased, the path, not
+              a measurement): one 2-band slice a worker, one band a run.
+              First both kernels at those runs' (1, 608, 3840) stacks,
+              each on its run's card, the other slice's rows injected and
+              the own slice's other run's copied card to card: one launch
+              each a run, bit-exactly against the plain version, band
+              1's time beside its bound. The job's MP4 must be the mux of
+              (b)'s stream (SFE_POINT_JAX), each kernel launched once per
+              P frame per entry, counted by card (14 each on 4 distinct
+              cards, 56 on an aliased cuda:0); its fps, the workers'
+              stage_ms and the per-frame gap p50 / p99 beside phase 16's
+              2-band farm. Every figure names the mesh and the card.
 15. card = CPU — after every timed section, the 352x288 card == CPU
               checks of phases 9, 10 and 12, the CPU port's side of
               phases 9 and 10 in two worker processes (spawned, CPU only)
@@ -261,6 +277,7 @@ card's name and power limit; the last line is the device JSON object.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -796,64 +813,97 @@ def check_banded_me_kernels(dev) -> dict:
     return out
 
 
-def check_farm_slice_kernels(dev) -> dict:
-    """Both kernels on the stacks a farm slice hands them: each slice of
-    plan_bands(135, 240, 2) at 4K (68 + 67 MB rows, the second padded)
-    as a (1, Hb + 2 x 32, 3840) stack whose halo toward the other slice
-    is that slice's rows injected as the relay delivers them
-    (torchme.extend_bands with `ext`, the other edge replicated), one
-    launch each against the plain version, bit-exactly."""
+def check_farm_slice_kernels(devs, groups=((0, 1), (1, 2))) -> dict:
+    """Both kernels on the stacks a farm's slices hand them, one band a
+    run: each band b of plan_bands(135, 240, B) at 4K (B = the bands the
+    slices `groups` cover) as a (1, Hb + 2 x 32, 3840) stack on card
+    devs[b]. Its halo toward another slice is that slice's rows injected
+    as the relay delivers them (uploaded from the host); toward a run of
+    its own slice, the neighbouring run's rows copied from that run's
+    card (torchme.extend_bands with `ext`; the frame's edges
+    replicated). One launch each against the plain version,
+    bit-exactly; then band 1's stack timed as the banded launch is,
+    beside its bound. Each record carries the check's launches by card
+    index."""
     from thinvids_tpu_torch.parallel.planner import plan_bands
 
-    Hb = plan_bands(135, 240, 2).band_mb_rows * 16
-    h, w, halo = 2 * Hb, 3840, 32
-    cur, ref, ru, rv = (torch.from_numpy(a.astype(np.int16)).to(dev)
-                        for a in _me_inputs("pan", h, w, 5))
-    lam = torchme.lambda_for(27, dev)
+    bands = groups[-1][1]
+    Hb = plan_bands(135, 240, bands).band_mb_rows * 16
+    h, w, halo = bands * Hb, 3840, 32
+    host = [torch.from_numpy(a.astype(np.int16))
+            for a in _me_inputs("pan", h, w, 5)]        # cur, ref, ru, rv
+    div = (1, 1, 2, 2)
+    slice_of = {b: g for g in groups for b in range(*g)}
+    parts = [[p[b * Hb // d:(b + 1) * Hb // d].to(devs[b])
+              for p, d in zip(host, div)] for b in range(bands)]
+
+    def edge(b: int, nb: int, k: int, top: bool):
+        """Plane k's halo rows of band nb for band b, on b's card."""
+        if not 0 <= nb < bands:
+            return None
+        rows, d = halo // div[k], div[k]
+        if slice_of[nb] == slice_of[b]:         # a run of its own slice
+            src = parts[nb][k][-rows:] if top else parts[nb][k][:rows]
+        else:                                   # another slice's, relayed
+            y0, y1 = b * Hb // d, (b + 1) * Hb // d
+            src = host[k][y0 - rows:y0] if top else host[k][y1:y1 + rows]
+        return src.to(devs[b])
+
+    before = _by_device()
     err = {"me_halfpel": 0, "me_search": 0}
-    for lo in (0, 1):
-        y0, y1 = lo * Hb, (lo + 1) * Hb
-        edge_top, edge_bot = lo == 0, lo == 1
-
-        def part(p, d):
-            return p[y0 // d:y1 // d][None]
-
-        def edge(p, d):
-            k = halo // d
-            return (None if edge_top else p[y0 // d - k:y0 // d],
-                    None if edge_bot else p[y1 // d:y1 // d + k])
-
-        ext = edge(ref, 1) + edge(ru, 2) + edge(rv, 2)
-        stacks = torchme.extend_bands(part(cur, 1), part(ref, 1),
-                                      part(ru, 2), part(rv, 2), halo,
-                                      ext=ext, edge_top=edge_top,
-                                      edge_bot=edge_bot)
+    timed = None
+    for b in range(bands):
+        dev = devs[b]
+        ext = tuple(edge(b, b + (-1 if top else 1), k, top)
+                    for k in (1, 2, 3) for top in (True, False))
+        stacks = torchme.extend_bands(*(p[None] for p in parts[b]), halo,
+                                      ext=ext, edge_top=b == 0,
+                                      edge_bot=b == bands - 1)
         check(tuple(stacks[0].shape) == (1, Hb + 2 * halo, w),
               f"farm slice stack {tuple(stacks[0].shape)}")
-        centers = torchme.banded_centers_from(
-            part(cur, 1), part(ref, 1),
-            torch.tensor([4, -6], dtype=torch.int32, device=dev), (Hb,),
-            halo)
-        planes = torchme.halfpel_planes_cuda(stacks[1])
-        got = torchme.me_search_cuda(*stacks, centers, lam)
-        torch.cuda.synchronize()
+        with torch.cuda.device(dev):
+            centers = torchme.banded_centers_from(
+                parts[b][0][None], parts[b][1][None],
+                torch.tensor([4, -6], dtype=torch.int32, device=dev),
+                (Hb,), halo)
+            lam = torchme.lambda_for(27, dev)
+            planes = torchme.halfpel_planes_cuda(stacks[1])
+            got = torchme.me_search_planes_cuda(stacks[0], planes, stacks[2],
+                                                stacks[3], centers, lam)
+            torch.cuda.synchronize(dev)
         e = int((planes.to(torch.int32) - torchme.halfpel_planes_ref(
             stacks[1]).to(torch.int32)).abs().max())
         err["me_halfpel"] = max(err["me_halfpel"], e)
         want = torchme.me_search_ref(*stacks, centers, lam)
-        for name, a, b in zip(("mv", "pred_y", "pred_u", "pred_v"),
+        for name, a, c in zip(("mv", "pred_y", "pred_u", "pred_v"),
                               got, want):
-            e = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+            e = int((a.to(torch.int32) - c.to(torch.int32)).abs().max())
             err["me_search"] = max(err["me_search"], e)
-            check(a.shape == b.shape and e == 0,
-                  f"farm slice {lo}: {name} differs (max |diff| {e})")
+            check(a.shape == c.shape and e == 0,
+                  f"farm band {b}: {name} differs (max |diff| {e})")
+        if b == 1:
+            timed = (stacks, planes, centers, lam)
+    after = _by_device()
+    launches = {name: {i: n - before[name].get(i, 0)
+                       for i, n in after[name].items()
+                       if n != before[name].get(i, 0)} for name in after}
     check(err["me_halfpel"] == 0,
           f"farm slice planes differ (max |diff| {err['me_halfpel']})")
-    print(f"farm slices of plan_bands(135, 240, 2): two (1, {Hb + 2 * halo}, "
-          f"{w}) stacks, the other slice's rows injected: one launch each, "
-          "planes and outputs bit-exact against the plain version",
-          flush=True)
-    # timing on the second slice's stack, as the banded launch is timed
+    want_launches = {}
+    for d in devs[:bands]:
+        want_launches[d.index] = want_launches.get(d.index, 0) + 1
+    for name, got_launches in launches.items():
+        check(got_launches == want_launches,
+              f"farm slice stacks: {name} launched {got_launches} times by "
+              f"card index, want one a run: {want_launches}")
+    print(f"farm slices {list(groups)} of plan_bands(135, 240, {bands}): "
+          f"{bands} (1, {Hb + 2 * halo}, {w}) stacks, each on its run's card "
+          f"({[str(d) for d in devs[:bands]]}), other slices' rows injected, "
+          "runs of a slice copied card to card: one launch each "
+          f"({launches}), planes and outputs bit-exact against the plain "
+          "version", flush=True)
+    # timing on band 1's stack, as the banded launch is timed
+    stacks, planes, centers, lam = timed
     He = Hb + 2 * halo
     fns = {"me_halfpel": (lambda: torchme.halfpel_planes_cuda(stacks[1]),
                           lambda: torchme.halfpel_planes_ref(stacks[1])),
@@ -862,18 +912,21 @@ def check_farm_slice_kernels(dev) -> dict:
                lambda: torchme.me_search_ref(*stacks, centers, lam))}
     bounds = me_bounds(He, w, 1)
     out = {}
-    for name, (kernel, plain) in fns.items():
-        runs = [_graph_ms(kernel) for _ in range(2)]
-        ms = min(runs)
-        plain_ms = _median_ms(plain, reps=3)
-        bound_ms, bound_by = _bound(*bounds[name])
-        print(f"{name} farm slice (1, {He}, {w}): {ms:.4f} ms a launch (CUDA "
-              f"graph of 50, median of 5; runs {runs}); plain "
-              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
-              f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
-        out[name] = {"shape": [1, He, w], "max_abs_err": err[name],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+    with torch.cuda.device(devs[1]):
+        for name, (kernel, plain) in fns.items():
+            runs = [_graph_ms(kernel) for _ in range(2)]
+            ms = min(runs)
+            plain_ms = _median_ms(plain, reps=3)
+            bound_ms, bound_by = _bound(*bounds[name])
+            print(f"{name} farm band 1 of {bands} (1, {He}, {w}) on "
+                  f"{devs[1]}: {ms:.4f} ms a launch (CUDA graph of 50, "
+                  f"median of 5; runs {runs}); plain {plain_ms:.3f} ms; "
+                  f"bound {bound_ms:.4f} ms by {bound_by}, "
+                  f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
+            out[name] = {"shape": [1, He, w], "max_abs_err": err[name],
+                         "launches_by_card": launches[name], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
     return out
 
 
@@ -2635,6 +2688,163 @@ def _await_hosts(base: str, hosts: set, proc, cap_s: float) -> float:
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def _remote_daemon(tmp: str, card: str, device: str, gop: int, qp: int,
+                   workers=()):
+    """`cli coordinator --backend remote` (watch folder, library, state
+    dir in `tmp`; 1-GOP shards, gop `gop`, qp `qp`, a 3 s heartbeat TTL)
+    and a `cli worker` process for each host of `workers`, all live.
+    Yields (base URL, the coordinator's process, the dirs, the processes
+    in start order); stops every process it started, printing each log's
+    tail."""
+    import signal
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs: list = []
+    dirs = {k: os.path.join(tmp, k) for k in
+            ("watch", "library", "state", "inputs", "logs")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=root, TVT_MIN_IDLE_WORKERS="0",
+               TVT_GOP_FRAMES=str(gop), TVT_QP=str(qp),
+               TVT_REMOTE_SHARD_GOPS="1", TVT_METRICS_TTL_S="3",
+               TVT_REMOTE_RETRY_BACKOFF_S="0.2",
+               TVT_SCHEDULER_POLL_S="0.5")
+
+    def spawn(name: str, args: list):
+        log = open(os.path.join(dirs["logs"], f"{name}.log"), "wb")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "thinvids_tpu_torch.cli", *args],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        procs.append((name, proc))
+        return proc
+
+    ok = False
+    try:
+        t0 = time.perf_counter()
+        coord = spawn("coordinator", [
+            "coordinator", "--backend", "remote", "--device", device,
+            "--host", "127.0.0.1", "--port", str(port),
+            "--state-dir", dirs["state"], "--watch-dir", dirs["watch"],
+            "--output-dir", dirs["library"], "--scan-interval", "0.5"])
+        for host in workers:
+            spawn(host, ["worker", "--device", device, "--coordinator",
+                         base, "--node-name", host, "--interval", "0.3",
+                         "--poll", "0.2"])
+        while not _http_up(base):
+            check(coord.poll() is None,
+                  f"the daemon exited ({coord.returncode})")
+            check(time.perf_counter() - t0 < 120,
+                  "the daemon's API did not come up within 120 s")
+            time.sleep(0.1)
+        t_up = time.perf_counter() - t0
+        t_workers = t_up + _await_hosts(base, set(workers), coord, 120.0)
+        print(f"farm daemon up in {t_up:.3f} s, {len(workers)} worker "
+              f"processes live in {t_workers:.3f} s (Popen to /nodes_data) "
+              f"on {card}", flush=True)
+        yield base, coord, dirs, procs
+        ok = True
+    finally:
+        for _name, proc in reversed(procs):
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name, proc in reversed(procs):
+            try:
+                proc.wait(timeout=40)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=20)
+            with open(os.path.join(dirs["logs"], f"{name}.log"),
+                      "rb") as fp:
+                tail = fp.read()[-(800 if ok else 4000):]
+            print(f"farm {name} log (tail):\n"
+                  + tail.decode(errors="replace"), flush=True)
+
+
+@contextlib.contextmanager
+def _worker_threads(base: str, coord, meshes: dict, device: str):
+    """One in-process WorkerDaemon thread (with its node agent) for each
+    host of `meshes` (host → its DeviceMesh, or None for the one
+    `device`), live at the coordinator; all stopped on exit. In this
+    process the kernels' launch counts see their work."""
+    from thinvids_tpu_torch.cluster.agent import NodeAgent, http_submitter
+    from thinvids_tpu_torch.cluster.remote import WorkerDaemon
+
+    stop = threading.Event()
+    agents: list = []
+    loops: list = []
+    try:
+        for host, mesh in meshes.items():
+            daemon = WorkerDaemon(base, host=host, poll_s=0.1,
+                                  device=device, mesh=mesh)
+            agents.append(NodeAgent(
+                http_submitter(base), host=host, interval_s=0.3,
+                extra_metrics=daemon.metrics, device=device).start())
+            loops.append(threading.Thread(
+                target=daemon.run_forever, args=(stop,), daemon=True,
+                name=f"tvt-{host}"))
+            loops[-1].start()
+        _await_hosts(base, set(meshes), coord, 60.0)
+        # the band planner reads each worker's advertised devices
+        want = {h: m.size if m is not None else 1 for h, m in meshes.items()}
+        deadline = time.perf_counter() + 30.0
+        while True:
+            rows = json.loads(_http(base, "/metrics_snapshot")[1])["metrics"]
+            got = {h: rows.get(h, {}).get("worker_devices") for h in want}
+            if got == want:
+                break
+            check(time.perf_counter() < deadline,
+                  f"workers advertise {got} devices, want {want}")
+            time.sleep(0.1)
+        yield
+    finally:
+        stop.set()
+        for agent in agents:
+            agent.stop()
+        for loop in loops:
+            loop.join(timeout=30)
+
+
+def _farm_sfe_job(base: str, coord, path: str, bands: int, halo: int,
+                  device: str) -> dict:
+    """A farm SFE job of `path` posted to /add_job (sfe_bands `bands`,
+    halo `halo`) with every ME launch count set to 0 just before and read
+    just after: the MP4, the job's view, the launches (totals and by card
+    index), the workers' stage_ms delta and the per-frame latency."""
+    from thinvids_tpu_torch.parallel import dispatch
+
+    before = dispatch.stage_snapshot()
+    with dispatch._SFE_LAT_LOCK:
+        dispatch._SFE_LAT_MS.clear()
+    if device == "cuda":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    torchme.reset_launch_counts()
+    code, raw = _http(base, "/add_job", {
+        "input_path": path,
+        "settings": {"sfe_bands": bands, "sfe_halo_rows": halo}})
+    check(code == 201, f"/add_job answered {code}: {raw[:200]!r}")
+    job = _await_job(base, path, coord, 300.0)
+    launches, by_card = _me_counts(), _by_device()
+    after = dispatch.stage_snapshot()
+    with open(job["output_path"], "rb") as fp:
+        mp4 = fp.read()
+    return {"mp4": mp4, "job": job, "launches": launches,
+            "by_card": by_card,
+            "run_s": job["finished_at"] - job["started_at"],
+            "stage_ms": {k: round(after[k] - before[k], 2) for k in
+                         ("halo", "dispatch", "device_wait", "fetch", "sfe",
+                          "stage", "decode", "sfe_frames",
+                          "dense_fallback_waves")},
+            "latency": dispatch.frame_latency_percentiles()}
+
+
 def farm_phase(want_mp4: bytes, card: str, w: int = 3840, h: int = 2160,
                n: int = 16, gop: int = 8, qp: int = 27, halo: int = 32,
                want_farm: tuple = FARM_POINT_JAX,
@@ -2646,203 +2856,99 @@ def farm_phase(want_mp4: bytes, card: str, w: int = 3840, h: int = 2160,
     launches in the farm SFE run, its fps, stage totals and per-frame
     latency."""
     import signal
-    import socket
     import tempfile
 
-    from thinvids_tpu_torch.cluster.agent import NodeAgent, http_submitter
-    from thinvids_tpu_torch.cluster.remote import WorkerDaemon
     from thinvids_tpu_torch.ingest.decode import open_video
     from thinvids_tpu_torch.io.mp4 import mux_mp4
-    from thinvids_tpu_torch.parallel import dispatch
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    procs: list = []
-    stop = threading.Event()
-    agents: list = []
-    loops: list = []
-    with tempfile.TemporaryDirectory(prefix="tvt-farm-") as tmp:
-        dirs = {k: os.path.join(tmp, k) for k in
-                ("watch", "library", "state", "inputs", "logs")}
-        for d in dirs.values():
-            os.makedirs(d)
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            port = sk.getsockname()[1]
-        base = f"http://127.0.0.1:{port}"
-        env = dict(os.environ, PYTHONPATH=root, TVT_MIN_IDLE_WORKERS="0",
-                   TVT_GOP_FRAMES=str(gop), TVT_QP=str(qp),
-                   TVT_REMOTE_SHARD_GOPS="1", TVT_METRICS_TTL_S="3",
-                   TVT_REMOTE_RETRY_BACKOFF_S="0.2",
-                   TVT_SCHEDULER_POLL_S="0.5")
+    hosts = [f"farm-w{i}" for i in range(2)]
+    with tempfile.TemporaryDirectory(prefix="tvt-farm-") as tmp, \
+            _remote_daemon(tmp, card, device, gop, qp, hosts) as (
+                base, coord, dirs, procs):
+        # (a) a remote GOP job: phase 6's clip through the watch folder
+        gw, gh = gop_size
+        staged = os.path.join(dirs["inputs"], "farm_gop.y4m")
+        _write_clip(staged, make_frames(16, gw, gh), gw, gh)
+        dropped = os.path.join(dirs["watch"], "farm_gop.y4m")
+        os.replace(staged, dropped)
+        job = _await_job(base, dropped, coord, 180.0)
+        with open(job["output_path"], "rb") as fp:
+            mp4 = fp.read()
+        deadline = time.perf_counter() + 10.0
+        while True:     # the shard counters ride the next heartbeat
+            code, raw = _http(base, "/metrics_snapshot")
+            check(code == 200, f"/metrics_snapshot answered {code}")
+            rows = json.loads(raw)["metrics"]
+            done = {host: rows.get(host, {}).get("worker_shards_done", 0)
+                    for host in hosts}
+            if sum(done.values()) >= 2 or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+        run_s = job["finished_at"] - job["started_at"]
+        print(f"farm GOP job {gw}x{gh} x16 gop {gop} qp {qp}, 1-GOP "
+              f"shards: "
+              f"MP4 {len(mp4)} bytes, sha256 "
+              f"{hashlib.sha256(mp4).hexdigest()}; shards done "
+              f"{json.dumps(done)}; submit to done "
+              f"{job['finished_at'] - job['created_at']:.3f} s, run "
+              f"{run_s:.3f} s ({16 / run_s:.3f} job fps); {card}",
+              flush=True)
+        check(mp4 == want_mp4, "the farm's MP4 differs from phase 6's")
+        check(all(v >= 1 for v in done.values()),
+              f"a worker took no shard: {done}")
+        for name, proc in procs[1:]:
+            proc.send_signal(signal.SIGTERM)
+        for name, proc in procs[1:]:
+            proc.wait(timeout=30)
+            check(_http_delete(base, f"/nodes/delete/{name}") == 200,
+                  f"the registry kept {name}")
 
-        def spawn(name: str, args: list):
-            log = open(os.path.join(dirs["logs"], f"{name}.log"), "wb")
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "thinvids_tpu_torch.cli", *args],
-                cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
-            log.close()
-            procs.append((name, proc))
-            return proc
-
-        ok = False
-        try:
-            t0 = time.perf_counter()
-            coord = spawn("coordinator", [
-                "coordinator", "--backend", "remote", "--device", device,
-                "--host", "127.0.0.1", "--port", str(port),
-                "--state-dir", dirs["state"], "--watch-dir", dirs["watch"],
-                "--output-dir", dirs["library"], "--scan-interval", "0.5"])
-            hosts = {f"farm-w{i}" for i in range(2)}
-            for host in sorted(hosts):
-                spawn(host, ["worker", "--device", device, "--coordinator",
-                             base, "--node-name", host, "--interval", "0.3",
-                             "--poll", "0.2"])
-            while not _http_up(base):
-                check(coord.poll() is None,
-                      f"the daemon exited ({coord.returncode})")
-                check(time.perf_counter() - t0 < 120,
-                      "the daemon's API did not come up within 120 s")
-                time.sleep(0.1)
-            t_up = time.perf_counter() - t0
-            t_workers = t_up + _await_hosts(base, hosts, coord, 120.0)
-            print(f"farm daemon up in {t_up:.3f} s, both worker processes "
-                  f"live in {t_workers:.3f} s (Popen to /nodes_data) on "
-                  f"{card}", flush=True)
-
-            # (a) a remote GOP job: phase 6's clip through the watch folder
-            gw, gh = gop_size
-            staged = os.path.join(dirs["inputs"], "farm_gop.y4m")
-            _write_clip(staged, make_frames(16, gw, gh), gw, gh)
-            dropped = os.path.join(dirs["watch"], "farm_gop.y4m")
-            os.replace(staged, dropped)
-            job = _await_job(base, dropped, coord, 180.0)
-            with open(job["output_path"], "rb") as fp:
-                mp4 = fp.read()
-            deadline = time.perf_counter() + 10.0
-            while True:     # the shard counters ride the next heartbeat
-                code, raw = _http(base, "/metrics_snapshot")
-                check(code == 200, f"/metrics_snapshot answered {code}")
-                rows = json.loads(raw)["metrics"]
-                done = {host: rows.get(host, {}).get("worker_shards_done",
-                                                     0)
-                        for host in sorted(hosts)}
-                if sum(done.values()) >= 2 or \
-                        time.perf_counter() > deadline:
-                    break
-                time.sleep(0.2)
-            run_s = job["finished_at"] - job["started_at"]
-            print(f"farm GOP job {gw}x{gh} x16 gop {gop} qp {qp}, 1-GOP "
-                  f"shards: "
-                  f"MP4 {len(mp4)} bytes, sha256 "
-                  f"{hashlib.sha256(mp4).hexdigest()}; shards done "
-                  f"{json.dumps(done)}; submit to done "
-                  f"{job['finished_at'] - job['created_at']:.3f} s, run "
-                  f"{run_s:.3f} s ({16 / run_s:.3f} job fps); {card}",
-                  flush=True)
-            check(mp4 == want_mp4, "the farm's MP4 differs from phase 6's")
-            check(all(v >= 1 for v in done.values()),
-                  f"a worker took no shard: {done}")
-            for name, proc in procs[1:]:
-                proc.send_signal(signal.SIGTERM)
-            for name, proc in procs[1:]:
-                proc.wait(timeout=30)
-                check(_http_delete(base, f"/nodes/delete/{name}") == 200,
-                      f"the registry kept {name}")
-
-            # (b) farm SFE at 4K: two slices of a 2-band layout on two
-            # WorkerDaemon threads of this process, over the relay
-            frames = make_frames(n, w, h)
-            path = os.path.join(dirs["inputs"], "farm2160.y4m")
-            _write_clip(path, frames, w, h)
-            with open_video(path) as src:
-                meta = src.meta
-            local = _sfe_encoder(meta, qp, gop, 2, halo, device=device)
-            t_l = time.perf_counter()
-            stream = concat_segments(local.encode(frames))
-            t_l = time.perf_counter() - t_l
-            digest = hashlib.sha256(stream).hexdigest()
-            print(f"farm point, local 2-band SfeShardEncoder {w}x{h} x{n}: "
-                  f"{len(stream)} bytes, sha256 {digest} ({n / t_l:.3f} fps "
-                  "through encode())", flush=True)
-            check((len(stream), digest) == want_farm,
-                  f"the local 2-band stream ({len(stream)}, {digest}) is not "
-                  f"the JAX package's {want_farm}")
-            del local, frames
-            threads = {f"farm-t{i}" for i in range(2)}
-            for host in sorted(threads):
-                daemon = WorkerDaemon(base, host=host, poll_s=0.1,
-                                      device=device)
-                agents.append(NodeAgent(
-                    http_submitter(base), host=host, interval_s=0.3,
-                    extra_metrics=daemon.metrics, device=device).start())
-                loops.append(threading.Thread(
-                    target=daemon.run_forever, args=(stop,), daemon=True,
-                    name=f"tvt-{host}"))
-                loops[-1].start()
-            _await_hosts(base, threads, coord, 60.0)
-            check(not (_active_hosts(base) & hosts),
+        # (b) farm SFE at 4K: two slices of a 2-band layout on two
+        # WorkerDaemon threads of this process, over the relay
+        frames = make_frames(n, w, h)
+        path = os.path.join(dirs["inputs"], "farm2160.y4m")
+        _write_clip(path, frames, w, h)
+        with open_video(path) as src:
+            meta = src.meta
+        local = _sfe_encoder(meta, qp, gop, 2, halo, device=device)
+        t_l = time.perf_counter()
+        stream = concat_segments(local.encode(frames))
+        t_l = time.perf_counter() - t_l
+        digest = hashlib.sha256(stream).hexdigest()
+        print(f"farm point, local 2-band SfeShardEncoder {w}x{h} x{n}: "
+              f"{len(stream)} bytes, sha256 {digest} ({n / t_l:.3f} fps "
+              "through encode())", flush=True)
+        check((len(stream), digest) == want_farm,
+              f"the local 2-band stream ({len(stream)}, {digest}) is not "
+              f"the JAX package's {want_farm}")
+        del local, frames
+        threads = {f"farm-t{i}": None for i in range(2)}
+        with _worker_threads(base, coord, threads, device):
+            check(not (_active_hosts(base) & set(hosts)),
                   "a worker process is still live")
-            before = dispatch.stage_snapshot()
-            with dispatch._SFE_LAT_LOCK:
-                dispatch._SFE_LAT_MS.clear()
-            if device == "cuda":
-                torch.cuda.synchronize()
-            _zero_me_counts()
-            code, raw = _http(base, "/add_job", {
-                "input_path": path,
-                "settings": {"sfe_bands": 2, "sfe_halo_rows": halo}})
-            check(code == 201, f"/add_job answered {code}: {raw[:200]!r}")
-            fjob = _await_job(base, path, coord, 300.0)
-            launches = _me_counts()
-            after = dispatch.stage_snapshot()
-            lat = dispatch.frame_latency_percentiles()
-            with open(fjob["output_path"], "rb") as fp:
-                fmp4 = fp.read()
-            frun = fjob["finished_at"] - fjob["started_at"]
-            delta = {k: round(after[k] - before[k], 2) for k in
-                     ("halo", "dispatch", "device_wait", "fetch", "sfe",
-                      "stage", "decode", "sfe_frames",
-                      "dense_fallback_waves")}
-            print(f"farm SFE job {w}x{h} x{n} gop {gop} qp {qp}, 2 slices "
-                  f"of 1 band, halo {halo}: MP4 {len(fmp4)} bytes, sha256 "
-                  f"{hashlib.sha256(fmp4).hexdigest()}; submit to done "
-                  f"{fjob['finished_at'] - fjob['created_at']:.3f} s, run "
-                  f"{frun:.3f} s ({n / frun:.3f} fps); ME launches "
-                  f"{launches}; stage_ms (both workers) {json.dumps(delta)}; "
-                  f"per-frame latency {json.dumps(lat)}; {card}",
-                  flush=True)
-            check(fmp4 == mux_mp4(stream, meta),
-                  "the farm's SFE MP4 differs from the local 2-band "
-                  "stream's")
-            p_frames = n - -(-n // gop)
-            # (the CPU runs the kernels' plain versions: no launch to count)
-            for name, count in launches.items() if device == "cuda" else ():
-                check(count == 2 * p_frames,
-                      f"farm SFE: {name} launched {count} times, want "
-                      f"{2 * p_frames} (each worker once per P frame)")
-            check(delta["dense_fallback_waves"] == 0,
-                  "the farm SFE run replayed dense")
-            ok = True
-        finally:
-            stop.set()
-            for agent in agents:
-                agent.stop()
-            for loop in loops:
-                loop.join(timeout=30)
-            for _name, proc in reversed(procs):
-                if proc.poll() is None:
-                    proc.send_signal(signal.SIGTERM)
-            for name, proc in reversed(procs):
-                try:
-                    proc.wait(timeout=40)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait(timeout=20)
-                with open(os.path.join(dirs["logs"], f"{name}.log"),
-                          "rb") as fp:
-                    tail = fp.read()[-(800 if ok else 4000):]
-                print(f"farm {name} log (tail):\n"
-                      + tail.decode(errors="replace"), flush=True)
+            run = _farm_sfe_job(base, coord, path, 2, halo, device)
+        fjob, fmp4, frun = run["job"], run["mp4"], run["run_s"]
+        launches, delta, lat = run["launches"], run["stage_ms"], \
+            run["latency"]
+        print(f"farm SFE job {w}x{h} x{n} gop {gop} qp {qp}, 2 slices "
+              f"of 1 band, halo {halo}: MP4 {len(fmp4)} bytes, sha256 "
+              f"{hashlib.sha256(fmp4).hexdigest()}; submit to done "
+              f"{fjob['finished_at'] - fjob['created_at']:.3f} s, run "
+              f"{frun:.3f} s ({n / frun:.3f} fps); ME launches "
+              f"{launches}; stage_ms (both workers) {json.dumps(delta)}; "
+              f"per-frame latency {json.dumps(lat)}; {card}",
+              flush=True)
+        check(fmp4 == mux_mp4(stream, meta),
+              "the farm's SFE MP4 differs from the local 2-band "
+              "stream's")
+        p_frames = n - -(-n // gop)
+        # (the CPU runs the kernels' plain versions: no launch to count)
+        for name, count in launches.items() if device == "cuda" else ():
+            check(count == 2 * p_frames,
+                  f"farm SFE: {name} launched {count} times, want "
+                  f"{2 * p_frames} (each worker once per P frame)")
+        check(delta["dense_fallback_waves"] == 0,
+              "the farm SFE run replayed dense")
     return {"launches": launches, "fps": round(n / frun, 3),
             "stage_ms": delta, "latency": lat}
 
@@ -3129,7 +3235,7 @@ def mesh_sfe_point(mesh, tag: str, sfe: dict, w: int = 3840,
           f"{sfe.get('idr_step_ms')}; {tag}; card {card_line()}",
           flush=True)
     return {"launches_by_device": by_dev, "per_entry": [p_frames] * entries,
-            "fig": fig}
+            "fig": fig, "stream": stream}
 
 
 def _one_entry_sfe(meta, frames, qp: int, gop: int, bands: int,
@@ -3162,12 +3268,105 @@ def _timed_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def mesh_phase(main: dict, sfe: dict) -> dict:
+def _farm_meshes() -> tuple[dict, str]:
+    """Phase 17d's two workers and their meshes: cuda:0,1 and cuda:2,3
+    when the machine has four cards or more, else cuda:0 twice each
+    (aliased: the path runs, but no two cards share the work)."""
+    from thinvids_tpu_torch.core.devices import DeviceMesh
+
+    cards = torch.cuda.device_count()
+    pairs = (("cuda:0", "cuda:1"), ("cuda:2", "cuda:3")) if cards >= 4 \
+        else (("cuda:0", "cuda:0"),) * 2
+    meshes = {f"mesh-farm-w{i}": DeviceMesh(p) for i, p in enumerate(pairs)}
+    distinct = len({d for p in pairs for d in p})
+    tag = (f"farm workers' meshes {[list(p) for p in pairs]}: {distinct} "
+           f"distinct cards of the {cards} visible"
+           + ("" if distinct == 4 else
+              " (aliased: the path, not a measurement)"))
+    return meshes, tag
+
+
+def mesh_farm_point(card: str, farm: dict, stream: bytes | None = None,
+                    w: int = 3840, h: int = 2160, n: int = 16, gop: int = 8,
+                    qp: int = 27, halo: int = 32, bands: int = 4,
+                    device: str = "cuda") -> dict:
+    """Phase 17d: bench's 4K split-frame point as a farm SFE job of
+    `bands` bands through the remote coordinator daemon, taken by two
+    in-process WorkerDaemon threads, each on a two-entry mesh: a 2-band
+    slice a worker, one band a run. First both kernels at those runs'
+    stacks (check_farm_slice_kernels over the 4-band layout). The MP4
+    must be the mux of `stream` (phase 17b's 4-band stream, or a local
+    one-card encode when None), whose length and sha256 are the JAX
+    package's (SFE_POINT_JAX); each kernel launched once per P frame per
+    entry, counted by card. Prints fps, the workers' stage_ms and the
+    per-frame gap p50 / p99 beside phase 16's 2-band farm (`farm`)."""
+    import tempfile
+
+    from thinvids_tpu_torch.core.devices import DeviceMesh
+    from thinvids_tpu_torch.ingest.decode import open_video
+    from thinvids_tpu_torch.io.mp4 import mux_mp4
+
+    meshes, tag = _farm_meshes()
+    print(tag, flush=True)
+    entries = [d for m in meshes.values() for d in m.devices]
+    kernels = check_farm_slice_kernels(entries, groups=((0, 2), (2, 4)))
+    frames = make_frames(n, w, h)
+    if stream is None:
+        stream = concat_segments(_sfe_encoder(
+            VideoMeta(width=w, height=h, fps_num=30, fps_den=1,
+                      num_frames=n), qp, gop, bands, halo,
+            device=entries[0]).encode(frames))
+    digest = hashlib.sha256(stream).hexdigest()
+    check((len(stream), digest) == SFE_POINT_JAX["bench_2160p"],
+          f"mesh farm point: the 4-band stream ({len(stream)}, {digest}) "
+          f"is not the JAX package's {SFE_POINT_JAX['bench_2160p']}")
+    with tempfile.TemporaryDirectory(prefix="tvt-meshfarm-") as tmp, \
+            _remote_daemon(tmp, card, device, gop, qp) as (base, coord,
+                                                           dirs, _):
+        path = os.path.join(dirs["inputs"], "farm2160.y4m")
+        _write_clip(path, frames, w, h)
+        del frames
+        with open_video(path) as src:
+            meta = src.meta
+        with _worker_threads(base, coord, meshes, device):
+            run = _farm_sfe_job(base, coord, path, bands, halo, device)
+    p_frames = n - -(-n // gop)
+    want = _per_card(DeviceMesh(entries), [p_frames] * len(entries))
+    fig = {"fps": round(n / run["run_s"], 3), "latency": run["latency"],
+           "stage_ms": {k: run["stage_ms"][k] for k in
+                        ("halo", "dispatch", "device_wait", "fetch",
+                         "sfe")}}
+    print(f"mesh farm point {w}x{h} x{n} gop {gop} qp {qp}, {bands} bands "
+          f"as 2 slices of 2, one band a run, halo {halo}: MP4 "
+          f"{len(run['mp4'])} bytes, sha256 "
+          f"{hashlib.sha256(run['mp4']).hexdigest()}; submit to done "
+          f"{run['job']['finished_at'] - run['job']['created_at']:.3f} s, "
+          f"run {run['run_s']:.3f} s; ME launches by card index "
+          f"{run['by_card']}; {json.dumps(fig)}; phase 16's 2-band farm "
+          f"(one card a worker): fps {farm.get('fps')}, stage_ms "
+          f"{json.dumps(farm.get('stage_ms'))}, latency "
+          f"{json.dumps(farm.get('latency'))}; {tag}; card {card}",
+          flush=True)
+    check(run["mp4"] == mux_mp4(stream, meta),
+          "the mesh farm's MP4 differs from the mux of the 4-band stream")
+    _check_by_device("mesh farm point", run["by_card"], want)
+    check(run["stage_ms"]["dense_fallback_waves"] == 0,
+          "the mesh farm run replayed dense")
+    return {"launches_by_device": run["by_card"],
+            "per_entry": [p_frames] * len(entries), "fig": fig,
+            "kernels": kernels, "meshes": tag}
+
+
+def mesh_phase(main: dict, sfe: dict, farm: dict | None = None,
+               card: str | None = None) -> dict:
     mesh, tag = _mesh()
     run = mesh_run_kernels(mesh, tag)
     gop = mesh_gop_point(mesh, tag, main)
     band = mesh_sfe_point(mesh, tag, sfe)
-    return {"mesh": tag, "run": run, "gop": gop, "sfe": band}
+    slices = mesh_farm_point(card or card_line(), farm or {},
+                             band.pop("stream"))
+    return {"mesh": tag, "run": run, "gop": gop, "sfe": band,
+            "farm": slices}
 
 
 # ---- phase 18 ------------------------------------------------------------
@@ -3525,7 +3724,7 @@ def main() -> int:
     print("kernels: me_halfpel, me_search")
     recs = check_me_kernels(dev)
     banded = check_banded_me_kernels(dev)
-    farm_slice = check_farm_slice_kernels(dev)
+    farm_slice = check_farm_slice_kernels([dev, dev])
     phase("4 main")
     main = main_path()
     for rec in recs:
@@ -3556,7 +3755,7 @@ def main() -> int:
     phase("16 farm")
     farm = farm_phase(job_mp4, card)
     phase("17 mesh")
-    mesh = mesh_phase(main, sfe)
+    mesh = mesh_phase(main, sfe, farm, card)
     phase("15 card = CPU")
     parity_phase()
     phase("18 check")
@@ -3581,7 +3780,11 @@ def main() -> int:
             "sfe_launches_by_card": mesh["sfe"]["launches_by_device"][
                 rec["name"]],
             "sfe_launches_per_entry": mesh["sfe"]["per_entry"],
-            "run_stack": mesh["run"][rec["name"]]}
+            "run_stack": mesh["run"][rec["name"]],
+            "farm_launches_by_card": mesh["farm"]["launches_by_device"][
+                rec["name"]],
+            "farm_launches_per_entry": mesh["farm"]["per_entry"],
+            "farm_run_stack": mesh["farm"]["kernels"][rec["name"]]}
         rec["sync_audit_launches"] = checked["audit"]["launches"][
             rec["name"]]
     phase("end")

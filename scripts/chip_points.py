@@ -12,9 +12,12 @@ comparison of two checkouts.
 - `manager`: phase 14 alone — builds the kernels, makes phase 6's MP4
   (`chip_smoke._run_job`) and phase 12's ladder job tree
   (`chip_smoke.ladder_job`), then runs `chip_smoke.manager_phase`.
-- `farm`: phase 16 alone — builds the kernels, holds them at the farm
-  slice's stacks (`chip_smoke.check_farm_slice_kernels`), makes phase
-  6's MP4 (`chip_smoke._run_job`), then runs `chip_smoke.farm_phase`.
+- `farm`: phase 16 and phase 17d — builds the kernels, holds them at
+  the farm slice's stacks (`chip_smoke.check_farm_slice_kernels`), makes
+  phase 6's MP4 (`chip_smoke._run_job`), runs `chip_smoke.farm_phase`,
+  then `chip_smoke.mesh_farm_point`: the 4-band farm SFE job on two
+  workers with two-entry meshes (aliased on one card), against a local
+  one-card 4-band encode that must equal the JAX package's stream.
 - `daemon-jobs`: job times through the manager daemon beside the job
   path in this process: phase 6's job twice here, then `cli coordinator
   --device cuda` in a subprocess and the same clip posted to /add_job
@@ -23,8 +26,9 @@ comparison of two checkouts.
 - `mesh`: phase 17 alone — builds the kernels, then runs
   `chip_smoke.mesh_phase` (the kernels at a mesh entry's run, the 1080p
   GOP point on the mesh against MESH_POINT_JAX, the 4K split-frame point
-  spread over the mesh against phase 10's stream), without phase 4's
-  and phase 10's one-card figures beside it.
+  spread over the mesh against phase 10's stream, the 4-band farm on two
+  workers' meshes), without phase 4's, phase 10's and phase 16's figures
+  beside it.
 - `check`: phase 18 alone — builds the kernels, runs phase 4's main
   path (`chip_smoke.main_path`, for its stream), then
   `chip_smoke.check_phase`: `cli check --json` with no torch in its
@@ -81,7 +85,8 @@ def farm() -> None:
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     cs.build_all()
-    cs.check_farm_slice_kernels(cs.torch.device("cuda", 0))
+    dev = cs.torch.device("cuda", 0)
+    cs.check_farm_slice_kernels([dev, dev])
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "job1080.y4m")
         cs._write_clip(path, cs.make_frames(16, 1920, 1080), 1920, 1080)
@@ -89,6 +94,10 @@ def farm() -> None:
     t0 = time.perf_counter()
     out = cs.farm_phase(mp4, card)
     print(f"farm phase {out}, {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
+    t0 = time.perf_counter()
+    cs.mesh_farm_point(card, out)
+    print(f"mesh farm point {time.perf_counter() - t0:.1f} s; {card}",
           flush=True)
 
 
@@ -174,7 +183,7 @@ def spec() -> None:
     print(f"card: {card}", flush=True)
     cs.build_all()
     dev = cs.torch.device("cuda", 0)
-    cs.check_farm_slice_kernels(dev)
+    cs.check_farm_slice_kernels([dev, dev])
     cs.spec_phase(dev, card)
 
 

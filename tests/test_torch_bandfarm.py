@@ -36,6 +36,7 @@ from thinvids_tpu.parallel import sfefarm as jsfefarm
 from thinvids_tpu_torch.cluster import halo as thalo
 from thinvids_tpu_torch.cluster import remote as tremote
 from thinvids_tpu_torch.core import types as ttypes
+from thinvids_tpu_torch.core.devices import DeviceMesh
 from thinvids_tpu_torch.parallel import sfefarm as tsfefarm
 
 collect(reference_cases("test_bandfarm"), globals())
@@ -109,13 +110,21 @@ def _stitch(remote_mod, meta, outs, groups, total):
     return remote_mod.stitch_band_shards(shards)
 
 
-def _port_farm(clip, w, h, qp, total, groups):
+def _port_farm(clip, w, h, qp, total, groups, mesh=None, built=None):
+    """The port's farm of `groups`, each slice on `mesh` (None: one CPU
+    device); `built` (a dict) receives each slice's encoder."""
     meta = _meta(ttypes, w, h, len(clip))
     frames = _frames(ttypes, clip)
-    outs = _farm(thalo, lambda lo, hi, sess: tsfefarm.FarmBandEncoder(
-        meta, qp=qp, gop_frames=_GF, total_bands=total,
-        band_range=(lo, hi), session=sess, device="cpu").encode(frames),
-        groups)
+
+    def slice_of(lo, hi, sess):
+        enc = tsfefarm.FarmBandEncoder(
+            meta, qp=qp, gop_frames=_GF, total_bands=total,
+            band_range=(lo, hi), session=sess, device="cpu", mesh=mesh)
+        if built is not None:
+            built[lo] = enc
+        return enc.encode(frames)
+
+    outs = _farm(thalo, slice_of, groups)
     return outs, ttypes.concat_segments(
         _stitch(tremote, meta, outs, groups, total))
 
@@ -194,6 +203,68 @@ def test_an_escape_replays_dense_on_both_sides():
     assert got == want
 
 
+# ---- a slice's bands as runs over its worker's mesh --------------------------
+
+#: 104 rows = 7 MB rows: plan_bands(7, 12, 4) gives 4 bands of 2 MB rows,
+#: the last holding 1 real row
+_MW, _MH = 192, 104
+_TWO = DeviceMesh(("cpu", "cpu"))
+
+
+@pytest.mark.parametrize("groups,runs", [
+    ([(0, 2), (2, 4)], {0: ((0, 1), (1, 2)), 2: ((0, 1), (1, 2))}),
+    # runs of 2 + 1 beside a one-band slice, which takes one entry
+    ([(0, 3), (3, 4)], {0: ((0, 2), (2, 3)), 3: ((0, 1),)}),
+], ids=["two-2-band-slices", "uneven-runs"])
+def test_slices_over_two_entry_meshes_equal_the_jax_local_stream(groups,
+                                                                 runs):
+    clip = _gradient(_MW, _MH, _N)
+    built = {}
+    _, got = _port_farm(clip, _MW, _MH, _QP, 4, groups, mesh=_TWO,
+                        built=built)
+    want, _ = _jax_local(clip, _MW, _MH, _QP, 4)
+    assert {lo: e._band_runs for lo, e in built.items()} == runs
+    assert {lo: e.num_devices for lo, e in built.items()} == \
+        {lo: len(r) for lo, r in runs.items()}
+    assert got == want
+
+
+def test_two_band_slices_equal_the_jax_farm_slices_on_two_devices():
+    """The reference's farm step as a shard_map over a slice's two
+    devices (`_sfe_p_step_farm` on its band mesh) against the port's
+    slices on two-entry meshes, segment for segment."""
+    import jax
+    from jax.sharding import Mesh
+
+    groups = [(0, 2), (2, 4)]
+    clip = _gradient(_MW, _MH, _N)
+    outs, _ = _port_farm(clip, _MW, _MH, _QP, 4, groups, mesh=_TWO)
+    jmeta = _meta(jtypes, _MW, _MH, _N)
+    jframes = _frames(jtypes, clip)
+    jouts = _farm(jhalo, lambda lo, hi, sess: jsfefarm.FarmBandEncoder(
+        jmeta, qp=_QP, mesh=Mesh(np.array(jax.devices()[lo:hi]), ("band",)),
+        gop_frames=_GF, total_bands=4, band_range=(lo, hi),
+        session=sess).encode(jframes), groups)
+    for lo, _hi in groups:
+        _segments_equal(outs[lo], jouts[lo])
+
+
+def test_an_escape_replays_dense_on_two_entry_slices():
+    """Noise at qp 4 escapes into the dense replay of each slice's runs,
+    fed by the exchange the sparse walk recorded."""
+    qp = 4
+    clip = _noise(_MW, _MH, _N)
+    built = {}
+    _, got = _port_farm(clip, _MW, _MH, qp, 4, [(0, 2), (2, 4)], mesh=_TWO,
+                        built=built)
+    want, jenc = _jax_local(clip, _MW, _MH, qp, 4)
+    assert jenc.stages.snapshot()["dense_fallback_waves"] >= 1
+    assert all(e.num_devices == 2
+               and e.stages.snapshot()["dense_fallback_waves"] >= 1
+               for e in built.values())
+    assert got == want
+
+
 def _shard_descs(remote_mod, types_mod, path, meta, rung):
     gops = tuple(types_mod.GopSpec(index=i, start_frame=2 * i,
                                    num_frames=2) for i in range(1, 3))
@@ -225,10 +296,11 @@ def _smooth(n, w, h, seed):
     return out
 
 
-@pytest.mark.parametrize("shape", ["gop", "rung", "band"])
+@pytest.mark.parametrize("shape", ["gop", "rung", "band", "band-mesh"])
 def test_encode_shard_parts_equal_the_reference_bytes(tmp_path, shape):
     """One descriptor, one clip: the port's worker-side encode (on the
-    CPU) frames the reference's part bytes. Precondition of the rung
+    CPU) frames the reference's part bytes; "band-mesh" is the band
+    shard's 2-band slice on a two-entry mesh. Precondition of the rung
     case, asserted first: on this clip the port's scaled planes equal
     JAX's (the float scaler's k + 1/2 ties may round the other way on
     other content, ROADMAP C)."""
@@ -252,16 +324,17 @@ def test_encode_shard_parts_equal_the_reference_bytes(tmp_path, shape):
             np.testing.assert_array_equal(g.numpy(), np.asarray(j))
     path = tmp_path / "clip.y4m"
     write_y4m(str(path), _meta(jtypes, w, h, n), _frames(jtypes, clip))
+    desc = shape.split("-")[0]
     jdesc = _shard_descs(jremote, jtypes, path, _meta(jtypes, w, h, n),
-                         rung)[shape]
+                         rung)[desc]
     tdesc = _shard_descs(tremote, ttypes, path, _meta(ttypes, w, h, n),
-                         rung)[shape]
+                         rung)[desc]
     assert tdesc == jdesc
     want = jremote.pack_parts(jremote.encode_shard(jdesc,
                                                    jread(str(path))[1]))
-    got = tremote.pack_parts(tremote.encode_shard(tdesc,
-                                                  tread(str(path))[1],
-                                                  device="cpu"))
+    got = tremote.pack_parts(tremote.encode_shard(
+        tdesc, tread(str(path))[1], device="cpu",
+        mesh=_TWO if shape == "band-mesh" else None))
     assert got == want
 
 
@@ -288,3 +361,138 @@ def test_wire_formats_frame_the_same_bytes():
     for k, v in arrays.items():
         np.testing.assert_array_equal(back[k], v)
         assert back[k].dtype == v.dtype
+
+
+def test_a_worker_advertises_the_devices_it_encodes_on(monkeypatch):
+    """A worker's heartbeat counts its mesh's entries, else its one
+    device, whatever the host's card count: the coordinator plans band
+    slices for the cards that run them."""
+    import torch
+
+    from thinvids_tpu_torch.core import devices
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(devices, "resolve_device",
+                        lambda device="cuda": torch.device(device))
+    url = "http://127.0.0.1:9"
+    assert tremote.WorkerDaemon(url, device="cuda").metrics()[
+        "worker_devices"] == 1
+    assert tremote.WorkerDaemon(url, device="cpu", mesh=_TWO).metrics()[
+        "worker_devices"] == 2
+    assert tremote.WorkerDaemon(url, device="cpu").metrics()[
+        "worker_devices"] == 1
+
+
+def _http_json(base, path, body=None, timeout=30.0):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _poll(fn, cap_s, what):
+    import time
+
+    deadline = time.monotonic() + cap_s
+    while time.monotonic() < deadline:
+        try:
+            got = fn()
+        except OSError:
+            got = None
+        if got:
+            return got
+        time.sleep(0.2)
+    raise AssertionError(f"{what} not within {cap_s:.0f} s")
+
+
+def test_two_mesh_workers_encode_a_four_band_job_as_the_local_mp4(tmp_path):
+    """The port's remote coordinator (a `cli coordinator` process) plans a
+    sfe_bands 4 job for two in-process workers, each on a two-entry CPU
+    mesh and so advertising 2 devices: one 2-band slice a worker, each
+    slice's bands as one run an entry. The MP4 equals the local 4-band
+    encode's, byte for byte."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from thinvids_tpu_torch.cluster.agent import NodeAgent, http_submitter
+    from thinvids_tpu_torch.ingest.decode import open_video
+    from thinvids_tpu_torch.io.mp4 import mux_mp4
+    from thinvids_tpu_torch.io.y4m import write_y4m
+    from thinvids_tpu_torch.parallel.dispatch import SfeShardEncoder
+
+    w, h, n, gop, qp = 64, 128, 12, 3, 30      # 8 MB rows: 4 bands of 2
+    path = tmp_path / "clip.y4m"
+    frames = _frames(ttypes, _gradient(w, h, n))
+    write_y4m(str(path), _meta(ttypes, w, h, n), frames)
+    with open_video(str(path)) as src:
+        meta = src.meta
+    want = mux_mp4(ttypes.concat_segments(SfeShardEncoder(
+        meta, qp=qp, gop_frames=gop, bands=4, halo_rows=32,
+        device="cpu").encode(frames)), meta)
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, TVT_MIN_IDLE_WORKERS="0",
+               TVT_GOP_FRAMES=str(gop), TVT_QP=str(qp),
+               TVT_METRICS_TTL_S="3", TVT_REMOTE_RETRY_BACKOFF_S="0.2",
+               TVT_SCHEDULER_POLL_S="0.5", TVT_HALO_TIMEOUT_S="120",
+               OMP_NUM_THREADS="1")
+    coord = subprocess.Popen(
+        [sys.executable, "-m", "thinvids_tpu_torch.cli", "coordinator",
+         "--backend", "remote", "--device", "cpu", "--host", "127.0.0.1",
+         "--port", str(port), "--state-dir", str(tmp_path / "state"),
+         "--output-dir", str(tmp_path / "library")],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    stop = threading.Event()
+    agents, loops, daemons = [], [], {}
+    try:
+        _poll(lambda: _http_json(base, "/health", timeout=2.0), 60,
+              "the coordinator's API")
+        for host in ("mesh-w0", "mesh-w1"):
+            daemons[host] = tremote.WorkerDaemon(base, host=host, poll_s=0.1,
+                                                 device="cpu", mesh=_TWO)
+            agents.append(NodeAgent(
+                http_submitter(base), host=host, interval_s=0.3,
+                extra_metrics=daemons[host].metrics, device="cpu").start())
+            loops.append(threading.Thread(
+                target=daemons[host].run_forever, args=(stop,), daemon=True))
+            loops[-1].start()
+        _poll(lambda: all(
+            _http_json(base, "/metrics_snapshot")["metrics"].get(host, {})
+            .get("worker_devices") == 2 for host in daemons), 30,
+            "both workers advertising 2 devices")
+        _http_json(base, "/add_job", {"input_path": str(path),
+                                      "settings": {"sfe_bands": 4}})
+        job = _poll(lambda: next(
+            (j for j in _http_json(base, "/jobs")["jobs"]
+             if j["input_path"] == str(path)
+             and j["status"] in ("done", "failed", "rejected")), None),
+            120, "the farm job")
+        assert job["status"] == "done", job.get("failure_reason")
+        with open(job["output_path"], "rb") as fp:
+            got = fp.read()
+        assert {h: d.shards_done for h, d in daemons.items()} == \
+            {"mesh-w0": 1, "mesh-w1": 1}
+        assert got == want
+    finally:
+        stop.set()
+        for agent in agents:
+            agent.stop()
+        for loop in loops:
+            loop.join(30)
+        coord.terminate()
+        try:
+            coord.wait(30)
+        except subprocess.TimeoutExpired:
+            coord.kill()
+            coord.wait(10)
+    assert not any(loop.is_alive() for loop in loops)

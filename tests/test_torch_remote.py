@@ -38,6 +38,7 @@ import thinvids_tpu_torch.farm as tfarm
 from thinvids_tpu_torch.abr import ladder as tladder
 from thinvids_tpu_torch.cluster import executor as texecutor
 from thinvids_tpu_torch.cluster import remote as tremote
+from thinvids_tpu_torch.core.devices import DeviceMesh
 from thinvids_tpu_torch.farm import provider as tprovider
 from thinvids_tpu_torch.parallel import dispatch as tdispatch
 from thinvids_tpu_torch.parallel import sfefarm as tsfefarm
@@ -57,11 +58,14 @@ def on_the_cpu(cls):
 
 class CpuFarmBandEncoder(tsfefarm.FarmBandEncoder):
     """The port's band slice on the CPU. The reference's cases give each
-    slice a one-device JAX mesh; a port slice is one band stack on one
-    device, so the mesh has no counterpart and is dropped."""
+    slice a one-device JAX mesh, which has no counterpart here: it is
+    dropped, and the slice runs on the one CPU device. A port DeviceMesh
+    is kept."""
 
     def __init__(self, *args, mesh=None, device="cpu", **kw):
-        super().__init__(*args, device=device, **kw)
+        if not isinstance(mesh, DeviceMesh):
+            mesh = None
+        super().__init__(*args, device=device, mesh=mesh, **kw)
 
 
 #: the port's own entry points, before any stand-in replaces them

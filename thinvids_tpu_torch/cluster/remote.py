@@ -2049,8 +2049,8 @@ def encode_shard(desc: Mapping[str, Any], frames, tracer=None,
                  mesh=None) -> list[EncodedSegment]:
     """Encode one claimed shard on `device` (the card by default; it
     raises without one unless ``"cpu"`` is asked for), or on `mesh` (a
-    DeviceMesh: a GOP shard's waves spread over its entries; a band
-    slice stays on its first entry). Pure w.r.t.
+    DeviceMesh: a GOP shard's waves spread over its entries, a band
+    slice's bands as one run an entry). Pure w.r.t.
     the descriptor: the plan override pins the coordinator's exact GOP
     boundaries and the index/frame offsets re-base the emitted segments
     to global coordinates, so the part is bit-identical to what a
@@ -2237,7 +2237,9 @@ class WorkerDaemon:
     One daemon per worker host (`python -m thinvids_tpu_torch.cli
     worker`), encoding on `device` (the card by default; it raises
     without one unless ``"cpu"`` is asked for), or on `mesh` (a
-    core.devices.DeviceMesh, advertised as the host's device count).
+    core.devices.DeviceMesh: a GOP shard's waves and a band slice's runs
+    of bands spread over its entries). It advertises the devices it
+    encodes on: the mesh's entries, else one.
     The source cache holds the last `CACHE_CLIPS` OPENED inputs keyed
     by path+signature (header/demux state, compressed samples for mp4 —
     never decoded frames), and each claimed shard decodes only its own
@@ -2268,7 +2270,8 @@ class WorkerDaemon:
         self.busy = False
         self.shards_done = 0
         self.shards_failed = 0
-        self._device_count: int | None = None
+        self._device_count = self.mesh.size if self.mesh is not None \
+            else 1
         #: input_path → (signature, opened FrameSource — no decoded
         #: frames cached; shards range-decode on demand)
         self._cache: dict[str, tuple[str, Any]] = {}
@@ -2276,24 +2279,10 @@ class WorkerDaemon:
     # -- metrics seam (NodeAgent extra_metrics) ------------------------
 
     def metrics(self) -> dict[str, Any]:
-        if self._device_count is None:
-            # lazy, once: the heartbeat advertises this host's device
-            # count so the coordinator's band planner can clamp a
-            # shard's band count to the SLOWEST worker's devices: the
-            # cards torch sees, or one for a worker run on the CPU (a
-            # worker is a torch process by definition — initializing
-            # CUDA here only front-loads what the first claim does)
-            try:
-                import torch
-
-                if self.mesh is not None:
-                    self._device_count = self.mesh.size
-                elif torch.device(self.device).type == "cpu":
-                    self._device_count = 1
-                else:
-                    self._device_count = max(1, torch.cuda.device_count())
-            except Exception:   # noqa: BLE001 - degraded heartbeat
-                self._device_count = 1
+        # the heartbeat advertises the devices this worker encodes on,
+        # so the coordinator's band planner can clamp a shard's band
+        # count to the SLOWEST worker's: its mesh's entries, else its
+        # one `device`
         return {"worker": True, "worker_busy": self.busy,
                 "worker_devices": self._device_count,
                 "worker_shards_done": self.shards_done,

@@ -685,14 +685,15 @@ def banded_probe_cost(cur_stack, ref_stack, real_rows,
     keeping the sum equal to the full-frame probe's. int32, wrapping as
     the reference's int32 sums do.
 
-    Farm mode: `top_ext` / `bot_ext` are host-injected neighbour
-    reference PIXEL rows (≥ 16 a side, (rows, W)) from the adjacent band
-    slice on another host, with `edge_top` / `edge_bot` as in
-    :func:`band_halo_exchange`; their quarter-res cells stand in for the
-    neighbour bands' halo cells at the slice edges, so the partial sums
-    of every slice add up to exactly the whole layout's cost. The caller
-    finishes the cross-host sum and the argmin
-    (:func:`probe_center_from_cost`)."""
+    Split mode: `top_ext` / `bot_ext` are injected neighbour reference
+    PIXEL rows (≥ 16 a side, (rows, W)) from the adjacent run of bands
+    (on another mesh entry, or a farm slice on another host), with
+    `edge_top` / `edge_bot` as in :func:`band_halo_exchange`; their
+    quarter-res cells stand in for the neighbour bands' halo cells at
+    the run's edges, so the partial sums of every run add up to exactly
+    the whole layout's cost. The caller finishes the sum and the argmin
+    (:func:`probe_center_t`, or :func:`probe_center_from_cost` on the
+    host)."""
     qs = _COARSE
     qsr = sr // qs
     B, H, W = cur_stack.shape
@@ -766,8 +767,8 @@ def banded_centers_from(cur_stack, ref_stack, pred_mv_h, real_rows,
     `centers_from`, with the vertical component additionally clamped to
     `halo_clamp(halo_rows)` so every candidate read stays inside the
     halo. `probe` injects a pre-computed (unclamped) global center as a
-    (2,) int32 tensor — the farm path, where the probe's cross-host sum
-    resolves on the host (probe_center_from_cost) before the search."""
+    (2,) int32 tensor — a split layout's path, where the probe's sum over
+    the runs (and a farm's hosts) resolves before the search."""
     if probe is None:
         probe = banded_coarse_probe(cur_stack, ref_stack, real_rows)
     med_pel = torch.clamp((pred_mv_h.to(torch.int32) + 2) >> 2,
@@ -855,16 +856,16 @@ def me_search_banded(cur_y16, ref_y16, ref_u16, ref_v16, pred_mv_h,
     CUDA tensors go through the kernels, CPU tensors through the plain
     version, band by band.
 
-    Farm mode (a band slice of a cross-host layout): `ext` = (top_y,
-    bot_y, top_u, bot_u, top_v, bot_v) host-injected neighbour reference
-    rows for the slice edges, each (rows, W) or None, with `edge_top` /
-    `edge_bot` marking which edges are true frame edges; `probe` = the
-    host-resolved global probe center ((2,) int32 tensor: the summed
-    banded_probe_cost of every slice → probe_center_from_cost); and
-    `return_hist=True` swaps the median for this stack's histogram
-    partial (cnt, n), which the caller sums across slices
-    (median_from_counts). With identical injected values the per-MB (mv,
-    pred) results equal the whole layout's.
+    Split mode (a run of bands of a larger layout: a mesh entry's, or a
+    farm slice's): `ext` = (top_y, bot_y, top_u, bot_u, top_v, bot_v)
+    injected neighbour reference rows for the run's edges, each (rows,
+    W) or None, with `edge_top` / `edge_bot` marking which edges are
+    true frame edges; `probe` = the global probe center ((2,) int32
+    tensor: the summed banded_probe_cost of every run →
+    probe_center_t); and `return_hist=True` swaps the median for this
+    stack's histogram partial (cnt, n), which the caller sums across
+    runs (median_from_counts_t). With identical injected values the
+    per-MB (mv, pred) results equal the whole layout's.
 
     Returns (mv (B, Hb/16, mbw, 2) int32 half-pel, pred_y, pred_u,
     pred_v int16 band stacks, med_mv_h (2,) int32 — the GLOBAL

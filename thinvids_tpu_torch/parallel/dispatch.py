@@ -1269,17 +1269,17 @@ def _sfe_intra_step(ys, us, vs, qp: int, real_rows, *, mbw: int,
 # ---------------------------------------------------------------------------
 # the P step of a RUN of bands
 #
-# A run is a mesh entry's contiguous bands, or a farm host's slice of a
-# cross-host layout (parallel/sfefarm.py), or the whole layout on one
-# entry. The halo exchange and the probe/median sums span the whole
-# layout, so their cross-run halves move outside the step: neighbour
-# reference rows arrive as injected inputs (a peer copy between the
-# entries of a mesh; cluster/halo.py between hosts), the probe splits
-# into a per-run partial cost + an argmin of the sum, and the median
-# histogram leaves the step as a per-run partial. All three are integer
-# sums, so the reduction equals the whole layout's — every split's
-# stream equals one stack's. `edges` = (edge_top, edge_bot): whether the
-# run's first / last band is the frame's.
+# A run is a mesh entry's contiguous bands, of the whole layout or of a
+# farm host's slice of a cross-host layout (parallel/sfefarm.py), or the
+# whole layout on one entry. The halo exchange and the probe/median sums
+# span the whole layout, so their cross-run halves move outside the
+# step: neighbour reference rows arrive as injected inputs (a peer copy
+# between the entries of a mesh; cluster/halo.py between hosts), the
+# probe splits into a per-run partial cost + an argmin of the sum, and
+# the median histogram leaves the step as a per-run partial. All three
+# are integer sums, so the reduction equals the whole layout's — every
+# split's stream equals one stack's. `edges` = (edge_top, edge_bot):
+# whether the run's first / last band is the frame's.
 # ---------------------------------------------------------------------------
 
 
@@ -1383,11 +1383,10 @@ class SfeShardEncoder(GopShardEncoder):
         #: peer's slices join the SAME access unit downstream)
         self.emit_parameter_sets = lo == 0
         #: the bands split into contiguous runs, one a mesh entry (a mesh
-        #: wider than the layout leaves its last entries idle). A slice of
-        #: a larger layout (a farm shard) stays on the first entry: its
-        #: neighbours are other hosts, reached over the halo relay.
-        whole = (lo, hi) == (0, self.global_band_plan.num_bands)
-        entries = min(mesh.size, hi - lo) if whole else 1
+        #: wider than the bands leaves its last entries idle). A farm
+        #: slice's runs meet the other hosts' slices only at its outer
+        #: edges, over the halo relay (parallel/sfefarm.py).
+        entries = min(mesh.size, hi - lo)
         offs = np.cumsum([0] + _runs(hi - lo, entries))
         self._band_runs = tuple(zip(offs[:-1].tolist(), offs[1:].tolist()))
         if entries < mesh.size:
@@ -1521,8 +1520,8 @@ class SfeShardEncoder(GopShardEncoder):
         return 1
 
     def _intra_step(self, ys, us, vs, qp: int, dense: bool = False):
-        """The IDR step of this encoder's whole stack (a farm slice's
-        lockstep walk): (levels, (ry, ru, rv)), as _sfe_intra_step."""
+        """The IDR step of a one-entry encoder's whole stack: (levels,
+        (ry, ru, rv)), as _sfe_intra_step."""
         bp = self.band_plan
         return _sfe_intra_step(ys, us, vs, qp, self._real_rows,
                                mbw=bp.mb_width, mbh_band=bp.band_mb_rows,
@@ -1536,30 +1535,43 @@ class SfeShardEncoder(GopShardEncoder):
         frame's done events, one per entry."""
         with self.stages.stage("dispatch"):
             gop, ys, us, vs, qp = staged
-            outs, carries, events = (list(x) for x in zip(
-                *self._walk(gop.num_frames, ys, us, vs, qp)))
+            outs, carries, events = (list(x) for x in zip(*[
+                (levels, carry if self.keep_recon else None, done)
+                for levels, carry, _, done in self._walk(
+                    gop.num_frames, ys, us, vs, qp)]))
             return (gop, staged, outs, carries, events)
 
     # -- the runs of bands ------------------------------------------------
 
-    def _walk(self, nf: int, ys, us, vs, qp: int, dense: bool = False):
+    def _walk(self, nf: int, ys, us, vs, qp: int, dense: bool = False,
+              link=None):
         """Step one GOP over every entry's run of bands, a frame at a time:
         each entry's step is enqueued on its card, and between the steps
         the inputs that cross runs move — the edge rows of the runs
         beside it, the probe cost and the median histograms summed over
         every run, and with rd.deblock the filter's one-MB-row halo. All
         reductions are integer sums, so each run's levels and recon equal
-        those rows of one stack's step. Yields per frame (the levels
-        joined over the entries in band order, the carry joined — for the
-        keep_recon hook, else None — and one done event per entry)."""
+        those rows of one stack's step.
+
+        A farm slice passes `link` (parallel/sfefarm.py), whose three
+        seams reach the other hosts' slices: `link.edges(fi)`, the
+        injected rows at the slice's outer edges for frame fi's search;
+        `link.probe(fi, cost)` and `link.median(fi, cnt, n)`, the runs'
+        probe cost and histogram totals on the first entry with the
+        peers' added. Yields per frame (the levels joined over the
+        entries in band order, each run's carry (ry, ru, rv), the runs'
+        histogram total (cnt, n) on the first entry — None for the IDR
+        frame — and one done event per entry)."""
         bp = self.band_plan
         E = self.num_devices
         ys, us, vs = _parts(ys), _parts(us), _parts(vs)
         rows = [self._real_rows[b0:b1] for b0, b1 in self._band_runs]
-        edges = [(r == 0, r == E - 1) for r in range(E)]
+        top = self.band_lo == 0
+        bot = self.band_hi == self.global_band_plan.num_bands
+        edges = [(r == 0 and top, r == E - 1 and bot) for r in range(E)]
         kw = dict(mbw=bp.mb_width, mbh_band=bp.band_mb_rows, rd=self.rd,
                   dense=dense, defer_deblock=self.rd.deblock)
-        carry = ext = pred = hists = None
+        carry = ext = pred = hist = None
         for fi in range(nf):
             if fi == 0:
                 levels, carry = zip(*self.on_entries(
@@ -1567,32 +1579,34 @@ class SfeShardEncoder(GopShardEncoder):
                                               qp, rows[r], **kw)))
                 db_in = [()] * E
             else:
-                cost = self.on_entries(lambda r: _sfe_probe_step(
+                cost = self._sum(self.on_entries(lambda r: _sfe_probe_step(
                     ys[r][fi], carry[r][0], rows[r], ext[r][0], ext[r][1],
-                    edges[r]))
-                probe = self._to_all(torchme.probe_center_t(
-                    self._sum(cost)))
+                    edges[r])))
+                if link is not None:
+                    cost = link.probe(fi, cost)
+                probe = self._to_all(torchme.probe_center_t(cost))
                 levels, hists, carry, db_in = zip(*self.on_entries(
                     lambda r: _sfe_p_step(
                         ys[r][fi], us[r][fi], vs[r][fi], carry[r], pred[r],
                         probe[r], ext[r], qp, rows[r], edges[r],
                         halo_rows=self.halo_rows, **kw)))
+                hist = tuple(self._sum(list(p)) for p in zip(*hists))
             if self.rd.deblock:
                 carry = self._deblock_runs(carry, db_in, qp)
             events = [self._event(r) for r in range(E)]
-            yield (tuple(_join(list(p)) for p in zip(*levels)),
-                   tuple(_join(list(p)) for p in zip(*carry))
-                   if self.keep_recon else None, events)
+            yield (tuple(_join(list(p)) for p in zip(*levels)), carry, hist,
+                   events)
             if fi < nf - 1:
-                ext = self._run_edges(carry)
-                if hists is None:
+                ext = self._run_edges(
+                    carry, None if link is None else link.edges(fi + 1))
+                if hist is None:
                     pred = self._to_all(torch.zeros(
                         2, dtype=torch.int32, device=self.device))
                 else:
+                    total = hist if link is None else link.median(fi + 1,
+                                                                  *hist)
                     pred = self._to_all(torchme.median_from_counts_t(
-                        self._sum([h[0] for h in hists]),
-                        self._sum([h[1] for h in hists]),
-                        2 * torchme.SEARCH_RANGE))
+                        *total, 2 * torchme.SEARCH_RANGE))
 
     def _recv(self, t, src: int, dst: int):
         """Entry `src`'s tensor `t` on entry `dst`'s device: `t` itself on
@@ -1618,10 +1632,13 @@ class SfeShardEncoder(GopShardEncoder):
         """The first entry's tensor `t` on every entry."""
         return [self._recv(t, 0, r) for r in range(self.num_devices)]
 
-    def _run_edges(self, carry) -> list:
+    def _run_edges(self, carry, outer=None) -> list:
         """Each run's injected rows for the next frame's search, on its
         entry: (ty, by, tu, bu, tv, bv), the last halo rows of the run
-        above and the first of the run below (None at a frame edge)."""
+        above and the first of the run below. At a farm slice's outer
+        edges they are `outer`, the peers' rows in the same order (the
+        top ones on the first entry, the bottom ones on the last); None
+        at a frame edge."""
         halo, hc = self.halo_rows, self.halo_rows // 2
         E = self.num_devices
         out = []
@@ -1631,10 +1648,14 @@ class SfeShardEncoder(GopShardEncoder):
                 ry, ru, rv = carry[r - 1]
                 ext[0::2] = [self._recv(t, r - 1, r) for t in (
                     ry[-1, -halo:], ru[-1, -hc:], rv[-1, -hc:])]
+            elif outer is not None:
+                ext[0::2] = outer[0::2]
             if r < E - 1:
                 ry, ru, rv = carry[r + 1]
                 ext[1::2] = [self._recv(t, r + 1, r) for t in (
                     ry[0, :halo], ru[0, :hc], rv[0, :hc])]
+            elif outer is not None:
+                ext[1::2] = outer[1::2]
             out.append(tuple(ext))
         return out
 
@@ -1766,11 +1787,13 @@ class SfeShardEncoder(GopShardEncoder):
                           frame=frame_index)
 
     def _keep_recon(self, carry, frame_index: int) -> None:
+        """Fetch a frame's recon from each run's carry (ry, ru, rv)."""
         h, w = self.meta.height, self.meta.width
         self.recon_frames[frame_index] = tuple(
             _to_host(p).reshape(-1, p.shape[-1])[:rows, :cols].astype(
                 np.uint8)
-            for p, rows, cols in zip(carry[:3], (h, h // 2, h // 2),
+            for p, rows, cols in zip((_join(list(q)) for q in zip(*carry)),
+                                     (h, h // 2, h // 2),
                                      (w, w // 2, w // 2)))
 
     def _frame_nal(self, thunks: list, fi: int) -> bytes:
@@ -1789,7 +1812,6 @@ class SfeShardEncoder(GopShardEncoder):
         contract."""
         gop, staged, outs, carries, events = pending
         prof = self.stages
-        bp = self.band_plan
         qp = staged[4]
         if self.gop_index_offset or self.frame_offset:
             import dataclasses as _dc
@@ -1806,31 +1828,11 @@ class SfeShardEncoder(GopShardEncoder):
                 _wait(events[fi])
                 tiny = [_to_host(t) for t in (nblk, nval, n_esc, used)]
             prof.bump("d2h_bytes", sum(int(a.nbytes) for a in tiny))
-            nblk_h, nval_h, nesc_h, used_h = tiny
-            if int(nesc_h.max()) > 0:
+            if int(tiny[2].max()) > 0:
                 dense_from = fi         # escape: rerun the GOP dense
                 break
-            _, L = self._band_sizes(intra=(fi == 0))
-            with prof.stage("fetch"):
-                (head_h,) = self._fetch_bulk([head])
-                rows = self._fetch_payload_rows(payload, used_h)
-            with prof.stage("sfe"):
-                thunks = []
-                for bi in range(bp.num_bands):
-                    rest = functools.partial(
-                        unpack_compact_auto, rows[bi][:int(used_h[bi])],
-                        int(nblk_h[bi]), int(nval_h[bi]), L)
-                    if fi == 0:
-                        thunks.append(functools.partial(
-                            lambda r, b: self._pack_intra_band(
-                                head_h[b], r(), b, qp, idr_pic_id),
-                            rest, bi))
-                    else:
-                        thunks.append(functools.partial(
-                            lambda r, b, fn: self._pack_p_band(
-                                head_h[b], r(), b, qp, fn),
-                            rest, bi, fi % 256))
-                nals.append(self._frame_nal(thunks, fi))
+            nals.append(self._pack_band_frame(fi, head, payload, tiny, qp,
+                                              idr_pic_id))
             self._note_frame_done(gop.start_frame + fi)
             if self.keep_recon:
                 self._keep_recon(carries[fi], gop.start_frame + fi)
@@ -1842,19 +1844,50 @@ class SfeShardEncoder(GopShardEncoder):
         prof.count_wave()
         return [seg]
 
+    def _pack_band_frame(self, fi: int, head, payload, tiny, qp: int,
+                         idr_pic_id: int) -> bytes:
+        """One frame's band slices from its compact transfer: fetch the
+        dense head and each band's used payload prefix (`tiny` = the
+        fetched nblk, nval, n_esc, used), then entropy-pack the bands on
+        the pack pool."""
+        bp = self.band_plan
+        nblk_h, nval_h, _, used_h = tiny
+        _, L = self._band_sizes(intra=(fi == 0))
+        with self.stages.stage("fetch"):
+            (head_h,) = self._fetch_bulk([head])
+            rows = self._fetch_payload_rows(payload, used_h)
+        with self.stages.stage("sfe"):
+            thunks = []
+            for bi in range(bp.num_bands):
+                rest = functools.partial(
+                    unpack_compact_auto, rows[bi][:int(used_h[bi])],
+                    int(nblk_h[bi]), int(nval_h[bi]), L)
+                if fi == 0:
+                    thunks.append(functools.partial(
+                        lambda r, b: self._pack_intra_band(
+                            head_h[b], r(), b, qp, idr_pic_id), rest, bi))
+                else:
+                    thunks.append(functools.partial(
+                        lambda r, b, fn: self._pack_p_band(
+                            head_h[b], r(), b, qp, fn), rest, bi, fi % 256))
+            return self._frame_nal(thunks, fi)
+
     def _collect_dense(self, gop: GopSpec, staged: tuple,
-                       nals: list[bytes], dense_from: int) -> list[bytes]:
+                       nals: list[bytes], dense_from: int,
+                       link=None) -> list[bytes]:
         """Escape fallback: rerun the GOP through the dense-transfer
         steps (same compute, uncompressed int16 levels) and pack every
         frame from `dense_from` on. Frames already packed from the sparse
-        path are kept — levels are identical either way."""
+        path are kept — levels are identical either way. A farm slice's
+        `link` replays what the peers sent in the sparse walk."""
         prof = self.stages
         bp = self.band_plan
         qp = staged[4]
         idr_pic_id = gop.index % 65536
         prof.bump("dense_fallback_waves")
         with prof.stage("dense_retry"):
-            for fi, head, flat, carry in self._dense_frames(gop, staged):
+            for fi, head, flat, carry in self._dense_frames(gop, staged,
+                                                            link):
                 if fi < dense_from:
                     continue            # already packed from sparse
                 if head is None:
@@ -1877,12 +1910,12 @@ class SfeShardEncoder(GopShardEncoder):
                     self._keep_recon(carry, gop.start_frame + fi)
         return nals
 
-    def _dense_frames(self, gop: GopSpec, staged: tuple):
+    def _dense_frames(self, gop: GopSpec, staged: tuple, link=None):
         """The dense-transfer steps of one GOP: (fi, mv8 or None, flat,
-        carry) per frame, ready to fetch."""
+        each run's carry) per frame, ready to fetch."""
         _, ys, us, vs, qp = staged
-        for fi, (levels, carry, events) in enumerate(self._walk(
-                gop.num_frames, ys, us, vs, qp, dense=True)):
+        for fi, (levels, carry, _, events) in enumerate(self._walk(
+                gop.num_frames, ys, us, vs, qp, dense=True, link=link)):
             _wait(events)
             head, flat = (None, levels[0]) if fi == 0 else levels
             yield fi, head, flat, carry

@@ -1,25 +1,27 @@
 """Farm split-frame encoding: one frame's band layout spread across
 WORKER HOSTS (the cross-host form of SfeShardEncoder; a copy of the
-reference package's on the port's band stack).
+reference package's on the port's runs of bands).
 
 Each band shard (cluster/remote.py, shape="band") owns a contiguous
 slice [band_lo, band_hi) of the job's pinned GLOBAL band layout and
 steps the SAME fixed GOP grid in lockstep with its peers. Within the
-slice the card runs the local banded steps over its (hi − lo, Hb, W)
-stack (halo slices and band sums inside the stack); ACROSS slices the
-three collective flows move to the host and ride the
-coordinator-relayed halo route (cluster/halo.py):
+slice the worker's cards run the walk of a whole-layout SfeShardEncoder
+on a mesh (SfeShardEncoder._walk): one run of bands a mesh entry, the
+runs' edge rows and integer sums moving between the cards by peer copy.
+At the slice's outer edges the three collective flows move to the host
+and ride the coordinator-relayed halo route (cluster/halo.py), through
+the walk's seams (:class:`_Exchange`):
 
 - neighbor reference rows: after each frame's step the slice's
-  boundary recon rows ship to the adjacent groups and come back as
-  injected halo inputs for the next frame's search;
-- global-motion probe: a per-slice partial-cost step
-  (dispatch._sfe_probe_step) + cross-host int32 sum + host argmin —
-  bit-identical to the whole layout's sum + argmin;
-- temporal median: the per-slice histogram partial leaves the card
-  with the level streams, sums across hosts, and the host-side
-  cumsum/argmax (torchme.median_from_counts) feeds the next frame's
-  search center.
+  boundary recon rows (its first run's top, its last run's bottom) ship
+  to the adjacent groups and come back as injected halo inputs for the
+  next frame's search on the first and last entries;
+- global-motion probe: the runs' partial-cost sum (dispatch.
+  _sfe_probe_step) + cross-host int32 sum + argmin — bit-identical to
+  the whole layout's sum + argmin;
+- temporal median: the runs' histogram sum leaves the card, sums across
+  hosts, and the cumsum/argmax (torchme.median_from_counts_t) feeds the
+  next frame's search center.
 
 Because every cross-host reduction is an integer sum and the injected
 halo rows are exactly the bytes a neighbour band would supply, a farm
@@ -29,27 +31,109 @@ byte-identical to the local SFE stream.
 
 The GOP walk is synchronous here (a frame's step needs the previous
 frame's exchange), so a "wave" = one GOP, fully encoded inside
-dispatch_wave; escapes fall back to a host-LOCAL dense replay fed by
-the cached per-frame injected inputs — peers never notice (recon,
+dispatch_wave; escapes fall back to a host-LOCAL dense replay of the
+same walk fed by the recorded exchange — peers never notice (recon,
 halo and histogram flows are identical either way).
 """
 
 from __future__ import annotations
 
-import functools
+import contextlib
+import time
 
 import numpy as np
 import torch
 
-from ..codecs.h264 import torchme
 from ..core.types import EncodedSegment, VideoMeta
-from ..codecs.h264.layout import unpack_compact_auto
-from .dispatch import (SfeShardEncoder, _sfe_p_step, _sfe_probe_step,
-                       _to_host)
+from .dispatch import SfeShardEncoder, _to_host
+
+
+class _Exchange:
+    """One GOP's cross-host seams of a slice's walk (the `link` of
+    SfeShardEncoder._walk), frames indexed within the GOP. Live, each
+    seam asks the halo session and records what the peers sent;
+    :meth:`replay` hands that record to the dense escape's walk, which
+    then exchanges nothing. `spent` sums the host seconds the seams
+    took (the caller keeps them out of its dispatch time)."""
+
+    def __init__(self, enc: "FarmBandEncoder", seq0: int,
+                 record: dict | None = None):
+        self.enc = enc
+        self.sess = enc.session
+        self.seq0 = seq0
+        self.live = record is None
+        #: (seam, fi) → the peers' part for frame fi's search: the outer
+        #: edge rows, the probe cost total, the histogram total
+        self.record: dict = {} if record is None else record
+        #: fi → this slice's histogram total of P frame fi, on the host
+        self.local_hist: dict[int, tuple] = {}
+        self.spent = 0.0
+
+    def replay(self) -> "_Exchange":
+        return _Exchange(self.enc, self.seq0, self.record)
+
+    @contextlib.contextmanager
+    def _timed(self, stage: str):
+        t0 = time.perf_counter()
+        with self.enc.stages.stage(stage):
+            yield
+        self.spent += time.perf_counter() - t0
+
+    def publish(self, fi: int, carry, hist) -> None:
+        """After frame fi's step: this slice's boundary recon rows and,
+        for a P frame, its histogram total (one fetch) to the peers."""
+        top, bot = self.enc._edge_rows(carry)
+        blob = None
+        if hist is not None:
+            with self._timed("device_wait"):
+                cnt, n = (_to_host(t) for t in hist)
+            n = int(n.reshape(-1)[0])
+            self.local_hist[fi] = (cnt.astype(np.int64), n)
+            blob = {"cnt": cnt.astype(np.int32),
+                    "n": np.asarray([n], np.int64)}
+        with self._timed("halo"):
+            self.sess.publish_state(self.seq0 + fi, top=top, bot=bot,
+                                    hist=blob)
+
+    def edges(self, fi: int) -> tuple:
+        """The peers' rows at the slice's outer edges for frame fi's
+        search (frame fi − 1's recon), on the entries that read them."""
+        if self.live:
+            with self._timed("halo"):
+                self.record["edges", fi] = self.sess.gather_edges(
+                    self.seq0 + fi - 1)
+        return self.enc._ext_triplet(*self.record["edges", fi])
+
+    def probe(self, fi: int, cost):
+        """The runs' probe cost total plus the peers' (int32)."""
+        if self.live:
+            with self._timed("device_wait"):
+                cost_h = _to_host(cost).astype(np.int32)
+            with self._timed("halo"):
+                self.record["probe", fi] = self.sess.sum_probe(
+                    self.seq0 + fi, cost_h)
+        return self.enc._upload(self.record["probe", fi])
+
+    def median(self, fi: int, cnt, n) -> tuple:
+        """The runs' histogram total (frame fi − 1's) plus the peers'.
+        The runs' total `cnt`, `n` on the card is the one :meth:`publish`
+        fetched already; its host copy is used."""
+        if self.live:
+            total, count = self.local_hist[fi - 1]
+            with self._timed("halo"):
+                peers = self.sess.gather_hists(self.seq0 + fi - 1)
+            for h in peers:
+                total = total + np.asarray(h["cnt"], np.int64)
+                count += int(np.asarray(h["n"]).reshape(-1)[0])
+            self.record["median", fi] = (total, count)
+        total, count = self.record["median", fi]
+        return (self.enc._upload(total),
+                self.enc._upload(np.asarray([count], np.int64)))
 
 
 class FarmBandEncoder(SfeShardEncoder):
-    """SfeShardEncoder over a SLICE of a cross-host band layout."""
+    """SfeShardEncoder over a SLICE of a cross-host band layout, its
+    bands in runs over the worker's `mesh`."""
 
     def __init__(self, meta: VideoMeta, qp: int = 27, gop_frames: int = 32,
                  max_segments: int = 200, total_bands: int = 0,
@@ -57,11 +141,6 @@ class FarmBandEncoder(SfeShardEncoder):
                  halo_rows: int | None = None, session=None,
                  pack_workers: int | None = None, device="cuda",
                  mesh=None):
-        from ..core.devices import DeviceMesh, as_mesh
-
-        # the slice's lockstep walk steps one stack: on a mesh, it runs
-        # on the first entry
-        mesh = DeviceMesh(as_mesh(mesh, device).devices[:1])
         super().__init__(meta, qp=qp, gop_frames=gop_frames,
                          max_segments=max_segments, halo_rows=halo_rows,
                          pack_workers=pack_workers,
@@ -76,38 +155,43 @@ class FarmBandEncoder(SfeShardEncoder):
         self.session = session
         self.edge_top = self.band_lo == 0
         self.edge_bot = self.band_hi == self.global_band_plan.num_bands
-        self._edges = (self.edge_top, self.edge_bot)
         if session is None and not (self.edge_top and self.edge_bot):
             raise ValueError(
                 "a band SLICE (neighbors exist) needs a halo session")
 
     # -- host<->card glue for the injected halo ------------------------
 
-    def _ext_device(self, rows_h):
+    def _ext_device(self, rows_h, entry: int):
         """One injected edge block (host (rows, W) int16, or None at a
-        true frame edge) → the card. Only the slice's first band reads
-        the top block and only its last band the bottom one, so the
-        upload is the edge rows alone, never a stack."""
+        true frame edge) → mesh entry `entry`'s card. Only the slice's
+        first band reads the top block and only its last band the bottom
+        one, so the upload is the edge rows alone, never a stack."""
         if rows_h is None:
             return None
-        return torch.from_numpy(np.ascontiguousarray(
-            rows_h, np.int16)).to(self.device)
+        return self._upload(np.ascontiguousarray(rows_h, np.int16), entry)
 
     def _ext_triplet(self, top_in, bot_in):
+        """The peers' edge blocks as the walk's outer rows: (ty, by, tu,
+        bu, tv, bv), the top ones on the first entry, the bottom ones on
+        the last."""
+        last = self.num_devices - 1
         out = []
         for name in ("y", "u", "v"):
-            out.append(self._ext_device(top_in[name] if top_in else None))
-            out.append(self._ext_device(bot_in[name] if bot_in else None))
-        return tuple(out)           # ty, by, tu, bu, tv, bv
+            out.append(self._ext_device(top_in[name] if top_in else None,
+                                        0))
+            out.append(self._ext_device(bot_in[name] if bot_in else None,
+                                        last))
+        return tuple(out)
 
-    def _edge_rows(self, carry3):
-        """This slice's boundary recon rows (frame just stepped): what
-        the neighbor groups splice in as their halo. None at true frame
-        edges (nobody consumes them). One copy to the host per edge."""
-        ry, ru, rv = carry3
+    def _edge_rows(self, carry):
+        """This slice's boundary recon rows (frame just stepped; `carry`
+        = each run's (ry, ru, rv)): what the neighbor groups splice in as
+        their halo — the top from the first run, the bottom from the
+        last. None at true frame edges (nobody consumes them). One copy
+        to the host per edge."""
         halo = self.halo_rows
         hc = halo // 2
-        W = ry.shape[-1]
+        W = carry[0][0].shape[-1]
 
         def fetch(y, u, v) -> dict:
             with self.stages.stage("fetch"):
@@ -122,195 +206,66 @@ class FarmBandEncoder(SfeShardEncoder):
 
         top = bot = None
         if not self.edge_top:
+            ry, ru, rv = carry[0]
             top = fetch(ry[0, :halo], ru[0, :hc], rv[0, :hc])
         if not self.edge_bot:
+            ry, ru, rv = carry[-1]
             bot = fetch(ry[-1, -halo:], ru[-1, -hc:], rv[-1, -hc:])
         return top, bot
-
-    # -- cross-host reductions -----------------------------------------
-
-    def _global_probe(self, seq: int, cur_y, ref_y, ty, by) -> np.ndarray:
-        with self.stages.stage("dispatch"):
-            cost = _sfe_probe_step(cur_y, ref_y, self._real_rows, ty, by,
-                                   self._edges)
-        with self.stages.stage("device_wait"):
-            cost_h = _to_host(cost).astype(np.int32)
-        if self.session is not None:
-            with self.stages.stage("halo"):
-                cost_h = self.session.sum_probe(seq, cost_h)
-        return torchme.probe_center_from_cost(cost_h)
-
-    def _global_median(self, seq: int, hist_local) -> np.ndarray:
-        cnt = np.asarray(hist_local[0], np.int64)
-        n = int(hist_local[1])
-        if self.session is not None:
-            with self.stages.stage("halo"):
-                peers = self.session.gather_hists(seq)
-            for h in peers:
-                cnt = cnt + np.asarray(h["cnt"], np.int64)
-                n += int(np.asarray(h["n"]).reshape(-1)[0])
-        return torchme.median_from_counts(cnt, n, 2 * torchme.SEARCH_RANGE)
 
     # -- the lockstep GOP walk -----------------------------------------
 
     def dispatch_wave(self, staged: tuple) -> tuple:
         """Encode ONE GOP of this band slice, frame by frame in lockstep
-        with the peer groups. Returns (global GopSpec, per-frame NAL
+        with the peer groups: the whole layout's walk over the slice's
+        runs (SfeShardEncoder._walk), its outer seams on the relay
+        (:class:`_Exchange`). Returns (global GopSpec, per-frame NAL
         bytes) — collect_wave only assembles the segment."""
         import dataclasses as _dc
 
         gop, ys, us, vs, qp = staged
-        bp = self.band_plan
-        sess = self.session
         gop_g = _dc.replace(gop, index=gop.index + self.gop_index_offset,
                             start_frame=(gop.start_frame
                                          + self.frame_offset))
         idr_pic_id = gop_g.index % 65536
         F = gop.num_frames
+        link = _Exchange(self, gop_g.start_frame) \
+            if self.session is not None else None
         nals: list[bytes] = []
-        #: cached per-P-frame injected inputs — the dense replay's feed
-        replay: list[tuple] = []
         dense_from: int | None = None
-        hist_local = None
-        carry3 = None
-        pred = np.zeros(2, np.int32)
-        for fi in range(F):
-            seq = gop_g.start_frame + fi
-            if fi == 0:
-                with self.stages.stage("dispatch"):
-                    outs, carry3 = self._intra_step(ys[0], us[0], vs[0], qp)
-                hist_local = None
-            else:
-                with self.stages.stage("halo"):
-                    top_in, bot_in = sess.gather_edges(seq - 1) \
-                        if sess is not None else (None, None)
-                pred = self._global_median(seq - 1, hist_local) \
-                    if fi >= 2 else np.zeros(2, np.int32)
-                ext = self._ext_triplet(top_in, bot_in)
-                probe = self._global_probe(seq, ys[fi], carry3[0], ext[0],
-                                           ext[1])
-                with self.stages.stage("dispatch"):
-                    outs, (cnt, n), carry3, _ = _sfe_p_step(
-                        ys[fi], us[fi], vs[fi], carry3,
-                        self._host_vec(pred), self._host_vec(probe), ext,
-                        qp, self._real_rows, self._edges, mbw=bp.mb_width,
-                        mbh_band=bp.band_mb_rows,
-                        halo_rows=self.halo_rows, rd=self.rd)
-                with self.stages.stage("device_wait"):
-                    cnt_h = _to_host(cnt)
-                    n_h = int(_to_host(n).reshape(-1)[0])
-                hist_local = (cnt_h.astype(np.int64), n_h)
-                replay.append((pred, probe, top_in, bot_in))
+        t0 = time.perf_counter()
+        for fi, (levels, carry, hist, _) in enumerate(
+                self._walk(F, ys, us, vs, qp, link=link)):
+            # the walk's enqueue time; its seams count as halo and
+            # device_wait
+            self.stages.add("dispatch", time.perf_counter() - t0
+                            - (link.spent if link is not None else 0.0))
             # unblock the peers FIRST: their next frame's search waits
             # on these rows, while our own pack work below is local
-            if sess is not None and fi < F - 1:
-                top_out, bot_out = self._edge_rows(carry3)
-                hist_blob = None
-                if hist_local is not None:
-                    hist_blob = {
-                        "cnt": hist_local[0].astype(np.int32),
-                        "n": np.asarray([hist_local[1]], np.int64)}
-                with self.stages.stage("halo"):
-                    sess.publish_state(seq, top=top_out, bot=bot_out,
-                                       hist=hist_blob)
-            head, nblk, nval, n_esc, used, payload = outs
+            if link is not None and fi < F - 1:
+                link.publish(fi, carry, hist)
+            head, nblk, nval, n_esc, used, payload = levels
             with self.stages.stage("device_wait"):
                 tiny = [_to_host(t) for t in (nblk, nval, n_esc, used)]
             self.stages.bump("d2h_bytes",
                              sum(int(a.nbytes) for a in tiny))
-            nblk_h, nval_h, nesc_h, used_h = tiny
-            if dense_from is None and int(nesc_h.max()) > 0:
+            if dense_from is None and int(tiny[2].max()) > 0:
                 dense_from = fi     # escape: this slice replays dense
                                     # LOCALLY after the walk — the
-                                    # exchange flows above continue
-                                    # untouched (identical either way)
-            if dense_from is not None:
-                continue
-            _, L = self._band_sizes(intra=(fi == 0))
-            with self.stages.stage("fetch"):
-                (head_h,) = self._fetch_bulk([head])
-                rows = self._fetch_payload_rows(payload, used_h)
-            with self.stages.stage("sfe"):
-                nals.append(self._pack_band_frame(
-                    fi, head_h, rows, nblk_h, nval_h, used_h, L, qp,
-                    idr_pic_id))
-            self._note_frame_done(seq)
-        if dense_from is not None:
-            nals = self._replay_dense(gop_g, staged, nals, dense_from,
-                                      replay)
-        return (gop_g, nals)
-
-    def _host_vec(self, v) -> torch.Tensor:
-        """A host-resolved (2,) int32 center → the card (the search's
-        center input)."""
-        return torch.as_tensor(np.asarray(v, np.int32), device=self.device)
-
-    def _pack_band_frame(self, fi: int, head_h, rows, nblk_h, nval_h,
-                         used_h, L: int, qp: int,
-                         idr_pic_id: int) -> bytes:
-        bp = self.band_plan
-        thunks = []
-        for bi in range(bp.num_bands):
-            rest = functools.partial(
-                unpack_compact_auto, rows[bi][:int(used_h[bi])],
-                int(nblk_h[bi]), int(nval_h[bi]), L)
-            if fi == 0:
-                thunks.append(functools.partial(
-                    lambda r, b: self._pack_intra_band(
-                        head_h[b], r(), b, qp, idr_pic_id), rest, bi))
-            else:
-                thunks.append(functools.partial(
-                    lambda r, b, fn: self._pack_p_band(
-                        head_h[b], r(), b, qp, fn), rest, bi, fi % 256))
-        return self._frame_nal(thunks, fi)
-
-    def _replay_dense(self, gop_g, staged: tuple, nals: list[bytes],
-                      dense_from: int, replay: list[tuple]
-                      ) -> list[bytes]:
-        """Escape fallback, host-LOCAL: rerun this slice's GOP through
-        the dense-transfer farm steps, feeding the CACHED per-frame
-        injected inputs (pred, probe, neighbor rows) — no re-exchange,
-        bit-identical levels (the wave path's fallback contract)."""
-        prof = self.stages
-        bp = self.band_plan
-        _, ys, us, vs, qp = staged
-        idr_pic_id = gop_g.index % 65536
-        prof.bump("dense_fallback_waves")
-        with prof.stage("dense_retry"):
-            carry3 = None
-            for fi in range(gop_g.num_frames):
-                if fi == 0:
-                    (flat,), carry3 = self._intra_step(ys[0], us[0], vs[0],
-                                                       qp, dense=True)
-                    head = None
-                else:
-                    pred, probe, top_in, bot_in = replay[fi - 1]
-                    (head, flat), _, carry3, _ = _sfe_p_step(
-                        ys[fi], us[fi], vs[fi], carry3,
-                        self._host_vec(pred), self._host_vec(probe),
-                        self._ext_triplet(top_in, bot_in), qp,
-                        self._real_rows, self._edges, mbw=bp.mb_width,
-                        mbh_band=bp.band_mb_rows,
-                        halo_rows=self.halo_rows, rd=self.rd, dense=True)
-                if fi < dense_from:
-                    continue        # already packed from sparse
-                if head is None:
-                    (flat_h,) = self._fetch_bulk([flat])
-                else:
-                    head_h, flat_h = self._fetch_bulk([head, flat])
-                thunks = []
-                for bi in range(bp.num_bands):
-                    if fi == 0:
-                        thunks.append(functools.partial(
-                            self._pack_intra_band_dense, flat_h[bi], bi,
-                            qp, idr_pic_id))
-                    else:
-                        thunks.append(functools.partial(
-                            self._pack_p_band, head_h[bi], flat_h[bi], bi,
-                            qp, fi % 256))
-                nals.append(self._frame_nal(thunks, fi))
+                                    # exchange flows continue untouched
+                                    # (identical either way)
+            if dense_from is None:
+                nals.append(self._pack_band_frame(fi, head, payload, tiny,
+                                                  qp, idr_pic_id))
                 self._note_frame_done(gop_g.start_frame + fi)
-        return nals
+            if link is not None:
+                link.spent = 0.0
+            t0 = time.perf_counter()
+        if dense_from is not None:
+            nals = self._collect_dense(
+                gop_g, staged, nals, dense_from,
+                link.replay() if link is not None else None)
+        return (gop_g, nals)
 
     def collect_wave(self, pending: tuple) -> list[EncodedSegment]:
         gop_g, nals = pending
