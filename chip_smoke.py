@@ -7,10 +7,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
 1. device   — require CUDA; print the card (nvidia-smi name, power
               limit), torch/CUDA versions and the device count.
 2. build    — build the ME kernels (nvcc, csrc/me_search.cu: the half-pel
-              prepass and the search) and the host CAVLC packer (g++,
-              native/cavlc_pack.cpp) concurrently, from the sources in
-              this checkout; print each build's seconds and ptxas'
-              registers, shared memory and spills per kernel.
+              prepass and the search), the intra kernels (nvcc,
+              csrc/intra_core.cu: row 0 and the MB columns) and the host
+              CAVLC packer (g++, native/cavlc_pack.cpp) concurrently,
+              one compiler each, from the sources in this checkout;
+              print each build's seconds and ptxas' registers, shared
+              memory and spills per kernel.
 3. kernels  — hold every hand-written kernel against its plain PyTorch
               version on the card, bit-exactly, at the main path's shapes
               and on small ones (MB rows that fill the search's MB strips
@@ -32,10 +34,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
               version, bit-exactly, and the second slice's stack timed as
               the banded launch is, beside its bound (phase 17d holds the
               4-band layout's runs the same way).
+3b. intra   — the intra kernel pair (torchintra.intra_core_batch_cuda)
+              against its plain version (torchcore.intra_core_batch_ref)
+              on the card, every output bit for bit: 1080p at qp 27, an
+              8-frame 1080p batch at QPs 10..51, an AQ map, the 4-band
+              4K split-frame stack (4 x 544 x 3840), a farm band run
+              (1, 544, 3840), iid noise at 48x64, 16x80 (one MB row),
+              64x16 (one MB column) and 1088x1920; the path's shapes on
+              every further card. Each path shape timed: the pair and
+              each kernel alone (CUDA graph of 50, median of 5), the
+              pair eagerly, the plain version (median of 3), beside the
+              bound and the chain of mbw + mbh - 1 MB steps.
 4. main     — the 1080p closed-GOP encode (16 frames, gop 8, qp 27)
               through GopShardEncoder(device="cuda").encode →
               concat_segments, with every kernel's launch count set to 0
-              just before and read just after; check the stream's SPS and
+              just before and read just after (each intra kernel once an
+              IDR frame, each ME kernel once a P frame); check the
+              stream's SPS and
               slice count and print its length and sha256; then the
               bench-style e2e and device-only fps, and the time of one
               GOP's parts (IDR frame, P frame and its centres / ME
@@ -56,7 +71,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
               off and pack_backend=process give the default stream on
               the card (the sidecars must take every GOP).
 8. intra    — one 1080p all-intra wave (8 frames, every frame an IDR)
-              on the card: its slices, and its fps over the wave's
+              on the card: its slices, one launch of each intra kernel
+              for the wave's 8 frames, and its fps over the wave's
               dispatch + collect (best of 2 after a warm-up).
 9. rd       — the rate-distortion point of bench.py's _run_rd on the
               card: 1920x1080, 32 frames, one GOP of 32, qp 25, through
@@ -71,14 +87,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
               encode_gop streams; the breakdown of the RD parts (IDR
               frame per feature, P frame with the P_Skip bias and the
               filter, one timed round after a warm-up; the filter alone
-              by CUDA events; a profiler count of three of them). Each
-              sub-step's seconds are printed.
+              by CUDA events; a profiler count of three of them, the
+              RD-off IDR frame's kernels and busy share beside the eager
+              row loop's 63,447). Each sub-step's seconds are printed.
 10. sfe     — split-frame encoding on the card. bench.py's _run_sfe
               point: 3840x2160, 16 frames, gop 8, qp 27, 4 MB-row bands
               (34 + 34 + 34 + 33 rows), halo 32, through
               SfeShardEncoder(device="cuda").encode, with the ME launch
               counts set to 0 just before and read just after (14 each:
-              one launch per P frame for all bands); every picture has 4
+              one launch per P frame for all bands; each intra kernel
+              once per IDR step for all bands); every picture has 4
               slices at first_mb 0, 34*240, 68*240, 102*240; the stream's
               length and sha256 equal the JAX package's (SFE_POINT_JAX,
               from scripts/jax_sfe_point.py); then _run_sfe's figures
@@ -202,12 +220,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
               scripts/jax_mesh_point.py) and each kernel's per-card
               launch count (torchme's {card index: launches} maps, set
               to 0 just before) the P frames of the entries on that card
-              (12 in all, 6 an entry on two entries); e2e fps over
+              (12 in all, 6 an entry on two entries), and each intra
+              kernel's the IDR frames of that card's entries; e2e fps over
               pre-staged waves beside the same point on one entry and
               phase 4's. (b) bench's 4K split-frame point with its 4
               bands spread over the mesh: the stream must equal phase
-              10's, each kernel launched once per P frame per entry (28
-              on two entries); fps, the IDR step's seconds and the
+              10's, each ME kernel launched once per P frame per entry
+              (28 on two entries), each intra kernel once per IDR step
+              per entry; fps, the IDR step's seconds and the
               per-frame latency p50 / p99 beside phase 10's. (d) The farm
               on meshes: bench's 4K split-frame point as a farm SFE job
               with sfe_bands 4 through a remote coordinator daemon (as
@@ -220,9 +240,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
               the own slice's other run's copied card to card: one launch
               each a run, bit-exactly against the plain version, band
               1's time beside its bound. The job's MP4 must be the mux of
-              (b)'s stream (SFE_POINT_JAX), each kernel launched once per
-              P frame per entry, counted by card (14 each on 4 distinct
-              cards, 56 on an aliased cuda:0); its fps, the workers'
+              (b)'s stream (SFE_POINT_JAX), each ME kernel launched once
+              per P frame per entry, counted by card (14 each on 4
+              distinct cards, 56 on an aliased cuda:0), each intra kernel
+              once per IDR step per entry; its fps, the workers'
               stage_ms and the per-frame gap p50 / p99 beside phase 16's
               2-band farm. Every figure names the mesh and the card.
 15. card = CPU — after every timed section, the 352x288 card == CPU
@@ -248,7 +269,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
               the ME launch counts set to 0 just before and read just
               after: 14 each) and one all-intra IDR frame run under
               torch.cuda.set_sync_debug_mode("warn"), then one IDR
-              frame's and one P frame's device step alone; every
+              frame's and one P frame's device step alone, and a 4-band
+              1080p split-frame IDR step (sfe_intra_band) and P step
+              (sfe_p_band); every
               warning's innermost thinvids_tpu_torch frame is taken from
               a warnings.showwarning hook (traceback.extract_stack()),
               and the syncs are printed per module:function for each
@@ -291,7 +314,7 @@ import numpy as np
 import torch
 
 from thinvids_tpu_torch import native
-from thinvids_tpu_torch.codecs.h264 import headers, torchme
+from thinvids_tpu_torch.codecs.h264 import headers, torchintra, torchme
 from thinvids_tpu_torch.codecs.h264.rdo import (RD_OFF, RdConfig,
                                                 aq_from_strength)
 from thinvids_tpu_torch.core.types import Frame, VideoMeta, concat_segments
@@ -308,6 +331,10 @@ H100_BYTES_PER_S = 3.35e12
 #: the ME kernel's time at 1088x1920 `pan` content before its redesign
 #: (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)
 ME_SEARCH_PREV_MS = 0.6304
+#: one RD-off 1080p IDR frame (qp 25) through the eager torch row loop,
+#: before the intra kernels (PERF.md, torch.profiler on an NVIDIA H100
+#: 80GB HBM3 at 700.00 W)
+EAGER_IDR_BUSY = {"kernels": 63447, "device_ms": 81.9, "busy_share": 0.064}
 #: every RD feature on, at bench.py's strength (the _run_rd "on" point)
 RD_ALL = RdConfig(mode_decision=True, pskip=True, deblock=True,
                   aq_q=aq_from_strength(1.0))
@@ -442,7 +469,7 @@ def card_line() -> str:
 # ---- phase 2 -----------------------------------------------------------
 
 def build_all() -> None:
-    """Build both native libraries concurrently, one compiler each."""
+    """Build the three native libraries concurrently, one compiler each."""
     results: dict = {}
 
     def run(name, fn):
@@ -455,6 +482,7 @@ def build_all() -> None:
 
     threads = [threading.Thread(target=run, args=a) for a in (
         ("me_search (nvcc)", torchme.load_me_library),
+        ("intra_core (nvcc)", torchintra.load_intra_library),
         ("cavlc_pack (g++)", native._build_and_load))]
     for t in threads:
         t.start()
@@ -464,8 +492,10 @@ def build_all() -> None:
         print(f"build {name}: {sec:.2f} s", flush=True)
         if exc is not None:
             raise RuntimeError(f"build {name} failed") from exc
-    if torchme.BUILD_INFO is not None:
-        for line in torchme.BUILD_INFO[1].splitlines():
+    for mod in (torchme, torchintra):
+        if mod.BUILD_INFO is None:
+            continue
+        for line in mod.BUILD_INFO[1].splitlines():
             if any(s in line for s in ("entry function", "registers",
                                         "smem", "spill")):
                 print(f"  ptxas: {line.strip()}")
@@ -930,6 +960,181 @@ def check_farm_slice_kernels(devs, groups=((0, 1), (1, 2))) -> dict:
     return out
 
 
+# ---- phase 3b ----------------------------------------------------------
+
+#: integer operations of one 4x4 block through csrc/intra_core.cu, counted
+#: in its source: the residual (16), the forward transform (2 passes x 4
+#: butterflies of 8), quantisation (16 x 5: abs, multiply, add, shift,
+#: sign), dequantisation (16 x 2), the inverse transform (2 x 4
+#: butterflies of 10) and rounding, adding the prediction and clamping
+#: (16 x 5); the DC Hadamards add under 1%
+INTRA_OPS_PER_BLOCK = 16 + 64 + 80 + 32 + 80 + 80
+
+
+def intra_bounds(b: int, mbh: int, mbw: int) -> dict:
+    """(operations, bytes) of the intra kernels over b items of mbh x mbw
+    MBs, for each kernel and the pair: 24 4x4 blocks an MB; bytes the
+    uint8 planes (384 B an MB) and the int32 QP map read once, the int32
+    levels (384 values an MB) and recon (384 samples) written once. Row
+    0 is intra_row0_kernel's share, the rest intra_cols_kernel's."""
+    def of(nmb):
+        return (nmb * 24 * INTRA_OPS_PER_BLOCK,
+                nmb * (384 + 4 + 2 * 384 * 4))
+    return {"intra_row0": of(b * mbw), "intra_cols": of(b * (mbh - 1) * mbw),
+            "intra_pair": of(b * mbh * mbw)}
+
+
+def _intra_planes(dev, frames, bands: int = 1, band_rows: int = 0):
+    """(ys, us, vs) uint8 stacks on `dev` of the padded frames; with
+    `bands`, each frame's luma edge-replicated down to bands x
+    `band_rows` rows (as SfeShardEncoder stages it) and cut into its
+    MB-row bands (a split-frame band stack)."""
+    out = []
+    for p, d in zip("yuv", (1, 2, 2)):
+        a = np.stack([getattr(f.padded(16), p) for f in frames])
+        if band_rows:
+            rows = bands * band_rows // d
+            a = np.concatenate([a, np.repeat(a[:, -1:], rows - a.shape[1],
+                                             1)], axis=1)
+        out.append(torch.from_numpy(np.ascontiguousarray(a.reshape(
+            (a.shape[0] * bands, a.shape[1] // bands, a.shape[2])))).to(dev))
+    return tuple(out)
+
+
+def _intra_cases(dev) -> list:
+    """(name, ys, us, vs, qp_mb, timed) on `dev`: the shapes the paths
+    give the kernels, then small and adverse ones."""
+    from thinvids_tpu_torch.codecs.h264 import torchcore
+
+    def flat(b, nmb, qps):
+        return torch.tensor(qps, dtype=torch.int32, device=dev)[:, None] \
+            .expand(b, nmb).contiguous()
+
+    cases = []
+    hd = _intra_planes(dev, make_frames(1, 1920, 1080))
+    cases.append(("1080p B=1 qp 27", *hd, flat(1, 8160, [27]), True))
+    batch = _intra_planes(dev, make_frames(8, 1920, 1080, seed=1))
+    qps8 = [10, 16, 22, 27, 33, 38, 45, 51]
+    cases.append(("1080p B=8 qp 10..51", *batch, flat(8, 8160, qps8), True))
+    aq = torchcore._aq_qp_map(hd[0][0].to(torch.int32), 27,
+                              aq_from_strength(1.0), 120, 68)[None]
+    cases.append(("1080p B=1 AQ map", *hd, aq.contiguous(), True))
+    uhd = _intra_planes(dev, make_frames(1, 3840, 2160), bands=4,
+                        band_rows=544)
+    cases.append(("4K SFE 4 bands (4, 544, 3840)", *uhd,
+                  flat(4, 34 * 240, [27] * 4), True))
+    cases.append(("4K farm band run (1, 544, 3840)",
+                  *(p[1:2].contiguous() for p in uhd),
+                  flat(1, 34 * 240, [27]), True))
+    rng = np.random.default_rng(11)
+    for (h, w, qps) in ((48, 64, [0, 1]), (16, 80, [40, 41]),
+                        (64, 16, [50, 51]), (1088, 1920, [4, 5])):
+        planes = tuple(torch.from_numpy(rng.integers(
+            0, 256, (2, h // d, w // d), dtype=np.uint8)).to(dev)
+            for d in (1, 2, 2))
+        cases.append((f"noise {h}x{w} qp {qps}", *planes,
+                      flat(2, (h // 16) * (w // 16), qps), False))
+    return cases
+
+
+def _intra_one(which: str, ys, us, vs, qp_mb):
+    """A closure that launches ONE of the two intra kernels on the
+    current stream (row 0 reads nothing the columns write; the columns
+    read row 0's recon, written once here first): for timing each kernel
+    alone, outside the wrapper and its counts."""
+    from thinvids_tpu_torch.codecs.h264 import torchintra
+
+    B, H, W = ys.shape
+    mbh, mbw = H // 16, W // 16
+    outs = torchintra.intra_core_batch_cuda(ys, us, vs, qp_mb, mbw=mbw,
+                                            mbh=mbh)
+    lib = torchintra.load_intra_library()
+    fn = {"intra_row0": lib.intra_row0_launch,
+          "intra_cols": lib.intra_cols_launch}[which]
+    args = ([t.data_ptr() for t in (ys, us, vs, qp_mb)] + [B, mbh, mbw]
+            + [t.data_ptr() for t in outs])
+
+    def launch(keep=outs):      # the outputs live as long as the closure
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"{which} launch failed (cuda error {rc})")
+    return launch
+
+
+def check_intra_kernels(devs) -> list[dict]:
+    """The intra kernel pair (torchintra.intra_core_batch_cuda) against
+    its plain version (torchcore.intra_core_batch_ref) on the card, every
+    output bit for bit: 1080p at qp 27, an 8-frame 1080p batch at QPs
+    10..51, an AQ map, the 4-band 4K split-frame stack, a farm band run,
+    and small / noise shapes; the path's shapes on every further card
+    too. Then each path shape timed: the pair and each kernel alone by
+    CUDA events (a graph of 50, median of 5), the plain version (median
+    of 3), beside the bound. Returns the kernels' records at 1080p."""
+    from thinvids_tpu_torch.codecs.h264 import torchcore, torchintra
+
+    names = ("luma_dc", "luma_ac", "chroma_dc", "chroma_ac", "recon_y",
+             "recon_u", "recon_v")
+    err, recs, timings = 0, {}, []
+    for di, dev in enumerate(devs):
+        with torch.cuda.device(dev):
+            for name, ys, us, vs, qp_mb, timed in _intra_cases(dev):
+                if di and not timed:
+                    continue
+                B, H, W = ys.shape
+                mbh, mbw = H // 16, W // 16
+                got = torchintra.intra_core_batch_cuda(ys, us, vs, qp_mb,
+                                                       mbw=mbw, mbh=mbh)
+                torch.cuda.synchronize(dev)
+                want = torchcore.intra_core_batch_ref(ys, us, vs, qp_mb,
+                                                      mbw=mbw, mbh=mbh)
+                for n, a, b in zip(names, got, want):
+                    e = int((a - b).abs().max())
+                    err = max(err, e)
+                    check(a.shape == b.shape and e == 0,
+                          f"intra kernels {name} on {dev}: {n} differs "
+                          f"(max |diff| {e})")
+                print(f"intra kernels {name} on {dev}: {tuple(ys.shape)}, "
+                      "levels and recon bit-exact against "
+                      "intra_core_batch_ref", flush=True)
+                if di == 0 and timed:
+                    timings.append((name, ys, us, vs, qp_mb))
+    for name, ys, us, vs, qp_mb in timings:
+        B, H, W = ys.shape
+        mbh, mbw = H // 16, W // 16
+        bounds = intra_bounds(B, mbh, mbw)
+        fns = {"intra_pair": lambda: torchintra.intra_core_batch_cuda(
+            ys, us, vs, qp_mb, mbw=mbw, mbh=mbh)}
+        for k in ("intra_row0", "intra_cols"):
+            fns[k] = _intra_one(k, ys, us, vs, qp_mb)
+        ms = {k: min(_graph_ms(fn) for _ in range(2)) for k, fn in
+              fns.items()}
+        eager = _loop_ms(fns["intra_pair"])
+        plain = _median_ms(lambda: torchcore.intra_core_batch_ref(
+            ys, us, vs, qp_mb, mbw=mbw, mbh=mbh), reps=3)
+        parts = []
+        for k, t in ms.items():
+            bound_ms, bound_by = _bound(*bounds[k])
+            parts.append(f"{k} {t:.4f} ms (bound {bound_ms:.4f} by "
+                         f"{bound_by}, {100 * bound_ms / t:.2f}%)")
+            if name.startswith("1080p B=1 qp") and k != "intra_pair":
+                recs[k] = {
+                    "name": k, "route": "cuda",
+                    "source": "thinvids_tpu_torch/csrc/intra_core.cu",
+                    "replaces": "thinvids_tpu/codecs/h264/jaxcore.py:308",
+                    "launches": None, "max_abs_err": None, "ms": t,
+                    "pair_ms": ms["intra_pair"], "eager_pair_ms": eager,
+                    "plain_ms": plain, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None,
+                    "chain_mb_steps": mbw if k == "intra_row0"
+                    else mbh - 1}
+        print(f"intra timing {name} {tuple(ys.shape)}: "
+              f"{'; '.join(parts)}; the pair eagerly {eager:.4f} ms; plain "
+              f"{plain:.3f} ms; chain {mbw + mbh - 1} MB steps (CUDA graph "
+              f"of 50, median of 5)", flush=True)
+    for rec in recs.values():
+        rec["max_abs_err"] = err
+    return list(recs.values())
+
+
 # ---- phase 4 -----------------------------------------------------------
 
 def main_path(w: int = 1920, h: int = 1080, n: int = 16, qp: int = 27,
@@ -940,22 +1145,22 @@ def main_path(w: int = 1920, h: int = 1080, n: int = 16, qp: int = 27,
     concat_segments(enc.encode(frames))          # warm-up pass
     torch.cuda.synchronize()
 
-    torchme.ME_PREPASS_LAUNCHES = 0
-    torchme.ME_KERNEL_LAUNCHES = 0
+    _zero_me_counts()
     enc.stages.reset()
     t0 = time.perf_counter()
     stream = concat_segments(enc.encode(frames))
     t_cold = time.perf_counter() - t0
-    launches = {"me_halfpel": torchme.ME_PREPASS_LAUNCHES,
-                "me_search": torchme.ME_KERNEL_LAUNCHES}
+    launches = _me_counts()
+    intra = _intra_counts()
     snap = enc.stages.snapshot()
     p_frames = n - len(enc.plan(n).gops)
     print(f"main path {w}x{h} x{n} gop {gop} qp {qp}: {len(stream)} "
           f"bytes, sha256 {hashlib.sha256(stream).hexdigest()}, "
           f"{n / t_cold:.3f} fps through encode() (staging included), "
-          f"ME launches {launches}, "
+          f"ME launches {launches}, intra launches {intra}, "
           f"dense_fallback_waves {snap['dense_fallback_waves']}",
           flush=True)
+    _check_intra("main path", intra, len(enc.plan(n).gops))
     check(snap["dense_fallback_waves"] == 0,
           "the 1080p bench content fell back to the dense transfer")
     for name, count in launches.items():
@@ -996,7 +1201,7 @@ def main_path(w: int = 1920, h: int = 1080, n: int = 16, qp: int = 27,
     print(f"main path bench-style: e2e {n / t_e2e:.3f} fps, device-only "
           f"{n / t_dev:.3f} fps (best of 3, waves pre-staged)")
     print(f"stage_ms {json.dumps(stage_ms)}", flush=True)
-    return {"launches": launches, "stream": stream,
+    return {"launches": dict(launches, **intra), "stream": stream,
             "h2d_bytes": snap["h2d_bytes"], "e2e_fps": round(n / t_e2e, 3)}
 
 
@@ -1106,8 +1311,7 @@ def job_path(tmp: str, main_stream: bytes, w: int = 1920, h: int = 1080,
     path = os.path.join(tmp, "job1080.y4m")
     _write_clip(path, make_frames(n, w, h), w, h)
     torch.cuda.synchronize()
-    torchme.ME_PREPASS_LAUNCHES = 0
-    torchme.ME_KERNEL_LAUNCHES = 0
+    _zero_me_counts()
     t0 = time.perf_counter()
     stream, mp4 = _run_job(path, "cuda")
     t_job = time.perf_counter() - t0
@@ -1199,17 +1403,22 @@ def intra_wave(w: int = 1920, h: int = 1080, n: int = 8) -> None:
     for _ in range(2):
         enc.stages.reset()
         torch.cuda.synchronize()
+        _zero_me_counts()
         t0 = time.perf_counter()
         s2 = concat_segments(enc.encode_waves(waves))
         best = min(best, time.perf_counter() - t0)
         check(s2 == stream, "a repeated all-intra wave changed the bytes")
+        intra = _intra_counts()
+        # the wave's n frames are one batch: one launch of each kernel
+        _check_intra("all-intra wave", intra, len(waves))
     snap = enc.stages.snapshot()
     types = [u[1] for u in split_annexb(stream)]
     check(types.count(5) == n and types.count(1) == 0,
           f"all-intra slice NAL types {types}")
     print(f"intra wave {w}x{h} x{n} qp 27 (all-intra, one wave): "
           f"{len(stream)} bytes, sha256 {hashlib.sha256(stream).hexdigest()},"
-          f" {n / best:.3f} fps (dispatch + collect, best of 2), "
+          f" {n / best:.3f} fps (dispatch + collect, best of 2), intra "
+          f"launches {intra} for {n} frames, "
           f"dense_fallback_waves {snap['dense_fallback_waves']}, stage_ms "
           f"{json.dumps(snap)}", flush=True)
 
@@ -1221,9 +1430,23 @@ def _me_counts() -> dict:
             "me_search": torchme.ME_KERNEL_LAUNCHES}
 
 
+def _intra_counts() -> dict:
+    return {"intra_row0": torchintra.INTRA_ROW0_LAUNCHES,
+            "intra_cols": torchintra.INTRA_COLS_LAUNCHES}
+
+
 def _zero_me_counts() -> None:
-    torchme.ME_PREPASS_LAUNCHES = 0
-    torchme.ME_KERNEL_LAUNCHES = 0
+    """Zero every hand kernel's launch count (ME and intra), totals and
+    per-card maps."""
+    torchme.reset_launch_counts()
+
+
+def _check_intra(what: str, got: dict, want: int) -> None:
+    """Each intra kernel launched `want` times: once per IDR step (a
+    frame, a wave's frames, or a run's bands: one batch)."""
+    for name, count in got.items():
+        check(count == want, f"{what}: {name} launched {count} times, want "
+                             f"{want} (one per IDR step)")
 
 
 def rd_point(w: int = 1920, h: int = 1080, n: int = 32, qp: int = 25) -> dict:
@@ -1438,6 +1661,9 @@ def rd_breakdown(dev, w: int = 1920, h: int = 1080, qp: int = 25) -> dict:
           f"launched, their summed device ms, the call's wall ms under the "
           f"profiler): {json.dumps(busy)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"rd IDR frame, RD off, through the intra kernels: "
+          f"{json.dumps(busy['idr_rd_off'])}; the eager row loop it replaced:"
+          f" {EAGER_IDR_BUSY}", flush=True)
     return {"host_ms": ms, "event_ms": events, "busy": busy}
 
 
@@ -1541,13 +1767,16 @@ def sfe_point(w: int = 3840, h: int = 2160, n: int = 16, gop: int = 8,
     stream = concat_segments(enc.encode(frames))
     t_enc = time.perf_counter() - t0
     launches = _me_counts()
+    intra = _intra_counts()
     digest = hashlib.sha256(stream).hexdigest()
     snap = enc.stages.snapshot()
     p_frames = n - len(enc.plan(n).gops)
     print(f"sfe point {w}x{h} x{n} gop {gop} qp {qp} bands {bands} halo "
           f"{halo}: {len(stream)} bytes, sha256 {digest}, {n / t_enc:.3f} fps "
           f"through encode() (staging included), ME launches {launches}, "
+          f"intra launches {intra} (every band of an IDR step one batch), "
           f"dense_fallback_waves {snap['dense_fallback_waves']}", flush=True)
+    _check_intra("SFE point", intra, len(enc.plan(n).gops))
     want_len, want_sha = SFE_POINT_JAX["bench_2160p"]
     check((len(stream), digest) == (want_len, want_sha),
           f"SFE point: the card's stream ({len(stream)} bytes, {digest}) is "
@@ -1590,8 +1819,8 @@ def sfe_point(w: int = 3840, h: int = 2160, n: int = 16, gop: int = 8,
     print(f"sfe stage_ms {json.dumps(stage_ms)}", flush=True)
     print(f"sfe per-frame latencies ms (best pass, sorted gaps): "
           f"{[round(x, 3) for x in lat_sorted]}", flush=True)
-    return {"launches": launches, "enc": enc, "waves": waves, "qp": qp,
-            "fig": fig}
+    return {"launches": dict(launches, **intra), "enc": enc, "waves": waves,
+            "qp": qp, "fig": fig}
 
 
 def sfe_breakdown(dev, point: dict) -> dict:
@@ -2832,11 +3061,12 @@ def _farm_sfe_job(base: str, coord, path: str, bands: int, halo: int,
     check(code == 201, f"/add_job answered {code}: {raw[:200]!r}")
     job = _await_job(base, path, coord, 300.0)
     launches, by_card = _me_counts(), _by_device()
+    intra_by_card = _intra_by_device()
     after = dispatch.stage_snapshot()
     with open(job["output_path"], "rb") as fp:
         mp4 = fp.read()
     return {"mp4": mp4, "job": job, "launches": launches,
-            "by_card": by_card,
+            "by_card": by_card, "intra_by_card": intra_by_card,
             "run_s": job["finished_at"] - job["started_at"],
             "stage_ms": {k: round(after[k] - before[k], 2) for k in
                          ("halo", "dispatch", "device_wait", "fetch", "sfe",
@@ -2986,6 +3216,11 @@ def _by_device() -> dict:
             "me_search": dict(torchme.ME_KERNEL_LAUNCHES_BY_DEVICE)}
 
 
+def _intra_by_device() -> dict:
+    return {"intra_row0": dict(torchintra.INTRA_ROW0_LAUNCHES_BY_DEVICE),
+            "intra_cols": dict(torchintra.INTRA_COLS_LAUNCHES_BY_DEVICE)}
+
+
 def _check_by_device(what: str, got: dict, want: dict) -> None:
     for name, counts in got.items():
         check(counts == want, f"{what}: {name} launched {counts} times by "
@@ -3116,11 +3351,14 @@ def mesh_gop_point(mesh, tag: str, main: dict, w: int = 1920,
     stream = concat_segments(enc.encode(frames))
     t_cold = time.perf_counter() - t0
     by_dev = _by_device()
+    intra_dev = _intra_by_device()
     digest = hashlib.sha256(stream).hexdigest()
     snap = enc.stages.snapshot()
     plan = enc.plan(n)
-    # each wave's GOPs split into contiguous runs, one an entry
+    # each wave's GOPs split into contiguous runs, one an entry; every
+    # GOP of a run (a tail-repeated one too) runs one IDR step
     per_entry = [0] * mesh.size
+    idr_entry = [0] * mesh.size
     per_wave = mesh.size * enc.gops_per_wave
     gops = list(plan.gops)
     for a in range(0, len(gops), per_wave):
@@ -3129,13 +3367,17 @@ def mesh_gop_point(mesh, tag: str, main: dict, w: int = 1920,
         i = 0
         for e, k in enumerate(_runs(len(full), mesh.size)):
             per_entry[e] += sum(g.num_frames - 1 for g in full[i:i + k])
+            idr_entry[e] += k
             i += k
     want = _per_card(mesh, per_entry)
     print(f"mesh gop point {w}x{h} x{n} gop {gop} qp {qp}: {len(stream)} "
           f"bytes, sha256 {digest}, {n / t_cold:.3f} fps through encode() "
           f"(staging included), ME launches by card index {by_dev} (per "
-          f"entry {per_entry}), fetch_shards {snap['fetch_shards']}; {tag}",
-          flush=True)
+          f"entry {per_entry}), intra launches by card index {intra_dev} "
+          f"(IDR steps per entry {idr_entry}), fetch_shards "
+          f"{snap['fetch_shards']}; {tag}", flush=True)
+    _check_by_device("mesh gop point (intra)", intra_dev,
+                     _per_card(mesh, idr_entry))
     check((len(stream), digest) == MESH_POINT_JAX,
           f"mesh point: the stream ({len(stream)} bytes, {digest}) is not "
           f"the JAX package's on two devices {MESH_POINT_JAX}")
@@ -3162,7 +3404,8 @@ def mesh_gop_point(mesh, tag: str, main: dict, w: int = 1920,
           f"{json.dumps(figs)}; phase 4 (one card, gop 8) e2e "
           f"{main.get('e2e_fps')} fps; {tag}; card {card_line()}",
           flush=True)
-    return {"launches_by_device": by_dev, "per_entry": per_entry,
+    return {"launches_by_device": dict(by_dev, **intra_dev),
+            "per_entry": per_entry, "idr_per_entry": idr_entry,
             "fps": figs}
 
 
@@ -3191,17 +3434,22 @@ def mesh_sfe_point(mesh, tag: str, sfe: dict, w: int = 3840,
     stream = concat_segments(enc.encode(frames))
     t_enc = time.perf_counter() - t0
     by_dev = _by_device()
+    intra_dev = _intra_by_device()
     digest = hashlib.sha256(stream).hexdigest()
-    p_frames = n - len(enc.plan(n).gops)
+    idrs = len(enc.plan(n).gops)
+    p_frames = n - idrs
     want = _per_card(enc.mesh, [p_frames] * entries)
     print(f"mesh sfe point {w}x{h} x{n} gop {gop} bands {bands} on "
           f"{entries} entries (runs {list(enc._band_runs)}): {len(stream)} "
           f"bytes, sha256 {digest}, {n / t_enc:.3f} fps through encode(), "
-          f"ME launches by card index {by_dev}; {tag}", flush=True)
+          f"ME launches by card index {by_dev}, intra launches by card "
+          f"index {intra_dev} (one an entry an IDR step); {tag}", flush=True)
     check((len(stream), digest) == SFE_POINT_JAX["bench_2160p"],
           f"mesh SFE point: the stream ({len(stream)}, {digest}) is not "
           f"phase 10's {SFE_POINT_JAX['bench_2160p']}")
     _check_by_device("mesh SFE point", by_dev, want)
+    _check_by_device("mesh SFE point (intra)", intra_dev,
+                     _per_card(enc.mesh, [idrs] * entries))
 
     runs, t_best, lat = 0, float("inf"), []
     while runs < 1:
@@ -3234,8 +3482,9 @@ def mesh_sfe_point(mesh, tag: str, sfe: dict, w: int = 3840,
           f"{json.dumps(sfe.get('fig', {}))}, idr_step_ms "
           f"{sfe.get('idr_step_ms')}; {tag}; card {card_line()}",
           flush=True)
-    return {"launches_by_device": by_dev, "per_entry": [p_frames] * entries,
-            "fig": fig, "stream": stream}
+    return {"launches_by_device": dict(by_dev, **intra_dev),
+            "per_entry": [p_frames] * entries,
+            "idr_per_entry": [idrs] * entries, "fig": fig, "stream": stream}
 
 
 def _one_entry_sfe(meta, frames, qp: int, gop: int, bands: int,
@@ -3342,7 +3591,8 @@ def mesh_farm_point(card: str, farm: dict, stream: bytes | None = None,
           f"{hashlib.sha256(run['mp4']).hexdigest()}; submit to done "
           f"{run['job']['finished_at'] - run['job']['created_at']:.3f} s, "
           f"run {run['run_s']:.3f} s; ME launches by card index "
-          f"{run['by_card']}; {json.dumps(fig)}; phase 16's 2-band farm "
+          f"{run['by_card']}, intra {run['intra_by_card']}; "
+          f"{json.dumps(fig)}; phase 16's 2-band farm "
           f"(one card a worker): fps {farm.get('fps')}, stage_ms "
           f"{json.dumps(farm.get('stage_ms'))}, latency "
           f"{json.dumps(farm.get('latency'))}; {tag}; card {card}",
@@ -3350,9 +3600,14 @@ def mesh_farm_point(card: str, farm: dict, stream: bytes | None = None,
     check(run["mp4"] == mux_mp4(stream, meta),
           "the mesh farm's MP4 differs from the mux of the 4-band stream")
     _check_by_device("mesh farm point", run["by_card"], want)
+    # one launch of each intra kernel an entry an IDR step
+    _check_by_device("mesh farm point (intra)", run["intra_by_card"],
+                     _per_card(DeviceMesh(entries),
+                               [-(-n // gop)] * len(entries)))
     check(run["stage_ms"]["dense_fallback_waves"] == 0,
           "the mesh farm run replayed dense")
-    return {"launches_by_device": run["by_card"],
+    return {"launches_by_device": dict(run["by_card"],
+                                      **run["intra_by_card"]),
             "per_entry": [p_frames] * len(entries), "fig": fig,
             "kernels": kernels, "meshes": tag}
 
@@ -3545,16 +3800,19 @@ def sync_audit(main: dict, w: int = 1920, h: int = 1080, n: int = 16,
         torchinter._encode_p_plane(ys[1], us[1], vs[1], ry, ru, rv, pmv,
                                    qp, qpc, mbw=mbw, mbh=mbh)
     torch.cuda.synchronize()
+    sfe_idr, sfe_p = _sfe_step_audits(frames[:2], qp)
 
     audits = {"main": main_audit, "idr_frame": idr_audit,
-              "idr_step": idr_step, "p_step": p_step}
+              "idr_step": idr_step, "p_step": p_step,
+              "sfe_idr_step": sfe_idr, "sfe_p_step": sfe_p}
     for name, a in audits.items():
         print(f"syncs {name}: {a.total()} "
               f"{json.dumps(a.by_function())}", flush=True)
     print(f"syncs per frame: main path {main_audit.total() / n:.2f} "
           f"({n} frames), all-intra IDR frame {idr_audit.total()}, IDR "
           f"device step {idr_step.total()}, P device step "
-          f"{p_step.total()}; ME launches {launches}", flush=True)
+          f"{p_step.total()}, 4-band SFE IDR step {sfe_idr.total()}, SFE P "
+          f"step {sfe_p.total()}; ME launches {launches}", flush=True)
     seen = explicit_sync_seen()
     print(f"sync debug mode reports the explicit waits: "
           f"{json.dumps(seen)}", flush=True)
@@ -3570,6 +3828,40 @@ def sync_audit(main: dict, w: int = 1920, h: int = 1080, n: int = 16,
           "4's stream", flush=True)
     return {"syncs": {k: a.by_function() for k, a in audits.items()},
             "explicit": seen, "launches": launches}
+
+
+def _sfe_step_audits(frames, qp: int, bands: int = 4, halo: int = 32):
+    """The device steps of a 4-band 1080p split-frame encode under the
+    sync audit: torchinter.sfe_intra_band (the intra kernels over the
+    band stack) on the first frame, then sfe_p_band on the second (each
+    run once unaudited first, so shape caches are filled)."""
+    from thinvids_tpu_torch.codecs.h264 import torchinter
+
+    meta = VideoMeta(width=frames[0].y.shape[1], height=frames[0].y.shape[0],
+                     fps_num=30, fps_den=1, num_frames=len(frames))
+    enc = _sfe_encoder(meta, qp, len(frames), bands, halo)
+    _, waves = enc.prepare_waves(frames)
+    _, ys, us, vs, _ = waves[0]
+    bp, real = enc.band_plan, enc._real_rows
+    kw = dict(mbw=bp.mb_width, mbh_band=bp.band_mb_rows,
+              total_mb_rows=enc._total_mb_rows)
+
+    def idr():
+        return torchinter.sfe_intra_band(ys[0], us[0], vs[0], qp, real,
+                                         **kw)[2]
+
+    def pf(carry):
+        return torchinter.sfe_p_band(ys[1], us[1], vs[1], carry, qp, real,
+                                     halo_rows=enc.halo_rows, **kw)
+
+    pf(idr())
+    torch.cuda.synchronize()
+    with SyncAudit() as sfe_idr:
+        carry = idr()
+    with SyncAudit() as sfe_p:
+        pf(carry)
+    torch.cuda.synchronize()
+    return sfe_idr, sfe_p
 
 
 def check_phase(main: dict, card: str) -> dict:
@@ -3725,9 +4017,13 @@ def main() -> int:
     recs = check_me_kernels(dev)
     banded = check_banded_me_kernels(dev)
     farm_slice = check_farm_slice_kernels([dev, dev])
+    phase("3b intra kernels")
+    print("kernels: intra_row0, intra_cols")
+    irecs = check_intra_kernels(
+        [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
     phase("4 main")
     main = main_path()
-    for rec in recs:
+    for rec in recs + irecs:
         rec["launches"] = main["launches"][rec["name"]]
     time_breakdown(dev)
     phase("5 parity")
@@ -3787,8 +4083,20 @@ def main() -> int:
             "farm_run_stack": mesh["farm"]["kernels"][rec["name"]]}
         rec["sync_audit_launches"] = checked["audit"]["launches"][
             rec["name"]]
+    for rec in irecs:
+        rec["sfe_launches"] = sfe["launches"][rec["name"]]
+        rec["mesh"] = {
+            "mesh": mesh["mesh"],
+            "gop_launches_by_card": mesh["gop"]["launches_by_device"][
+                rec["name"]],
+            "gop_idr_steps_per_entry": mesh["gop"]["idr_per_entry"],
+            "sfe_launches_by_card": mesh["sfe"]["launches_by_device"][
+                rec["name"]],
+            "sfe_idr_steps_per_entry": mesh["sfe"]["idr_per_entry"],
+            "farm_launches_by_card": mesh["farm"]["launches_by_device"][
+                rec["name"]]}
     phase("end")
-    print(json.dumps({"kernels": recs}))
+    print(json.dumps({"kernels": recs + irecs}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,9 @@ comparison of two checkouts.
   --device cuda` in a subprocess and the same clip posted to /add_job
   four times (unprofiled, unprofiled, with a per-job `profile_dir`,
   unprofiled); each job's run and submit-to-done seconds and job fps.
-- `mesh`: phase 17 alone — builds the kernels, then runs
+- `mesh`: phase 17 alone — builds the kernels, holds the intra pair
+  against its plain version on every card (`chip_smoke.check_intra_kernels`,
+  phase 3b), then runs
   `chip_smoke.mesh_phase` (the kernels at a mesh entry's run, the 1080p
   GOP point on the mesh against MESH_POINT_JAX, the 4K split-frame point
   spread over the mesh against phase 10's stream, the 4-band farm on two
@@ -164,6 +166,8 @@ def daemon_jobs(n: int = 16, w: int = 1920, h: int = 1080,
 def mesh() -> None:
     print(f"card: {cs.card_line()}", flush=True)
     cs.build_all()
+    cs.check_intra_kernels([cs.torch.device("cuda", i)
+                            for i in range(cs.torch.cuda.device_count())])
     t0 = time.perf_counter()
     out = cs.mesh_phase({}, {})
     print(f"mesh phase {time.perf_counter() - t0:.1f} s: {out['mesh']}",

@@ -366,6 +366,7 @@ class Manifest:
     #: and its launch counts.
     kernel_modules: tuple[str, ...] = (
         "thinvids_tpu_torch.codecs.h264.torchme",   # csrc/me_search.cu
+        "thinvids_tpu_torch.codecs.h264.torchintra",  # csrc/intra_core.cu
         "thinvids_tpu_torch.native",                # native/cavlc_pack.cpp
     )
     #: helper names whose RESULT is a pinned/quantized shape bound (the

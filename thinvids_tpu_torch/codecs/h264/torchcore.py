@@ -3,16 +3,21 @@
 Bit-exact port of the reference's intra compute (every RD config) and
 of its two-tier sparse transfer pack. Structure follows the reference:
 
-- macroblock ROW 0 has a left-neighbor dependency (DC/H modes) → a
-  left-to-right Python loop over its MBs;
-- every other row uses VERTICAL prediction, which depends only on the
-  reconstructed bottom edge of the row above → a Python loop over rows
-  with all MBs of a row computed as one batched step over
-  (mbw, 16, 16) tiles. With ``rd.mode_decision`` a row runs the
-  reference's two-stage schedule (vertical encode, then SATD-switched
-  H/DC MBs); every per-MB choice stays on the device as `torch.where`.
-- With ``rd.aq_q`` the quantizers take an (n,) per-MB QP vector (the
-  variance-AQ map); without it they keep the scalar host-side QP.
+- with mode decision off (the fixed V/H/DC raster), macroblock ROW 0 is
+  one chain along the row (DC-128, then horizontal prediction from the
+  left neighbour's recon) and every MB column below it one chain down
+  the rows (vertical prediction from the MB above). `intra_core_batch`
+  runs that schedule over a batch of frames or split-frame bands: on
+  the card as the hand kernels of csrc/intra_core.cu (torchintra), two
+  launches a batch; on the CPU as its plain version
+  `intra_core_batch_ref`, a left-to-right Python loop over row 0's MBs
+  and one batched step per later row, every step over the whole batch.
+- with ``rd.mode_decision`` a row runs the reference's two-stage
+  schedule (vertical encode, then SATD-switched H/DC MBs), frame by
+  frame in `_intra_core_md`; every per-MB choice stays on the device as
+  `torch.where`.
+- With ``rd.aq_q`` the quantizers take a per-MB QP vector (the
+  variance-AQ map); the batched core always takes one per item.
 
 Integer matrix products do not exist on CUDA in PyTorch, so every 4x4
 transform and Hadamard is written as explicit butterflies (forward: rows
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 
 from ...core.devices import resolve_device
-from . import rdo
+from . import rdo, torchintra
 from .encoder import FrameLevels, _mode_policy
 from .intra import LUMA_BLOCK_ORDER
 from .rdo import RD_OFF
@@ -379,33 +384,174 @@ def _policy_side_channel(mbw: int, mbh: int, device: torch.device):
             torch.zeros(mbw * mbh, dtype=torch.int32, device=device))
 
 
+@functools.lru_cache(maxsize=256)
+def _flat_qp(nmb: int, qp: int, device: torch.device):
+    """(nmb,) int32 of one frame QP on `device`, made once per (shape,
+    QP): the per-MB QP map of a frame without AQ. Never written to."""
+    return torch.full((nmb,), int(qp), dtype=torch.int32, device=device)
+
+
+def _mb_tiles(plane, size: int, rows: slice, mbw: int):
+    """(B, h, W) plane rows → (B * mbw, size, size) MB tiles of those
+    rows, MB-major within each item."""
+    B = plane.shape[0]
+    t = plane[:, rows].reshape(B, -1, size, mbw, size).permute(0, 1, 3, 2, 4)
+    return t.reshape(-1, size, size)
+
+
+def intra_core_batch_ref(ys, us, vs, qp_mb, *, mbw: int, mbh: int):
+    """Plain PyTorch intra core of a batch with mode decision off — the
+    version csrc/intra_core.cu is held to, and what CPU tensors take.
+
+    ys (B, 16 mbh, 16 mbw), us / vs (B, 8 mbh, 8 mbw) padded planes (any
+    integer dtype, samples in 0..255); qp_mb (B, mbh mbw) int32, each
+    item's per-MB QP (its frame QP expanded, or its AQ map). Returns
+    (luma_dc (B, nmb, 16), luma_ac (B, nmb, 16, 15), chroma_dc (B, nmb,
+    2, 4), chroma_ac (B, nmb, 2, 4, 15), recon_y, recon_u, recon_v), all
+    int32: `_intra_core`'s first seven outputs with a leading B.
+
+    Schedule (the encoder's fixed raster): MB (0, 0) is DC-128, every
+    later MB of row 0 horizontal from its left neighbour's recon, every
+    MB of rows >= 1 vertical from the bottom recon row of the MB above.
+    Row 0 runs MB by MB, the later rows one step each, both over the
+    whole batch."""
+    B = ys.shape[0]
+    dev = ys.device
+    ys, us, vs = (p.to(torch.int32) for p in (ys, us, vs))
+    qp_mb = qp_mb.to(torch.int32).reshape(B, mbh, mbw)
+    qpc_mb = _tables(dev)["qpc"][qp_mb.clamp(0, 51).long()]
+
+    # --- row 0: left to right (left-only dependencies) ---
+    sy0 = _mb_tiles(ys, 16, slice(0, 16), mbw).reshape(B, mbw, 16, 16)
+    su0 = _mb_tiles(us, 8, slice(0, 8), mbw).reshape(B, mbw, 8, 8)
+    sv0 = _mb_tiles(vs, 8, slice(0, 8), mbw).reshape(B, mbw, 8, 8)
+    pred_y = torch.full((B, 16, 16), 128, dtype=torch.int32, device=dev)
+    pred_u = pred_v = torch.full((B, 8, 8), 128, dtype=torch.int32,
+                                 device=dev)
+    r0 = []
+    for mx in range(mbw):
+        q, qc = qp_mb[:, 0, mx], qpc_mb[:, 0, mx]
+        ydc, yac, yrec = _luma_mb_batch(sy0[:, mx], pred_y, q)
+        udc, uac, urec = _chroma_mb_batch(su0[:, mx], pred_u, qc)
+        vdc, vac, vrec = _chroma_mb_batch(sv0[:, mx], pred_v, qc)
+        pred_y = yrec[:, :, -1:].expand(B, 16, 16)
+        pred_u = urec[:, :, -1:].expand(B, 8, 8)
+        pred_v = vrec[:, :, -1:].expand(B, 8, 8)
+        r0.append((ydc, yac, udc, uac, vdc, vac, yrec, urec, vrec))
+    rows = [tuple(torch.stack(parts, dim=1) for parts in zip(*r0))]
+
+    # --- rows 1..mbh-1: one step per row over every MB of the batch ---
+    for my in range(1, mbh):
+        prev = rows[-1]
+        pred_y = prev[6][:, :, -1:, :].reshape(B * mbw, 1, 16).expand(
+            B * mbw, 16, 16)
+        pred_u = prev[7][:, :, -1:, :].reshape(B * mbw, 1, 8).expand(
+            B * mbw, 8, 8)
+        pred_v = prev[8][:, :, -1:, :].reshape(B * mbw, 1, 8).expand(
+            B * mbw, 8, 8)
+        q = qp_mb[:, my].reshape(-1)
+        qc = qpc_mb[:, my].reshape(-1)
+        sy = _mb_tiles(ys, 16, slice(16 * my, 16 * my + 16), mbw)
+        su = _mb_tiles(us, 8, slice(8 * my, 8 * my + 8), mbw)
+        sv = _mb_tiles(vs, 8, slice(8 * my, 8 * my + 8), mbw)
+        out = (_luma_mb_batch(sy, pred_y, q)
+               + _chroma_mb_batch(su, pred_u, qc)
+               + _chroma_mb_batch(sv, pred_v, qc))
+        ydc, yac, yrec, udc, uac, urec, vdc, vac, vrec = (
+            a.reshape((B, mbw) + tuple(a.shape[1:])) for a in out)
+        rows.append((ydc, yac, udc, uac, vdc, vac, yrec, urec, vrec))
+
+    (ydc, yac, udc, uac, vdc, vac, yrec, urec, vrec) = (
+        torch.stack(parts, dim=1) for parts in zip(*rows))  # (B, mbh, mbw..)
+    nmb = mbw * mbh
+    return (ydc.reshape(B, nmb, 16),
+            yac.reshape(B, nmb, 16, 15),
+            torch.stack([udc.reshape(B, nmb, 4), vdc.reshape(B, nmb, 4)],
+                        dim=2),
+            torch.stack([uac.reshape(B, nmb, 4, 15),
+                         vac.reshape(B, nmb, 4, 15)], dim=2),
+            yrec.permute(0, 1, 3, 2, 4).reshape(B, 16 * mbh, 16 * mbw),
+            urec.permute(0, 1, 3, 2, 4).reshape(B, 8 * mbh, 8 * mbw),
+            vrec.permute(0, 1, 3, 2, 4).reshape(B, 8 * mbh, 8 * mbw))
+
+
+def intra_core_batch(ys, us, vs, qp_mb, *, mbw: int, mbh: int):
+    """The intra core of a batch with mode decision off (the contract of
+    :func:`intra_core_batch_ref`): CUDA tensors go through the hand
+    kernels (torchintra.intra_core_batch_cuda: two launches, whatever
+    the batch), CPU tensors through the plain version. On the card the
+    planes are taken as uint8 (their samples lie in 0..255)."""
+    if ys.device.type != "cuda":
+        return intra_core_batch_ref(ys, us, vs, qp_mb, mbw=mbw, mbh=mbh)
+    ys, us, vs = (p.to(torch.uint8).contiguous() for p in (ys, us, vs))
+    return torchintra.intra_core_batch_cuda(
+        ys, us, vs, qp_mb.to(torch.int32).contiguous(), mbw=mbw, mbh=mbh)
+
+
+def intra_core_frames(ys, us, vs, qps, *, mbw: int, mbh: int, rd=RD_OFF):
+    """The intra core of B (padded) frames or bands, ys (B, H, W), each
+    at its host-int QP in `qps`: `_intra_core`'s ten outputs with a
+    leading B. With mode decision off the whole batch is one
+    :func:`intra_core_batch` call (the QP map of each item its QP, or
+    its AQ map with ``rd.aq_q``); with it each item runs
+    :func:`_intra_core_md`."""
+    qps = [int(q) for q in qps]
+    if rd.mode_decision:
+        outs = [_intra_core_md(ys[b], us[b], vs[b], qps[b], mbw=mbw,
+                               mbh=mbh, rd=rd) for b in range(len(qps))]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    B, dev, nmb = len(qps), ys.device, mbw * mbh
+    luma_mode, chroma_mode, zeros = _policy_side_channel(mbw, mbh, dev)
+    if rd.aq_q > 0:
+        qp_mb = torch.stack([
+            _aq_qp_map(ys[b].to(torch.int32), qps[b], rd.aq_q, mbw, mbh)
+            for b in range(B)])
+        base = torch.stack([_flat_qp(nmb, q, dev) for q in qps])
+        qp_delta = (qp_mb - base).to(torch.int32)
+    else:
+        qp_mb = torch.stack([_flat_qp(nmb, q, dev) for q in qps])
+        qp_delta = zeros.expand(B, nmb)
+    core = intra_core_batch(ys, us, vs, qp_mb, mbw=mbw, mbh=mbh)
+    return core + (luma_mode.expand(B, nmb), chroma_mode.expand(B, nmb),
+                   qp_delta)
+
+
 def _intra_core(y, u, v, qp: int, *, mbw: int, mbh: int, rd=RD_OFF):
     """Intra compute for one (padded) frame.
 
     Returns (luma_dc (nmb,16), luma_ac (nmb,16,15), chroma_dc (nmb,2,4),
     chroma_ac (nmb,2,4,15), recon_y, recon_u, recon_v, luma_mode (nmb,),
     chroma_mode (nmb,), qp_delta (nmb,)), all int32 — the reference's
-    ten outputs. With `rd` off the modes are encoder._mode_policy's
-    raster and qp_delta is all-zero.
+    ten outputs. With mode decision off this is the B = 1 case of
+    :func:`intra_core_frames` (the hand kernels on the card), the modes
+    encoder._mode_policy's raster and qp_delta all-zero or the AQ
+    map's; with it, :func:`_intra_core_md`."""
+    if rd.mode_decision:
+        return _intra_core_md(y, u, v, qp, mbw=mbw, mbh=mbh, rd=rd)
+    out = intra_core_frames(y[None], u[None], v[None], [qp], mbw=mbw,
+                            mbh=mbh, rd=rd)
+    return tuple(o[0] for o in out)
 
-    With ``rd.mode_decision`` the fixed V/H/DC raster becomes a per-MB
-    SATD decision; rows stay data-parallel via a two-stage schedule:
-    every MB of a row first encodes VERTICAL, then MBs whose H/DC
-    candidate (predicted from the LEFT neighbor's vertical-mode recon)
-    beats V by SATD are switched — greedily constrained so a switched
-    MB's left neighbor always kept V, which makes the left-recon
-    assumption exact. Row 0 decides H vs DC inside its left-to-right
-    loop, where the true recon is available. With ``rd.aq_q`` the
-    quantizer runs on a per-MB QP map (qp + variance-AQ offsets,
-    _aq_qp_map). Every per-MB choice is a device-side `torch.where`:
-    nothing here reads a value back to the host."""
+
+def _intra_core_md(y, u, v, qp: int, *, mbw: int, mbh: int, rd):
+    """Intra compute for one (padded) frame with ``rd.mode_decision``:
+    the fixed V/H/DC raster becomes a per-MB SATD decision; rows stay
+    data-parallel via a two-stage schedule: every MB of a row first
+    encodes VERTICAL, then MBs whose H/DC candidate (predicted from the
+    LEFT neighbor's vertical-mode recon) beats V by SATD are switched —
+    greedily constrained so a switched MB's left neighbor always kept
+    V, which makes the left-recon assumption exact. Row 0 decides H vs
+    DC inside its left-to-right loop, where the true recon is
+    available. With ``rd.aq_q`` the quantizer runs on a per-MB QP map
+    (qp + variance-AQ offsets, _aq_qp_map). Every per-MB choice is a
+    device-side `torch.where`: nothing here reads a value back to the
+    host. Returns `_intra_core`'s ten outputs."""
     qp = int(qp)
     y = y.to(torch.int32)
     u = u.to(torch.int32)
     v = v.to(torch.int32)
     qpc = chroma_qp(qp)
     dev = y.device
-    md = rd.mode_decision
     if rd.aq_q > 0:
         qp_mb = _aq_qp_map(y, qp, rd.aq_q, mbw, mbh)           # (nmb,)
         qp_rows = qp_mb.reshape(mbh, mbw)
@@ -413,7 +559,7 @@ def _intra_core(y, u, v, qp: int, *, mbw: int, mbh: int, rd=RD_OFF):
         qp_delta = (qp_mb - qp).to(torch.int32)
     else:
         qp_rows = qpc_rows = None
-        qp_delta = None
+        qp_delta = _policy_side_channel(mbw, mbh, dev)[2]
 
     def row_qp(my, sl=slice(None)):
         """(luma, chroma) QP of row `my`'s MBs `sl`: the scalar frame
@@ -428,10 +574,9 @@ def _intra_core(y, u, v, qp: int, *, mbw: int, mbh: int, rd=RD_OFF):
     v_row0 = v[:8].reshape(8, mbw, 8).permute(1, 0, 2)
     dc_y = torch.full((1, 16, 16), 128, dtype=torch.int32, device=dev)
     dc_c = torch.full((1, 8, 8), 128, dtype=torch.int32, device=dev)
-    if md:
-        left_only = (torch.ones(1, dtype=torch.bool, device=dev),
-                     torch.zeros(1, dtype=torch.bool, device=dev))
-        zero_ts = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    left_only = (torch.ones(1, dtype=torch.bool, device=dev),
+                 torch.zeros(1, dtype=torch.bool, device=dev))
+    zero_ts = torch.zeros((1, 2), dtype=torch.int32, device=dev)
     r0 = []
     r0_take, r0_ctake = [], []
     ly = lu = lv = None
@@ -444,26 +589,24 @@ def _intra_core(y, u, v, qp: int, *, mbw: int, mbh: int, rd=RD_OFF):
             pred_y = ly[None, :, None].expand(1, 16, 16)
             pred_u = lu[None, :, None].expand(1, 8, 8)
             pred_v = lv[None, :, None].expand(1, 8, 8)
-            if md:
-                # candidates: H vs DC (left-only), decided by SATD on
-                # the device
-                dcy = ((ly.sum(dtype=torch.int32) + 8) >> 4).expand(
-                    1, 16, 16)
-                take_dc = _satd16(sy - dcy) < _satd16(sy - pred_y)
-                lsum_u = torch.stack([lu[:4].sum(dtype=torch.int32),
-                                      lu[4:].sum(dtype=torch.int32)])
-                lsum_v = torch.stack([lv[:4].sum(dtype=torch.int32),
-                                      lv[4:].sum(dtype=torch.int32)])
-                dcu = _chroma_dc_pred_row(zero_ts, lsum_u[None], *left_only)
-                dcv = _chroma_dc_pred_row(zero_ts, lsum_v[None], *left_only)
-                cc_h = _satd8(su - pred_u) + _satd8(sv - pred_v)
-                cc_dc = _satd8(su - dcu) + _satd8(sv - dcv)
-                take_cdc = cc_dc < cc_h
-                pred_y = torch.where(take_dc[:, None, None], dcy, pred_y)
-                pred_u = torch.where(take_cdc[:, None, None], dcu, pred_u)
-                pred_v = torch.where(take_cdc[:, None, None], dcv, pred_v)
-                r0_take.append(take_dc)
-                r0_ctake.append(take_cdc)
+            # candidates: H vs DC (left-only), decided by SATD on the
+            # device
+            dcy = ((ly.sum(dtype=torch.int32) + 8) >> 4).expand(1, 16, 16)
+            take_dc = _satd16(sy - dcy) < _satd16(sy - pred_y)
+            lsum_u = torch.stack([lu[:4].sum(dtype=torch.int32),
+                                  lu[4:].sum(dtype=torch.int32)])
+            lsum_v = torch.stack([lv[:4].sum(dtype=torch.int32),
+                                  lv[4:].sum(dtype=torch.int32)])
+            dcu = _chroma_dc_pred_row(zero_ts, lsum_u[None], *left_only)
+            dcv = _chroma_dc_pred_row(zero_ts, lsum_v[None], *left_only)
+            cc_h = _satd8(su - pred_u) + _satd8(sv - pred_v)
+            cc_dc = _satd8(su - dcu) + _satd8(sv - dcv)
+            take_cdc = cc_dc < cc_h
+            pred_y = torch.where(take_dc[:, None, None], dcy, pred_y)
+            pred_u = torch.where(take_cdc[:, None, None], dcu, pred_u)
+            pred_v = torch.where(take_cdc[:, None, None], dcv, pred_v)
+            r0_take.append(take_dc)
+            r0_ctake.append(take_cdc)
         q1, qc1 = row_qp(0, slice(idx, idx + 1))
         ydc, yac, yrec = _luma_mb_batch(sy, pred_y, q1)
         udc, uac, urec = _chroma_mb_batch(su, pred_u, qc1)
@@ -471,22 +614,19 @@ def _intra_core(y, u, v, qp: int, *, mbw: int, mbh: int, rd=RD_OFF):
         ly, lu, lv = yrec[0, :, -1], urec[0, :, -1], vrec[0, :, -1]
         r0.append((ydc, yac, udc, uac, vdc, vac, yrec, urec, vrec))
     rows = [tuple(torch.cat(parts) for parts in zip(*r0))]
-    modes = []
-    if md:
-        # MB 0 keeps DC-128 (no neighbors): luma DC (2), chroma DC (0)
-        first = torch.ones(1, dtype=torch.bool, device=dev)
-        take = torch.cat([first] + r0_take)
-        ctake = torch.cat([first] + r0_ctake)
-        modes.append((torch.where(take, 2, 1).to(torch.int32),
-                       torch.where(ctake, 0, 1).to(torch.int32)))
+    # MB 0 keeps DC-128 (no neighbors): luma DC (2), chroma DC (0)
+    first = torch.ones(1, dtype=torch.bool, device=dev)
+    take = torch.cat([first] + r0_take)
+    ctake = torch.cat([first] + r0_ctake)
+    modes = [(torch.where(take, 2, 1).to(torch.int32),
+              torch.where(ctake, 0, 1).to(torch.int32))]
     by, bu, bv = (rows[0][6][:, -1, :].reshape(-1),
                   rows[0][7][:, -1, :].reshape(-1),
                   rows[0][8][:, -1, :].reshape(-1))
-    if md:
-        has_left = torch.arange(mbw, device=dev) > 0
-        avail_top = torch.ones(mbw, dtype=torch.bool, device=dev)
-        zcol_y = torch.zeros((1, 16), dtype=torch.int32, device=dev)
-        zcol_c = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    has_left = torch.arange(mbw, device=dev) > 0
+    avail_top = torch.ones(mbw, dtype=torch.bool, device=dev)
+    zcol_y = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    zcol_c = torch.zeros((1, 8), dtype=torch.int32, device=dev)
 
     # --- rows 1..mbh-1: one batched step per row, vectorized over MBs ---
     for my in range(1, mbh):
@@ -497,69 +637,64 @@ def _intra_core(y, u, v, qp: int, *, mbw: int, mbh: int, rd=RD_OFF):
         pred_vu = bu.reshape(mbw, 1, 8).expand(mbw, 8, 8)
         pred_vv = bv.reshape(mbw, 1, 8).expand(mbw, 8, 8)
         qp_v, qpc_v = row_qp(my)
-        if not md:
-            ydc, yac, yrec = _luma_mb_batch(sy, pred_vy, qp_v)
-            udc, uac, urec = _chroma_mb_batch(su, pred_vu, qpc_v)
-            vdc, vac, vrec = _chroma_mb_batch(sv, pred_vv, qpc_v)
-        else:
-            # stage 1: vertical encode of the whole row (candidate
-            # recon for the neighbors' H/DC predictions)
-            _, _, yrecv = _luma_mb_batch(sy, pred_vy, qp_v)
-            _, _, urecv = _chroma_mb_batch(su, pred_vu, qpc_v)
-            _, _, vrecv = _chroma_mb_batch(sv, pred_vv, qpc_v)
+        # stage 1: vertical encode of the whole row (candidate recon for
+        # the neighbors' H/DC predictions)
+        _, _, yrecv = _luma_mb_batch(sy, pred_vy, qp_v)
+        _, _, urecv = _chroma_mb_batch(su, pred_vu, qpc_v)
+        _, _, vrecv = _chroma_mb_batch(sv, pred_vv, qpc_v)
 
-            # stage 2: candidate costs. Left columns come from the
-            # LEFT neighbor's stage-1 (vertical) recon — exact for
-            # every switched MB because the greedy constraint keeps
-            # its left neighbor vertical. MB 0 reads zeros (masked).
-            lcol_y = torch.cat([zcol_y, yrecv[:-1, :, -1]])
-            lcol_u = torch.cat([zcol_c, urecv[:-1, :, -1]])
-            lcol_v = torch.cat([zcol_c, vrecv[:-1, :, -1]])
-            pred_hy = lcol_y[:, :, None].expand(mbw, 16, 16)
-            pred_hu = lcol_u[:, :, None].expand(mbw, 8, 8)
-            pred_hv = lcol_v[:, :, None].expand(mbw, 8, 8)
-            tsum_y = by.reshape(mbw, 16).sum(dim=1, dtype=torch.int32)
-            lsum_y = lcol_y.sum(dim=1, dtype=torch.int32)
-            dcy = torch.where(has_left, (tsum_y + lsum_y + 16) >> 5,
-                              (tsum_y + 8) >> 4)
-            pred_dcy = dcy[:, None, None].expand(mbw, 16, 16)
-            ts_u = bu.reshape(mbw, 2, 4).sum(dim=2, dtype=torch.int32)
-            ts_v = bv.reshape(mbw, 2, 4).sum(dim=2, dtype=torch.int32)
-            ls_u = lcol_u.reshape(mbw, 2, 4).sum(dim=2, dtype=torch.int32)
-            ls_v = lcol_v.reshape(mbw, 2, 4).sum(dim=2, dtype=torch.int32)
-            pred_dcu = _chroma_dc_pred_row(ts_u, ls_u, has_left, avail_top)
-            pred_dcv = _chroma_dc_pred_row(ts_v, ls_v, has_left, avail_top)
+        # stage 2: candidate costs. Left columns come from the LEFT
+        # neighbor's stage-1 (vertical) recon — exact for every switched
+        # MB because the greedy constraint keeps its left neighbor
+        # vertical. MB 0 reads zeros (masked).
+        lcol_y = torch.cat([zcol_y, yrecv[:-1, :, -1]])
+        lcol_u = torch.cat([zcol_c, urecv[:-1, :, -1]])
+        lcol_v = torch.cat([zcol_c, vrecv[:-1, :, -1]])
+        pred_hy = lcol_y[:, :, None].expand(mbw, 16, 16)
+        pred_hu = lcol_u[:, :, None].expand(mbw, 8, 8)
+        pred_hv = lcol_v[:, :, None].expand(mbw, 8, 8)
+        tsum_y = by.reshape(mbw, 16).sum(dim=1, dtype=torch.int32)
+        lsum_y = lcol_y.sum(dim=1, dtype=torch.int32)
+        dcy = torch.where(has_left, (tsum_y + lsum_y + 16) >> 5,
+                          (tsum_y + 8) >> 4)
+        pred_dcy = dcy[:, None, None].expand(mbw, 16, 16)
+        ts_u = bu.reshape(mbw, 2, 4).sum(dim=2, dtype=torch.int32)
+        ts_v = bv.reshape(mbw, 2, 4).sum(dim=2, dtype=torch.int32)
+        ls_u = lcol_u.reshape(mbw, 2, 4).sum(dim=2, dtype=torch.int32)
+        ls_v = lcol_v.reshape(mbw, 2, 4).sum(dim=2, dtype=torch.int32)
+        pred_dcu = _chroma_dc_pred_row(ts_u, ls_u, has_left, avail_top)
+        pred_dcv = _chroma_dc_pred_row(ts_v, ls_v, has_left, avail_top)
 
-            c_v = _satd16(sy - pred_vy)
-            c_h = torch.where(has_left, _satd16(sy - pred_hy), _COST_INF)
-            c_dc = _satd16(sy - pred_dcy)
-            cc_v = _satd8(su - pred_vu) + _satd8(sv - pred_vv)
-            cc_h = torch.where(has_left,
-                               _satd8(su - pred_hu) + _satd8(sv - pred_hv),
-                               _COST_INF)
-            cc_dc = _satd8(su - pred_dcu) + _satd8(sv - pred_dcv)
+        c_v = _satd16(sy - pred_vy)
+        c_h = torch.where(has_left, _satd16(sy - pred_hy), _COST_INF)
+        c_dc = _satd16(sy - pred_dcy)
+        cc_v = _satd8(su - pred_vu) + _satd8(sv - pred_vv)
+        cc_h = torch.where(has_left,
+                           _satd8(su - pred_hu) + _satd8(sv - pred_hv),
+                           _COST_INF)
+        cc_dc = _satd8(su - pred_dcu) + _satd8(sv - pred_dcv)
 
-            best_y, ymode_alt = _pick3(c_v, 0, c_h, 1, c_dc, 2)
-            best_c, cmode_alt = _pick3(cc_v, 2, cc_h, 1, cc_dc, 0)
-            desired = (best_y + best_c) < (c_v + cc_v)
-            allowed = _greedy_allowed(desired)
+        best_y, ymode_alt = _pick3(c_v, 0, c_h, 1, c_dc, 2)
+        best_c, cmode_alt = _pick3(cc_v, 2, cc_h, 1, cc_dc, 0)
+        desired = (best_y + best_c) < (c_v + cc_v)
+        allowed = _greedy_allowed(desired)
 
-            ymode = torch.where(allowed, ymode_alt, 0)
-            cmode = torch.where(allowed, cmode_alt, 2)
-            pred_y = torch.where((ymode == 0)[:, None, None], pred_vy,
-                                 torch.where((ymode == 1)[:, None, None],
-                                             pred_hy, pred_dcy))
-            pred_u = torch.where((cmode == 2)[:, None, None], pred_vu,
-                                 torch.where((cmode == 1)[:, None, None],
-                                             pred_hu, pred_dcu))
-            pred_v = torch.where((cmode == 2)[:, None, None], pred_vv,
-                                 torch.where((cmode == 1)[:, None, None],
-                                             pred_hv, pred_dcv))
+        ymode = torch.where(allowed, ymode_alt, 0)
+        cmode = torch.where(allowed, cmode_alt, 2)
+        pred_y = torch.where((ymode == 0)[:, None, None], pred_vy,
+                             torch.where((ymode == 1)[:, None, None],
+                                         pred_hy, pred_dcy))
+        pred_u = torch.where((cmode == 2)[:, None, None], pred_vu,
+                             torch.where((cmode == 1)[:, None, None],
+                                         pred_hu, pred_dcu))
+        pred_v = torch.where((cmode == 2)[:, None, None], pred_vv,
+                             torch.where((cmode == 1)[:, None, None],
+                                         pred_hv, pred_dcv))
 
-            ydc, yac, yrec = _luma_mb_batch(sy, pred_y, qp_v)
-            udc, uac, urec = _chroma_mb_batch(su, pred_u, qpc_v)
-            vdc, vac, vrec = _chroma_mb_batch(sv, pred_v, qpc_v)
-            modes.append((ymode.to(torch.int32), cmode.to(torch.int32)))
+        ydc, yac, yrec = _luma_mb_batch(sy, pred_y, qp_v)
+        udc, uac, urec = _chroma_mb_batch(su, pred_u, qpc_v)
+        vdc, vac, vrec = _chroma_mb_batch(sv, pred_v, qpc_v)
+        modes.append((ymode.to(torch.int32), cmode.to(torch.int32)))
         by = yrec[:, -1, :].reshape(-1)
         bu = urec[:, -1, :].reshape(-1)
         bv = vrec[:, -1, :].reshape(-1)
@@ -575,23 +710,18 @@ def _intra_core(y, u, v, qp: int, *, mbw: int, mbh: int, rd=RD_OFF):
     recon_y = yrec.permute(0, 2, 1, 3).reshape(16 * mbh, 16 * mbw)
     recon_u = urec.permute(0, 2, 1, 3).reshape(8 * mbh, 8 * mbw)
     recon_v = vrec.permute(0, 2, 1, 3).reshape(8 * mbh, 8 * mbw)
-    policy = _policy_side_channel(mbw, mbh, dev)
-    if md:
-        luma_mode = torch.cat([m[0] for m in modes])
-        chroma_mode = torch.cat([m[1] for m in modes])
-    else:
-        luma_mode, chroma_mode = policy[0], policy[1]
-    if qp_delta is None:
-        qp_delta = policy[2]
+    luma_mode = torch.cat([m[0] for m in modes])
+    chroma_mode = torch.cat([m[1] for m in modes])
     return (luma_dc, luma_ac, chroma_dc, chroma_ac,
             recon_y, recon_u, recon_v, luma_mode, chroma_mode, qp_delta)
 
 
 def _mode_tail(luma_mode, chroma_mode, qp_delta):
     """The per-MB side channel appended to intra transfer vectors when
-    rd.ships_modes: [mode16 | dqp16], mode16 = luma | chroma << 4."""
+    rd.ships_modes: [mode16 | dqp16], mode16 = luma | chroma << 4, along
+    the last axis (a leading batch axis stays)."""
     return torch.cat([(luma_mode | (chroma_mode << 4)).to(torch.int16),
-                      qp_delta.to(torch.int16)])
+                      qp_delta.to(torch.int16)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -736,13 +866,19 @@ def _flat_levels(y, u, v, qp: int, mbw: int, mbh: int, rd=RD_OFF):
     [luma_dc | luma_ac | chroma_dc | chroma_ac], with the per-MB
     [mode16 | dqp16] side channel appended when rd.ships_modes (the
     reference's dispatch._flat_levels)."""
-    out = _intra_core(y, u, v, qp, mbw=mbw, mbh=mbh, rd=rd)
-    ldc, lac, cdc, cac = out[:4]
-    parts = [ldc.reshape(-1), lac.reshape(-1), cdc.reshape(-1),
-             cac.reshape(-1)]
+    return _flat_levels_batch(y[None], u[None], v[None], [qp], mbw, mbh,
+                              rd)[0]
+
+
+def _flat_levels_batch(ys, us, vs, qps, mbw: int, mbh: int, rd=RD_OFF):
+    """:func:`_flat_levels` of B frames ys (B, H, W), each at its QP in
+    `qps`, from one :func:`intra_core_frames` call: (B, L) int32."""
+    out = intra_core_frames(ys, us, vs, qps, mbw=mbw, mbh=mbh, rd=rd)
+    B = ys.shape[0]
+    parts = [a.reshape(B, -1) for a in out[:4]]
     if rd.ships_modes:
         parts.append(_mode_tail(out[7], out[8], out[9]).to(torch.int32))
-    return torch.cat(parts)
+    return torch.cat(parts, dim=1)
 
 
 def intra_flat_len(nmb: int, rd=RD_OFF) -> int:

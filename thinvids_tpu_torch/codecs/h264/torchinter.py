@@ -28,7 +28,8 @@ import torch
 
 from . import rdo, torchme
 from .rdo import RD_OFF
-from .torchcore import _intra_core, _mode_tail, _tables, chroma_qp
+from .torchcore import (_intra_core, _mode_tail, _tables, chroma_qp,
+                        intra_core_frames)
 from .torchdeblock import deblock_frame_torch, nz4_from_luma_plane
 from .transform import MF_TABLE, V_TABLE
 
@@ -498,11 +499,13 @@ def _sfe_intra_common(ys, us, vs, qp: int, real_rows, *, mbw: int,
     """Shared intra compute of a band stack: the slice-local core per
     band + recon fixup + (with rd.deblock, unless `defer_deblock` leaves
     it to :func:`sfe_deblock`) the cross-band-halo in-loop filter on the
-    carry. Returns (per-band core outputs, (ry, ru, rv, zero_mv))."""
-    outs = [_intra_core(ys[b], us[b], vs[b], qp, mbw=mbw, mbh=mbh_band,
-                        rd=rd) for b in range(ys.shape[0])]
-    ry, ru, rv = (torch.stack([o[i] for o in outs]).to(torch.int16)
-                  for i in (4, 5, 6))
+    carry. Returns (the core's ten outputs with a leading band
+    dimension, (ry, ru, rv, zero_mv)): every band in ONE batched core
+    (intra_core_frames; the hand kernels' two launches on the card with
+    mode decision off), all bands at `qp`."""
+    outs = intra_core_frames(ys, us, vs, [qp] * ys.shape[0], mbw=mbw,
+                             mbh=mbh_band, rd=rd)
+    ry, ru, rv = (o.to(torch.int16) for o in outs[4:7])
     ry, ru, rv = _fixup_carry(ry, ru, rv, real_rows)
     if rd.deblock and not defer_deblock:
         # SFE runs AQ-free (enforced at encoder construction), so the
@@ -534,17 +537,14 @@ def sfe_intra_band(ys, us, vs, qp: int, real_rows, *, mbw: int,
     outs, carry = _sfe_intra_common(
         ys, us, vs, int(qp), real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
         total_mb_rows=total_mb_rows, defer_deblock=defer_deblock)
-    dense, rest = [], []
-    for o in outs:
-        il_dc, il_ac, ic_dc, ic_ac = o[:4]
-        parts = [il_dc.reshape(-1).to(torch.int16),
-                 ic_dc.reshape(-1).to(torch.int16)]
-        if rd.ships_modes:
-            parts.append(_mode_tail(o[7], o[8], o[9]))
-        dense.append(torch.cat(parts))
-        rest.append(torch.cat([il_ac.reshape(-1).to(torch.int16),
-                               ic_ac.reshape(-1).to(torch.int16)]))
-    return torch.stack(dense), torch.stack(rest), carry
+    B = ys.shape[0]
+    il_dc, il_ac, ic_dc, ic_ac = (o.reshape(B, -1).to(torch.int16)
+                                  for o in outs[:4])
+    dense = [il_dc, ic_dc]
+    if rd.ships_modes:
+        dense.append(_mode_tail(*outs[7:]))
+    return (torch.cat(dense, dim=1), torch.cat([il_ac, ic_ac], dim=1),
+            carry)
 
 
 def sfe_intra_band_dense(ys, us, vs, qp: int, real_rows, *, mbw: int,
@@ -557,13 +557,11 @@ def sfe_intra_band_dense(ys, us, vs, qp: int, real_rows, *, mbw: int,
     outs, carry = _sfe_intra_common(
         ys, us, vs, int(qp), real_rows, mbw=mbw, mbh_band=mbh_band, rd=rd,
         total_mb_rows=total_mb_rows, defer_deblock=defer_deblock)
-    flats = []
-    for o in outs:
-        parts = [a.reshape(-1).to(torch.int16) for a in o[:4]]
-        if rd.ships_modes:
-            parts.append(_mode_tail(o[7], o[8], o[9]))
-        flats.append(torch.cat(parts))
-    return torch.stack(flats), carry
+    B = ys.shape[0]
+    parts = [a.reshape(B, -1).to(torch.int16) for a in outs[:4]]
+    if rd.ships_modes:
+        parts.append(_mode_tail(*outs[7:]))
+    return torch.cat(parts, dim=1), carry
 
 
 def sfe_p_band(ys, us, vs, carry, qp: int, real_rows, *, mbw: int,

@@ -348,9 +348,34 @@ def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("CUDA toolkit not found (no nvcc); the ME "
-                           "kernel cannot be built")
+        raise RuntimeError("CUDA toolkit not found (no nvcc); the hand "
+                           "kernels cannot be built")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build_library(source: str, so_path: str) -> tuple[float, str] | None:
+    """Compile `source` with nvcc into the shared library `so_path` when
+    that is missing or older than the source; returns (seconds, compiler
+    output) of the build, or None when the library was current. Raises
+    on any failure. The caller holds its library's build lock (one per
+    library, so that two libraries build at once)."""
+    if (os.path.exists(so_path)
+            and os.path.getmtime(so_path) >= os.path.getmtime(source)):
+        return None
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = so_path + f".tmp.{os.getpid()}"
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, source, "-o", tmp],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} ({res.returncode})"
+                               f":\n{res.stderr}")
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return time.perf_counter() - t0, res.stdout + res.stderr
 
 
 def load_me_library() -> ctypes.CDLL:
@@ -360,24 +385,9 @@ def load_me_library() -> ctypes.CDLL:
     with _build_lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_ME_SO)
-                or os.path.getmtime(_ME_SO) < os.path.getmtime(ME_SOURCE)):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = _ME_SO + f".tmp.{os.getpid()}"
-            t0 = time.perf_counter()
-            try:
-                res = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, ME_SOURCE, "-o", tmp],
-                    capture_output=True, text=True, timeout=600)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({res.returncode}):\n{res.stderr}")
-                os.replace(tmp, _ME_SO)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            BUILD_INFO = (time.perf_counter() - t0,
-                          res.stdout + res.stderr)
+        info = build_library(ME_SOURCE, _ME_SO)
+        if info is not None:
+            BUILD_INFO = info
         lib = ctypes.CDLL(_ME_SO)
         lib.me_search_set_table.restype = ctypes.c_int
         lib.me_search_set_table.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -402,13 +412,17 @@ def load_me_library() -> ctypes.CDLL:
 
 
 def reset_launch_counts() -> None:
-    """Zero every launch count, the process totals and the per-card
-    maps."""
+    """Zero every hand kernel's launch count, the process totals and the
+    per-card maps: the ME pair's here and the intra pair's
+    (torchintra)."""
     global ME_KERNEL_LAUNCHES, ME_PREPASS_LAUNCHES
+    from . import torchintra
+
     with _count_lock:
         ME_KERNEL_LAUNCHES = ME_PREPASS_LAUNCHES = 0
         ME_KERNEL_LAUNCHES_BY_DEVICE.clear()
         ME_PREPASS_LAUNCHES_BY_DEVICE.clear()
+        torchintra.zero_counts()
 
 
 def _ensure_table(lib, device: torch.device) -> None:

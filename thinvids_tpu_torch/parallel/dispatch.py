@@ -410,31 +410,40 @@ def _encode_gop_single_dense(ys, us, vs, qps, *, mbw: int, mbh: int,
                         for g in range(ys.shape[0])])
 
 
+def _wave_levels(ys, us, vs, qps, *, mbw: int, mbh: int, rd=RD_OFF):
+    """Every frame of an all-intra wave (ys (G, F, H, W) uint8, qps (G,)
+    host ints) coded intra at its GOP's QP in ONE batched intra core
+    (torchcore._flat_levels_batch over the G·F frames: two kernel
+    launches on the card with mode decision off): (G·F, L) int32."""
+    G, F = ys.shape[:2]
+    flat = [p.reshape((G * F,) + tuple(p.shape[2:])) for p in (ys, us, vs)]
+    return torchcore._flat_levels_batch(
+        *flat, [int(qps[g]) for g in range(G) for _ in range(F)], mbw, mbh,
+        rd)
+
+
 def _encode_wave(ys, us, vs, qps, *, mbw: int, mbh: int, rd=RD_OFF):
     """All-intra wave: ys (G, F, H, W) uint8, qps (G,) host ints, the
     per-GOP QP (the rate-control hook). Every frame is coded intra at
-    its GOP's QP and sparse-packed on its own (torchcore._sparse_pack:
-    ~10x fewer device→host bytes than raw int32); the 6 outputs come
-    back with leading (G, F) dims, and the host checks the nnz/escape
-    counts for the rare dense fallback."""
-    outs = []
-    for g in range(ys.shape[0]):
-        frames = [torchcore._sparse_pack(torchcore._flat_levels(
-            ys[g, f], us[g, f], vs[g, f], int(qps[g]), mbw, mbh, rd))
-            for f in range(ys.shape[1])]
-        outs.append(tuple(torch.stack(parts) for parts in zip(*frames)))
-    return tuple(torch.stack(parts) for parts in zip(*outs))
+    its GOP's QP (:func:`_wave_levels`, one batch) and sparse-packed on
+    its own (torchcore._sparse_pack: ~10x fewer device→host bytes than
+    raw int32); the 6 outputs come back with leading (G, F) dims, and
+    the host checks the nnz/escape counts for the rare dense
+    fallback."""
+    G, F = ys.shape[:2]
+    flats = _wave_levels(ys, us, vs, qps, mbw=mbw, mbh=mbh, rd=rd)
+    frames = [torchcore._sparse_pack(flat) for flat in flats]
+    return tuple(torch.stack(parts).reshape((G, F) + tuple(parts[0].shape))
+                 for parts in zip(*frames))
 
 
 def _encode_wave_dense(ys, us, vs, qps, *, mbw: int, mbh: int,
                        rd=RD_OFF):
     """Dense fallback of the all-intra wave: (G, F, L) int16 levels (int16
     covers the full CAVLC level range), at the same per-GOP QPs."""
-    return torch.stack([
-        torch.stack([torchcore._flat_levels(ys[g, f], us[g, f], vs[g, f],
-                                            int(qps[g]), mbw, mbh, rd)
-                     for f in range(ys.shape[1])])
-        for g in range(ys.shape[0])]).to(torch.int16)
+    G, F = ys.shape[:2]
+    flats = _wave_levels(ys, us, vs, qps, mbw=mbw, mbh=mbh, rd=rd)
+    return flats.reshape(G, F, -1).to(torch.int16)
 
 
 class Shards(tuple):
