@@ -8,7 +8,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
               limit), torch/CUDA versions and the device count.
 2. build    — build the ME kernels (nvcc, csrc/me_search.cu: the half-pel
               prepass and the search), the intra kernels (nvcc,
-              csrc/intra_core.cu: row 0 and the MB columns) and the host
+              csrc/intra_core.cu: row 0 and the MB columns), the P
+              kernels (nvcc, csrc/p_residual.cu: the residual core and
+              the probe) and the host
               CAVLC packer (g++, native/cavlc_pack.cpp) concurrently,
               one compiler each, from the sources in this checkout;
               print each build's seconds and ptxas' registers, shared
@@ -45,11 +47,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
               each kernel alone (CUDA graph of 50, median of 5), the
               pair eagerly, the plain version (median of 3), beside the
               bound and the chain of mbw + mbh - 1 MB steps.
+3c. P       — the P residual kernel (torchresid.residual_p_cuda) against
+              torchinter.residual_p_ref and the probe kernel
+              (torchresid.probe_cost_cuda) against torchme.probe_cost_ref
+              on the card, every output bit for bit: the 1080p P frame at
+              qp 27 with the ME kernels' predictions (RD off, P_Skip,
+              P_Skip + nz4), the 4-band 4K split-frame stack (4, 544,
+              3840) as one tall plane, a farm band run (1, 544, 3840),
+              iid noise at qp 0, 12, 27 and 51 and small shapes; the
+              probe at the 1080p frame, the 4-band stack with its
+              real-row mask and a split run with its edges injected. Each
+              path shape timed (CUDA graph of 50, median of 5; plain
+              version median of 3) beside its bound and the kernel's
+              registers / shared memory / spills from ptxas.
 4. main     — the 1080p closed-GOP encode (16 frames, gop 8, qp 27)
               through GopShardEncoder(device="cuda").encode →
               concat_segments, with every kernel's launch count set to 0
               just before and read just after (each intra kernel once an
-              IDR frame, each ME kernel once a P frame); check the
+              IDR frame; the ME pair, the residual and the probe each once
+              a P frame); check the
               stream's SPS and
               slice count and print its length and sha256; then the
               bench-style e2e and device-only fps, and the time of one
@@ -281,7 +297,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
               debug mode reports an explicit torch.cuda.synchronize()
               and Event.synchronize(). (c) encode_waves(...,
               pack_workers=1) and pack_workers=8 give phase 4's stream.
-19. spec    — after phase 18, no ME kernel (the launch counts set to 0
+              (d) The same audit off the main path (ROADMAP C5): a 4-band
+              1080p split-frame GOP walked over the phase-17 mesh, two
+              farm slices of it over an in-process halo relay, and a
+              ladder wave (rungs 1080, 540); their sites are judged as
+              (b)'s.
+19. spec    — after phase 18, no P-frame kernel (the launch counts set to 0
               just before must read 0 just after): the card's intra
               program against the numpy specification
               (codecs.h264.encoder.encode_frame_arrays). Bench content
@@ -301,6 +322,7 @@ card's name and power limit; the last line is the device JSON object.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -314,13 +336,17 @@ import numpy as np
 import torch
 
 from thinvids_tpu_torch import native
-from thinvids_tpu_torch.codecs.h264 import headers, torchintra, torchme
+from thinvids_tpu_torch.codecs.h264 import (headers, torchintra, torchme,
+                                            torchresid)
 from thinvids_tpu_torch.codecs.h264.rdo import (RD_OFF, RdConfig,
                                                 aq_from_strength)
 from thinvids_tpu_torch.core.types import Frame, VideoMeta, concat_segments
 from thinvids_tpu_torch.io.bits import split_annexb
 from thinvids_tpu_torch.parallel.dispatch import GopShardEncoder
 
+#: the kernels a P frame (or a P step of a run of bands) launches once
+#: each: the ME pair, the residual core and the global-motion probe
+P_KERNELS = ("me_halfpel", "me_search", "p_residual", "probe_cost")
 #: int32 lane-operation rate of one H100 SXM: 132 SMs x 64 INT32 lanes x
 #: 1.98 GHz boost (NVIDIA Hopper architecture white paper), at the
 #: card's full 700 W power limit; an upper limit on any per-lane
@@ -469,7 +495,7 @@ def card_line() -> str:
 # ---- phase 2 -----------------------------------------------------------
 
 def build_all() -> None:
-    """Build the three native libraries concurrently, one compiler each."""
+    """Build the four native libraries concurrently, one compiler each."""
     results: dict = {}
 
     def run(name, fn):
@@ -483,6 +509,7 @@ def build_all() -> None:
     threads = [threading.Thread(target=run, args=a) for a in (
         ("me_search (nvcc)", torchme.load_me_library),
         ("intra_core (nvcc)", torchintra.load_intra_library),
+        ("p_residual (nvcc)", torchresid.load_resid_library),
         ("cavlc_pack (g++)", native._build_and_load))]
     for t in threads:
         t.start()
@@ -492,7 +519,7 @@ def build_all() -> None:
         print(f"build {name}: {sec:.2f} s", flush=True)
         if exc is not None:
             raise RuntimeError(f"build {name} failed") from exc
-    for mod in (torchme, torchintra):
+    for mod in (torchme, torchintra, torchresid):
         if mod.BUILD_INFO is None:
             continue
         for line in mod.BUILD_INFO[1].splitlines():
@@ -503,23 +530,27 @@ def build_all() -> None:
 
 
 def sass_summary() -> None:
-    """Which instruction the search's packed SAD became: count each
-    kernel's VABSDIFF4 in cuobjdump's SASS and require 64 in the search
-    (16 rows x 4 words of one candidate, each one `__vsadu4`)."""
+    """What the kernels compiled to, from cuobjdump's SASS of the ME and
+    P libraries: each kernel's instructions, its local-memory loads and
+    stores (spills would show there) and its VABSDIFF4, of which the
+    search must hold 64 (16 rows x 4 words of one candidate, each one
+    `__vsadu4`)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = f"{CUDA_HOME}/bin/cuobjdump" if CUDA_HOME else "cuobjdump"
-    sass = subprocess.run([tool, "-sass", torchme._ME_SO],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
     counts = {}
-    for part in sass.split("Function : ")[1:]:
-        name, body = part.split("\n", 1)
-        n = sum(1 for line in body.splitlines()
-                if line.lstrip().startswith("/*") and ";" in line)
-        counts[name.strip()] = body.count("VABSDIFF4")
-        print(f"sass {name.strip()}: {n} instructions, "
-              f"{counts[name.strip()]} VABSDIFF4", flush=True)
+    for lib in (torchme._ME_SO, torchresid._RESID_SO):
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            name, body = part.split("\n", 1)
+            lines = [line for line in body.splitlines()
+                     if line.lstrip().startswith("/*") and ";" in line]
+            local = sum(1 for line in lines if "LDL" in line or "STL" in line)
+            counts[name.strip()] = body.count("VABSDIFF4")
+            print(f"sass {name.strip()}: {len(lines)} instructions, "
+                  f"{local} local loads / stores, "
+                  f"{counts[name.strip()]} VABSDIFF4", flush=True)
     search = [c for name, c in counts.items() if "search_kernel" in name]
     check(search == [64], f"search_kernel's SASS holds {search} VABSDIFF4, "
                           "want one kernel with 64")
@@ -916,7 +947,8 @@ def check_farm_slice_kernels(devs, groups=((0, 1), (1, 2))) -> dict:
     after = _by_device()
     launches = {name: {i: n - before[name].get(i, 0)
                        for i, n in after[name].items()
-                       if n != before[name].get(i, 0)} for name in after}
+                       if n != before[name].get(i, 0)}
+                for name in ("me_halfpel", "me_search")}
     check(err["me_halfpel"] == 0,
           f"farm slice planes differ (max |diff| {err['me_halfpel']})")
     want_launches = {}
@@ -1135,6 +1167,275 @@ def check_intra_kernels(devs) -> list[dict]:
     return list(recs.values())
 
 
+# ---- phase 3c ----------------------------------------------------------
+
+#: integer operations of one 4x4 block through csrc/p_residual.cu's
+#: residual kernel, counted as INTRA_OPS_PER_BLOCK: the residual (16),
+#: the forward transform (64), quantisation (80), dequantisation (32),
+#: the inverse transform (80) and the recon (80); the chroma DC Hadamard,
+#: the P_Skip reductions and the nonzero map add under 2%
+P_OPS_PER_BLOCK = 16 + 64 + 80 + 32 + 80 + 80
+#: the probe's candidate windows and integer operations per window and
+#: counted cell (subtract, absolute value, add)
+PROBE_WINDOWS = (2 * (torchme.SEARCH_RANGE // 4) + 1) ** 2
+PROBE_OPS_PER_CELL = 3
+
+
+def p_residual_bounds(h: int, w: int, nz4: bool = False) -> tuple:
+    """(operations, bytes) of the residual kernel over an h x w plane (a
+    frame, or a band stack as one tall plane): 24 4x4 blocks an MB; cur
+    and pred read once and levels and recon written once, int16 over
+    1.5 samples a pixel (8 B a sample), the chroma DC levels (8 int16 an
+    MB) and, with nz4, the nonzero map (16 B an MB)."""
+    nmb = (h // 16) * (w // 16)
+    nbytes = 8 * (h * w * 3 // 2) + 16 * nmb + (16 * nmb if nz4 else 0)
+    return nmb * 24 * P_OPS_PER_BLOCK, nbytes
+
+
+def probe_bounds(cq, rq_ext, mask) -> tuple:
+    """(operations, bytes) of the probe kernel on these inputs: 81
+    windows x 3 operations for every cell of a row the mask keeps (what
+    this run's data needs); cq and rq_ext (int32) and the mask read
+    once, the 81 int32 costs written once."""
+    B, hc, wc = cq.shape
+    cells = int(mask.sum()) * wc
+    nbytes = (cq.numel() + rq_ext.numel()) * 4 + mask.numel() \
+        + 4 * PROBE_WINDOWS
+    return PROBE_WINDOWS * PROBE_OPS_PER_CELL * cells, nbytes
+
+
+def ptxas_resources(info: tuple | None) -> dict:
+    """{kernel: "regs / smem / spills"} from a library's ptxas -v output
+    (BUILD_INFO of this process' build; "not measured" without one),
+    keyed by the kernel names the entry functions' mangled names hold."""
+    import re
+
+    out: dict = {}
+    if info is None:
+        return out
+    cur = None
+    for line in info[1].splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            cur = {"name": m.group(1), "spill": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[cur["name"]] = (f"{m.group(1)} / "
+                                f"{smem.group(1) if smem else 0} B / "
+                                f"{cur['spill']}")
+            cur = None
+    return out
+
+
+def _res_of(resources: dict, kernel: str, flags: str = "") -> str:
+    """The resources of one kernel (one template instance: `flags` is
+    the mangled bool pair, e.g. "Lb0ELb0E")."""
+    hits = [v for k, v in resources.items() if kernel in k and flags in k]
+    return hits[0] if hits else "not measured"
+
+
+def _p_inputs(dev) -> dict:
+    """The P kernels' inputs on `dev`: the 1080p P frame's (frame 1 of
+    bench content, its prediction from the ME kernels against frame 0's
+    intra recon, as the main path makes it), the 4-band 4K split-frame
+    stack (frame 1's bands, frame 0's as a zero-motion prediction; the
+    last band 528 real rows of 544) and iid noise."""
+    from thinvids_tpu_torch.codecs.h264 import torchinter
+
+    frames = [f.padded(16) for f in make_frames(2, 1920, 1080)]
+    ys, us, vs = (torch.from_numpy(np.stack([getattr(f, p) for f in frames]))
+                  .to(dev) for p in "yuv")
+    _, (ry, ru, rv) = torchinter._intra_frame_outputs(
+        ys[0], us[0], vs[0], 27, mbw=120, mbh=68)
+    cy, cu, cv = (a[1].to(torch.int16) for a in (ys, us, vs))
+    pmv = torch.zeros(2, dtype=torch.int32, device=dev)
+    _, py, pu, pv, _ = torchme.me_search(cy, ry, ru, rv, pmv, 27)
+    uy, uu, uv = (p.to(torch.int16) for p in _intra_planes(
+        dev, make_frames(2, 3840, 2160), bands=4, band_rows=544))
+    rng = np.random.default_rng(17)
+
+    def noise(h, w):
+        return [torch.from_numpy(rng.integers(0, 256, (h // d, w // d))
+                                 .astype(np.int16)).to(dev)
+                for d in (1, 2, 2)]
+    return {"hd": ((cy, cu, cv), (py, pu, pv), ry),
+            "uhd": ((uy[4:], uu[4:], uv[4:]), (uy[:4], uu[:4], uv[:4])),
+            "noise": noise}
+
+
+def _residual_cases(inp) -> list:
+    """(name, cur, pred, qp, pskip, nz4, timed): the path's shapes, then
+    iid noise at the QP edges and small shapes."""
+    (cy, cu, cv), (py, pu, pv), _ = inp["hd"]
+    cur_s, pred_s = inp["uhd"]
+
+    def tall(stack):
+        return [p.reshape(-1, p.shape[-1]) for p in stack]
+    cases = [("1080p qp 27 ME preds", [cy, cu, cv], [py, pu, pv], 27, False,
+              False, True),
+             ("1080p qp 27 P_Skip", [cy, cu, cv], [py, pu, pv], 27, True,
+              False, True),
+             ("1080p qp 27 P_Skip + nz4", [cy, cu, cv], [py, pu, pv], 27,
+              True, True, True),
+             ("4K SFE 4 bands (4, 544, 3840) as one plane", tall(cur_s),
+              tall(pred_s), 27, False, False, True),
+             ("4K SFE 4 bands P_Skip + nz4", tall(cur_s), tall(pred_s), 27,
+              True, True, False),
+             ("4K farm band run (1, 544, 3840)", [p[1] for p in cur_s],
+              [p[1] for p in pred_s], 27, False, False, True)]
+    for qp in (0, 12, 27, 51):
+        cases.append((f"noise 1088x1920 qp {qp}", inp["noise"](1088, 1920),
+                      inp["noise"](1088, 1920), qp, False, False, False))
+    cases.append(("noise 1088x1920 qp 27 P_Skip + nz4",
+                  inp["noise"](1088, 1920), inp["noise"](1088, 1920), 27,
+                  True, True, False))
+    for (h, w, qp) in ((48, 64, 27), (16, 16, 51), (32, 1920, 0)):
+        cases.append((f"noise {h}x{w} qp {qp} P_Skip + nz4",
+                      inp["noise"](h, w), inp["noise"](h, w), qp, True, True,
+                      False))
+    return cases
+
+
+def _probe_cases(inp) -> list:
+    """(name, cq, rq_ext, mask, timed): the 1080p frame against its
+    reference recon, the 4-band 4K stack with its real-row mask, and a
+    split run (the stack's bands 1 and 2) with the rows of the bands
+    beside it injected, as a mesh entry or a farm slice gets them."""
+    (cy, _, _), _, ry = inp["hd"]
+    (uy, _, _), (ur, _, _) = inp["uhd"]
+    real = [544, 544, 544, 2160 - 3 * 544]
+    cases = [("1080p frame", *torchme.probe_inputs(cy, ry), True),
+             ("4K SFE 4 bands (4, 544, 3840)",
+              *torchme.banded_probe_inputs(uy, ur, real), True)]
+    full = ur.reshape(-1, ur.shape[-1])
+    cases.append(("4K split run bands [1, 3), edges injected",
+                  *torchme.banded_probe_inputs(
+                      uy[1:3].contiguous(), ur[1:3].contiguous(), real[1:3],
+                      top_ext=full[544 - 32:544],
+                      bot_ext=full[3 * 544:3 * 544 + 32], edge_top=False,
+                      edge_bot=False), True))
+    return cases
+
+
+def check_p_kernels(devs) -> list[dict]:
+    """The P residual kernel (torchresid.residual_p_cuda) against
+    torchinter.residual_p_ref and the probe kernel
+    (torchresid.probe_cost_cuda) against torchme.probe_cost_ref on the
+    card, every output bit for bit, at the path's shapes and QPs; the
+    path's shapes on every further card. Each timed shape: the kernel
+    (CUDA graph of 50, median of 5, best of 2), the plain version (median
+    of 3), the bound and the kernel's registers / shared memory / spills.
+    Returns the two kernels' records at 1080p."""
+    from thinvids_tpu_torch.codecs.h264 import torchinter
+    from thinvids_tpu_torch.codecs.h264.torchcore import chroma_qp
+
+    names = ("luma", "chroma_dc", "chroma_ac", "recon_y", "recon_u",
+             "recon_v", "nz4")
+    err = {"p_residual": 0, "probe_cost": 0}
+    timings = []
+    for di, dev in enumerate(devs):
+        with torch.cuda.device(dev):
+            inp = _p_inputs(dev)
+            for name, cur, pred, qp, pskip, nz4, timed in \
+                    _residual_cases(inp):
+                if di and not timed:
+                    continue
+                h, w = cur[0].shape
+                kw = dict(mbw=w // 16, mbh=h // 16)
+                got = torchresid.residual_p_cuda(
+                    *cur, *pred, qp, chroma_qp(qp), pskip=pskip, nz4=nz4,
+                    **kw)
+                torch.cuda.synchronize(dev)
+                want = torchinter.residual_p_ref(
+                    *cur, *pred, qp, chroma_qp(qp),
+                    rd=RdConfig(pskip=pskip, deblock=nz4), **kw)
+                for n, a, b in zip(names, got, want):
+                    if b is None:
+                        check(a is None, f"p_residual {name}: {n} given")
+                        continue
+                    e = int((a.to(torch.int32) - b.to(torch.int32)).abs()
+                            .max())
+                    err["p_residual"] = max(err["p_residual"], e)
+                    check(a.shape == b.shape and a.dtype == b.dtype
+                          and e == 0, f"p_residual {name} on {dev}: {n} "
+                                      f"differs (max |diff| {e})")
+                print(f"p_residual {name} on {dev}: {h}x{w}, levels, recon"
+                      f"{' and nz4' if nz4 else ''} bit-exact against "
+                      "residual_p_ref", flush=True)
+                if di == 0 and timed:
+                    timings.append(("p_residual", name, (cur, pred, qp,
+                                                         pskip, nz4, kw)))
+            for name, cq, rq, mask, timed in _probe_cases(inp):
+                got = torchresid.probe_cost_cuda(cq, rq, mask)
+                torch.cuda.synchronize(dev)
+                want = torchme.probe_cost_ref(cq, rq, mask)
+                e = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                        .max())
+                err["probe_cost"] = max(err["probe_cost"], e)
+                check(got.dtype == want.dtype and e == 0,
+                      f"probe_cost {name} on {dev}: differs (max |diff| "
+                      f"{e})")
+                check(torch.equal(torchme.probe_center_t(got),
+                                  torchme.probe_center_t(want)),
+                      f"probe_cost {name}: the centre differs")
+                print(f"probe_cost {name} on {dev}: cells "
+                      f"{tuple(cq.shape)}, {int(mask.sum())} rows counted, "
+                      f"cost bit-exact against probe_cost_ref, centre "
+                      f"{torchme.probe_center_t(got).tolist()}", flush=True)
+                if di == 0 and timed:
+                    timings.append(("probe_cost", name, (cq, rq, mask)))
+    res = ptxas_resources(torchresid.BUILD_INFO)
+    recs = {}
+    for kernel, name, args in timings:
+        if kernel == "p_residual":
+            cur, pred, qp, pskip, nz4, kw = args
+            qpc = chroma_qp(qp)
+            fn = functools.partial(torchresid.residual_p_cuda, *cur, *pred,
+                                   qp, qpc, pskip=pskip, nz4=nz4, **kw)
+            plain = functools.partial(
+                torchinter.residual_p_ref, *cur, *pred, qp, qpc,
+                rd=RdConfig(pskip=pskip, deblock=nz4), **kw)
+            ops, nbytes = p_residual_bounds(*cur[0].shape, nz4=nz4)
+            flags = f"ILb{int(pskip)}ELb{int(nz4)}E"
+            shape = list(cur[0].shape)
+        else:
+            fn = functools.partial(torchresid.probe_cost_cuda, *args)
+            plain = functools.partial(torchme.probe_cost_ref, *args)
+            ops, nbytes = probe_bounds(*args)
+            flags = ""
+            shape = list(args[0].shape)
+        ms = min(_graph_ms(fn) for _ in range(2))
+        plain_ms = _median_ms(plain, reps=3)
+        bound_ms, bound_by = _bound(ops, nbytes)
+        regs = _res_of(res, f"{kernel}_kernel", flags)
+        print(f"{kernel} timing {name} {shape}: {ms:.4f} ms a launch (CUDA "
+              f"graph of 50, median of 5, best of 2), plain {plain_ms:.3f} "
+              f"ms, bound {bound_ms:.4f} ms by {bound_by} ({ops / 1e6:.1f} M "
+              f"ops, {nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.2f}% of "
+              f"bound, regs / smem / spills {regs}, library none",
+              flush=True)
+        if name in ("1080p qp 27 ME preds", "1080p frame"):
+            recs[kernel] = {
+                "name": kernel, "route": "cuda",
+                "source": "thinvids_tpu_torch/csrc/p_residual.cu",
+                "replaces": ("thinvids_tpu/codecs/h264/jaxinter.py:198"
+                             if kernel == "p_residual" else
+                             "thinvids_tpu/codecs/h264/jaxme.py:651"),
+                "launches": None, "max_abs_err": err[kernel], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "regs_smem_spills": regs, "shape": shape}
+    return list(recs.values())
+
+
 # ---- phase 4 -----------------------------------------------------------
 
 def main_path(w: int = 1920, h: int = 1080, n: int = 16, qp: int = 27,
@@ -1145,12 +1446,12 @@ def main_path(w: int = 1920, h: int = 1080, n: int = 16, qp: int = 27,
     concat_segments(enc.encode(frames))          # warm-up pass
     torch.cuda.synchronize()
 
-    _zero_me_counts()
+    _zero_p_counts()
     enc.stages.reset()
     t0 = time.perf_counter()
     stream = concat_segments(enc.encode(frames))
     t_cold = time.perf_counter() - t0
-    launches = _me_counts()
+    launches = _p_counts()
     intra = _intra_counts()
     snap = enc.stages.snapshot()
     p_frames = n - len(enc.plan(n).gops)
@@ -1311,12 +1612,11 @@ def job_path(tmp: str, main_stream: bytes, w: int = 1920, h: int = 1080,
     path = os.path.join(tmp, "job1080.y4m")
     _write_clip(path, make_frames(n, w, h), w, h)
     torch.cuda.synchronize()
-    _zero_me_counts()
+    _zero_p_counts()
     t0 = time.perf_counter()
     stream, mp4 = _run_job(path, "cuda")
     t_job = time.perf_counter() - t0
-    launches = {"me_halfpel": torchme.ME_PREPASS_LAUNCHES,
-                "me_search": torchme.ME_KERNEL_LAUNCHES}
+    launches = _p_counts()
     print(f"job path {w}x{h} x{n} (y4m → open_video → make_shard_encoder → "
           f"encode → concat → mux_mp4): MP4 {len(mp4)} bytes, sha256 "
           f"{hashlib.sha256(mp4).hexdigest()}; Annex-B {len(stream)} bytes, "
@@ -1403,7 +1703,7 @@ def intra_wave(w: int = 1920, h: int = 1080, n: int = 8) -> None:
     for _ in range(2):
         enc.stages.reset()
         torch.cuda.synchronize()
-        _zero_me_counts()
+        _zero_p_counts()
         t0 = time.perf_counter()
         s2 = concat_segments(enc.encode_waves(waves))
         best = min(best, time.perf_counter() - t0)
@@ -1425,9 +1725,13 @@ def intra_wave(w: int = 1920, h: int = 1080, n: int = 8) -> None:
 
 # ---- phase 9 -------------------------------------------------------------
 
-def _me_counts() -> dict:
+def _p_counts() -> dict:
+    """Launches of the kernels a P frame or P step runs once each: the
+    ME pair, the residual and the probe."""
     return {"me_halfpel": torchme.ME_PREPASS_LAUNCHES,
-            "me_search": torchme.ME_KERNEL_LAUNCHES}
+            "me_search": torchme.ME_KERNEL_LAUNCHES,
+            "p_residual": torchresid.P_RESIDUAL_LAUNCHES,
+            "probe_cost": torchresid.PROBE_LAUNCHES}
 
 
 def _intra_counts() -> dict:
@@ -1435,7 +1739,7 @@ def _intra_counts() -> dict:
             "intra_cols": torchintra.INTRA_COLS_LAUNCHES}
 
 
-def _zero_me_counts() -> None:
+def _zero_p_counts() -> None:
     """Zero every hand kernel's launch count (ME and intra), totals and
     per-card maps."""
     torchme.reset_launch_counts()
@@ -1461,13 +1765,13 @@ def rd_point(w: int = 1920, h: int = 1080, n: int = 32, qp: int = 25) -> dict:
     out = {}
     for name, rd in (("off", RD_OFF), ("on", RD_ALL)):
         torch.cuda.synchronize()
-        _zero_me_counts()
+        _zero_p_counts()
         t0 = time.perf_counter()
         stream, recons = encode_gop(frames, meta, qp=qp, idr_pic_id=0,
                                     with_headers=True, return_recon=True,
                                     rd=rd, device="cuda")
         t_gop = time.perf_counter() - t0
-        launches = _me_counts()
+        launches = _p_counts()
         ry = recons[0]
         ps = [psnr(f.y, ry[i][:h, :w]) for i, f in enumerate(frames)]
         ss = [ssim(f.y, ry[i][:h, :w]) for i, f in enumerate(frames)]
@@ -1761,12 +2065,12 @@ def sfe_point(w: int = 3840, h: int = 2160, n: int = 16, gop: int = 8,
     concat_segments(enc.encode_waves(waves[:1]))         # warm-up GOP
     torch.cuda.synchronize()
 
-    _zero_me_counts()
+    _zero_p_counts()
     enc.stages.reset()
     t0 = time.perf_counter()
     stream = concat_segments(enc.encode(frames))
     t_enc = time.perf_counter() - t0
-    launches = _me_counts()
+    launches = _p_counts()
     intra = _intra_counts()
     digest = hashlib.sha256(stream).hexdigest()
     snap = enc.stages.snapshot()
@@ -1824,12 +2128,16 @@ def sfe_point(w: int = 3840, h: int = 2160, n: int = 16, gop: int = 8,
 
 
 def sfe_breakdown(dev, point: dict) -> dict:
-    """One banded IDR step, one banded P step (host clock around a
-    synchronize, best of 2), and the banded search of that P step by
-    CUDA events: the whole me_search_banded (halo exchange, probe,
-    median) and its two kernel launches alone."""
+    """One banded IDR step, one banded P step and that step's device
+    program alone (torchinter.sfe_p_band: the search, the residual and
+    the fixup, without the probe's split and the sparse pack) by host
+    clock around a synchronize, best of 2; the banded search of that P
+    step by CUDA events: the whole me_search_banded (halo exchange,
+    probe, median) and its two kernel launches alone; a profiler count
+    of the P step's kernels and busy share."""
     enc, waves, qp = point["enc"], point["waves"], point["qp"]
     _, ys, us, vs, _ = waves[0]
+    from thinvids_tpu_torch.codecs.h264 import torchinter
     from thinvids_tpu_torch.parallel.dispatch import (_sfe_p_step,
                                                       _sfe_probe_step)
 
@@ -1852,10 +2160,17 @@ def sfe_breakdown(dev, point: dict) -> dict:
                            mbh_band=bp.band_mb_rows, halo_rows=halo,
                            rd=enc.rd)
 
+    def p_band():
+        return torchinter.sfe_p_band(
+            ys[1], us[1], vs[1], tuple(carry) + (pmv,), qp, real,
+            mbw=bp.mb_width, mbh_band=bp.band_mb_rows, halo_rows=halo,
+            rd=enc.rd, total_mb_rows=enc._total_mb_rows)
+
     ms = {
         "idr_step": _sync_ms(lambda: enc._intra_step(ys[0], us[0], vs[0],
                                                      qp), reps=2),
         "p_step": _sync_ms(p_step, reps=2),
+        "p_band": _sync_ms(p_band, reps=2),
     }
     B, Hb, W = cy.shape
     cur_s, ref_s, ru_s, rv_s = torchme.extend_bands(cy, ry, ru, rv, halo)
@@ -1872,7 +2187,10 @@ def sfe_breakdown(dev, point: dict) -> dict:
           f"by CUDA events (median of 5): "
           f"{json.dumps({k: round(v, 4) for k, v in events.items()})}",
           flush=True)
-    return {"host_ms": ms, "event_ms": events}
+    busy = _device_busy(p_step)
+    print(f"sfe P step device busy (torch.profiler, one call): "
+          f"{json.dumps(busy)}", flush=True)
+    return {"host_ms": ms, "event_ms": events, "busy": busy}
 
 
 def sfe_rd_point(w: int = 1920, h: int = 1080, n: int = 16, gop: int = 8,
@@ -1886,11 +2204,11 @@ def sfe_rd_point(w: int = 1920, h: int = 1080, n: int = 16, gop: int = 8,
     enc = _sfe_encoder(meta, qp, gop, bands, halo, rd=RD_ALL)
     check(enc.rd == RdConfig(mode_decision=True, pskip=True, deblock=True),
           f"SFE RD config {enc.rd}")
-    _zero_me_counts()
+    _zero_p_counts()
     t0 = time.perf_counter()
     stream = concat_segments(enc.encode(frames))
     t_enc = time.perf_counter() - t0
-    launches = _me_counts()
+    launches = _p_counts()
     digest = hashlib.sha256(stream).hexdigest()
     print(f"sfe rd point {w}x{h} x{n} gop {gop} qp {qp} bands {bands} "
           f"{enc.rd}: {len(stream)} bytes, sha256 {digest}, "
@@ -2022,14 +2340,14 @@ def rc_point(w: int = 1920, h: int = 1080, n: int = 32, gop: int = 8,
     def mark(label: str) -> None:
         torch.cuda.synchronize()
         now = time.perf_counter()
-        marks.append((label, round(now - t_mark[0], 3), _me_counts()))
-        _zero_me_counts()
+        marks.append((label, round(now - t_mark[0], 3), _p_counts()))
+        _zero_p_counts()
         t_mark[0] = now
 
     def on_pass(pass_no, gop_qps) -> None:
         if pass_no == 1:
             torch.cuda.synchronize()
-            _zero_me_counts()
+            _zero_p_counts()
             t_mark[0] = time.perf_counter()
 
     def encode_fn(e):
@@ -2133,10 +2451,10 @@ def ladder_point(main: dict, w: int = 1920, h: int = 1080, n: int = 16,
           f"make_shard_encoder(rungs=) built {type(lad).__name__}")
     seen = _record_planes(lad)
     torch.cuda.synchronize()
-    _zero_me_counts()
+    _zero_p_counts()
     lad.stages.reset()
     bundles = lad.encode(frames)
-    launches = _me_counts()
+    launches = _p_counts()
     snap = lad.stages.snapshot()
     streams = {r.name: concat_segments(rung_segments(bundles, r.name))
                for r in rungs}
@@ -2533,11 +2851,11 @@ def live_leg(name: str, frames, w: int, h: int, qp: int, gop: int,
 
     def counted_warm(enc, meta_, gop_n):
         torch.cuda.synchronize()
-        _zero_me_counts()
+        _zero_p_counts()
         real_warm(enc, meta_, gop_n)
         torch.cuda.synchronize()
-        warm.update(_me_counts())
-        _zero_me_counts()
+        warm.update(_p_counts())
+        _zero_p_counts()
         with tdispatch._SFE_LAT_LOCK:   # the live run's frames only
             tdispatch._SFE_LAT_MS.clear()
 
@@ -2572,7 +2890,7 @@ def live_leg(name: str, frames, w: int, h: int, qp: int, gop: int,
         finally:
             texec.warm_live_shapes = real_warm
         torch.cuda.synchronize()
-        launches = _me_counts()
+        launches = _p_counts()
         if "error" in result:
             raise result["error"]
         out_dir = os.path.dirname(result["master"])
@@ -2614,7 +2932,7 @@ def live_leg(name: str, frames, w: int, h: int, qp: int, gop: int,
     check(result["gops"] == seen_gops == -(-n // gop),
           f"live {name}: {result['gops']} GOPs packaged, {seen_gops} seen")
     want_warm = p_frames // (n // gop) * len(rungs)
-    for kname in ("me_halfpel", "me_search"):
+    for kname in P_KERNELS:
         check(warm.get(kname) == want_warm,
               f"live {name}: the warm-up launched {kname} "
               f"{warm.get(kname)} times, want {want_warm}")
@@ -2714,10 +3032,12 @@ def _await_job(base: str, input_path: str, proc, cap_s: float) -> dict:
 
 
 def _trace_kernel_launches(trace_dir: str) -> dict:
-    """Launches of each ME kernel in the torch.profiler Chrome trace(s)
-    the daemon wrote for one job."""
-    counts = {"me_halfpel": 0, "me_search": 0}
-    kernels = {"me_halfpel": "halfpel_kernel", "me_search": "search_kernel"}
+    """Launches of each P-frame kernel in the torch.profiler Chrome
+    trace(s) the daemon wrote for one job."""
+    counts = dict.fromkeys(P_KERNELS, 0)
+    kernels = {"me_halfpel": "halfpel_kernel", "me_search": "search_kernel",
+               "p_residual": "p_residual_kernel",
+               "probe_cost": "probe_cost_kernel"}
     files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
     check(files, f"no profiler trace under {trace_dir}")
     for path in files:
@@ -3060,7 +3380,7 @@ def _farm_sfe_job(base: str, coord, path: str, bands: int, halo: int,
         "settings": {"sfe_bands": bands, "sfe_halo_rows": halo}})
     check(code == 201, f"/add_job answered {code}: {raw[:200]!r}")
     job = _await_job(base, path, coord, 300.0)
-    launches, by_card = _me_counts(), _by_device()
+    launches, by_card = _p_counts(), _by_device()
     intra_by_card = _intra_by_device()
     after = dispatch.stage_snapshot()
     with open(job["output_path"], "rb") as fp:
@@ -3212,8 +3532,11 @@ def _sync_all(mesh) -> None:
 
 
 def _by_device() -> dict:
+    """_p_counts' kernels by card index."""
     return {"me_halfpel": dict(torchme.ME_PREPASS_LAUNCHES_BY_DEVICE),
-            "me_search": dict(torchme.ME_KERNEL_LAUNCHES_BY_DEVICE)}
+            "me_search": dict(torchme.ME_KERNEL_LAUNCHES_BY_DEVICE),
+            "p_residual": dict(torchresid.P_RESIDUAL_LAUNCHES_BY_DEVICE),
+            "probe_cost": dict(torchresid.PROBE_LAUNCHES_BY_DEVICE)}
 
 
 def _intra_by_device() -> dict:
@@ -3767,10 +4090,10 @@ def sync_audit(main: dict, w: int = 1920, h: int = 1080, n: int = 16,
     meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1, num_frames=n)
     enc = GopShardEncoder(meta, qp=qp, gop_frames=gop, device="cuda")
     concat_segments(enc.encode(frames))          # warm-up, unaudited
-    _zero_me_counts()
+    _zero_p_counts()
     with SyncAudit() as main_audit:
         stream = concat_segments(enc.encode(frames))
-    launches = _me_counts()
+    launches = _p_counts()
     p_frames = n - len(enc.plan(n).gops)
     check(stream == main["stream"], "the audited main path changed bytes")
     for name, count in launches.items():
@@ -3805,6 +4128,7 @@ def sync_audit(main: dict, w: int = 1920, h: int = 1080, n: int = 16,
     audits = {"main": main_audit, "idr_frame": idr_audit,
               "idr_step": idr_step, "p_step": p_step,
               "sfe_idr_step": sfe_idr, "sfe_p_step": sfe_p}
+    audits.update(_off_path_audits(frames[:gop], qp))
     for name, a in audits.items():
         print(f"syncs {name}: {a.total()} "
               f"{json.dumps(a.by_function())}", flush=True)
@@ -3812,7 +4136,11 @@ def sync_audit(main: dict, w: int = 1920, h: int = 1080, n: int = 16,
           f"({n} frames), all-intra IDR frame {idr_audit.total()}, IDR "
           f"device step {idr_step.total()}, P device step "
           f"{p_step.total()}, 4-band SFE IDR step {sfe_idr.total()}, SFE P "
-          f"step {sfe_p.total()}; ME launches {launches}", flush=True)
+          f"step {sfe_p.total()}, mesh step "
+          f"{audits['mesh_step'].total()}, farm slice walk "
+          f"{audits['farm_slice_walk'].total()}, ladder wave "
+          f"{audits['ladder_wave'].total()}; P-frame kernel launches "
+          f"{launches}", flush=True)
     seen = explicit_sync_seen()
     print(f"sync debug mode reports the explicit waits: "
           f"{json.dumps(seen)}", flush=True)
@@ -3862,6 +4190,91 @@ def _sfe_step_audits(frames, qp: int, bands: int = 4, halo: int = 32):
         pf(carry)
     torch.cuda.synchronize()
     return sfe_idr, sfe_p
+
+
+def _off_path_audits(frames, qp: int, halo: int = 32) -> dict:
+    """The sync audit off the main path (ROADMAP C5), each case run once
+    unaudited first so shape caches are filled: (a) a mesh step: a
+    2-frame GOP of the 4-band 1080p split-frame encode walked over the
+    phase-17 mesh (SfeShardEncoder.dispatch_wave: the runs' edge rows by
+    peer copy, the probe and histogram sums, _to_all); (b) a farm
+    slice's walk: two FarmBandEncoder slices of that layout, bands
+    [0, 2) and [2, 4), each encoding the 2 frames on its own thread over
+    an in-process halo relay; (c) a ladder wave: LadderShardEncoder over
+    the frames (rungs 1080 and 540), one wave dispatched and collected
+    (PlaneScaler.scale_wave on the card)."""
+    from thinvids_tpu_torch.abr.ladder import plan_ladder
+    from thinvids_tpu_torch.cluster import halo as halo_mod
+    from thinvids_tpu_torch.core.config import DEFAULT_SETTINGS, Settings
+    from thinvids_tpu_torch.parallel.dispatch import (SfeShardEncoder,
+                                                      make_shard_encoder)
+    from thinvids_tpu_torch.parallel.sfefarm import FarmBandEncoder
+
+    h, w = frames[0].y.shape
+    meta2 = VideoMeta(width=w, height=h, fps_num=30, fps_den=1,
+                      num_frames=2)
+    mesh, tag = _mesh()
+    enc = SfeShardEncoder(meta2, qp=qp, gop_frames=2, bands=4,
+                          halo_rows=halo, mesh=mesh)
+    _, waves = enc.prepare_waves(frames[:2])
+    enc.dispatch_wave(waves[0])
+    _sync_all(mesh)
+    with SyncAudit() as mesh_step:
+        enc.dispatch_wave(waves[0])
+        _sync_all(mesh)
+
+    relay = halo_mod.HaloRelay()
+    groups = [(0, 2), (2, 4)]
+
+    def farm(gen: int) -> None:
+        relay.set_gen("audit", gen)
+        errs = []
+
+        def run(lo: int, hi: int) -> None:
+            try:
+                sess = halo_mod.HaloSession(
+                    halo_mod.LocalHaloHub(relay, "audit", gen,
+                                          timeout_s=120.0),
+                    band_lo=lo, band_hi=hi, groups=groups)
+                FarmBandEncoder(meta2, qp=qp, gop_frames=2, total_bands=4,
+                                band_range=(lo, hi), halo_rows=halo,
+                                session=sess, device="cuda").encode(
+                                    frames[:2])
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                errs.append(exc)
+
+        threads = [threading.Thread(target=run, args=g) for g in groups]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        if errs:
+            raise errs[0]
+        torch.cuda.synchronize()
+
+    farm(1)
+    with SyncAudit() as farm_walk:
+        farm(2)
+
+    meta = VideoMeta(width=w, height=h, fps_num=30, fps_den=1,
+                     num_frames=len(frames))
+    settings = Settings(values=dict(DEFAULT_SETTINGS, qp=qp,
+                                    gop_frames=len(frames),
+                                    ladder_rungs="1080,540"))
+    lad = make_shard_encoder(meta, settings, None,
+                             rungs=plan_ladder(meta, settings),
+                             device="cuda")
+    staged = list(lad.stage_waves(frames))
+    lad.collect_wave(lad.dispatch_wave(staged[0]))
+    torch.cuda.synchronize()
+    with SyncAudit() as ladder_wave:
+        lad.collect_wave(lad.dispatch_wave(staged[0]))
+    print(f"off-path sync audits: mesh step on {tag}; farm slices "
+          f"{groups} of 4 bands, one thread each, in-process relay; ladder "
+          f"wave of {len(frames)} frames, rungs "
+          f"{[r.name for r in lad.rungs]}", flush=True)
+    return {"mesh_step": mesh_step, "farm_slice_walk": farm_walk,
+            "ladder_wave": ladder_wave}
 
 
 def check_phase(main: dict, card: str) -> dict:
@@ -3927,7 +4340,7 @@ def spec_phase(dev, card: str) -> None:
     from thinvids_tpu_torch.parallel.planner import plan_segments
 
     t_phase = time.perf_counter()
-    _zero_me_counts()
+    _zero_p_counts()
     f = make_frames(1, 352, 288, seed=3)[0].padded(16)
     secs = {}
     for tag, rd in SPEC_RD.items():
@@ -3958,8 +4371,8 @@ def spec_phase(dev, card: str) -> None:
     check(got == want, f"8-entry aliased mesh all-intra stream "
                        f"({len(got)} bytes) differs from the numpy spec's "
                        f"({len(want)} bytes)")
-    check(all(v == 0 for v in _me_counts().values()),
-          f"phase 19 launched ME kernels: {_me_counts()}")
+    check(all(v == 0 for v in _p_counts().values()),
+          f"phase 19 launched P-frame kernels: {_p_counts()}")
     print(f"spec mesh {mesh}: all-intra {w}x{h} x{n} gop {gop} qp {qp} "
           f"stream == the numpy spec's in the 8-wide plan ({len(got)} bytes,"
           f" sha256 {hashlib.sha256(got).hexdigest()}); spec phase "
@@ -4021,9 +4434,13 @@ def main() -> int:
     print("kernels: intra_row0, intra_cols")
     irecs = check_intra_kernels(
         [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    phase("3c P kernels")
+    print("kernels: p_residual, probe_cost")
+    precs = check_p_kernels(
+        [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
     phase("4 main")
     main = main_path()
-    for rec in recs + irecs:
+    for rec in recs + irecs + precs:
         rec["launches"] = main["launches"][rec["name"]]
     time_breakdown(dev)
     phase("5 parity")
@@ -4095,8 +4512,26 @@ def main() -> int:
             "sfe_idr_steps_per_entry": mesh["sfe"]["idr_per_entry"],
             "farm_launches_by_card": mesh["farm"]["launches_by_device"][
                 rec["name"]]}
+    for rec in precs:
+        rec["sfe_launches"] = sfe["launches"][rec["name"]]
+        rec["rc_launches_per_pass"] = rc["launches_per_pass"][rec["name"]]
+        rec["ladder_launches"] = ladder["launches"][rec["name"]]
+        rec["live_launches"] = live["ladder"][rec["name"]]
+        rec["live_sfe_launches"] = live["sfe"][rec["name"]]
+        rec["manager_launches"] = manager[rec["name"]]
+        rec["farm_launches"] = farm["launches"][rec["name"]]
+        rec["mesh"] = {
+            "mesh": mesh["mesh"],
+            "gop_launches_by_card": mesh["gop"]["launches_by_device"][
+                rec["name"]],
+            "sfe_launches_by_card": mesh["sfe"]["launches_by_device"][
+                rec["name"]],
+            "farm_launches_by_card": mesh["farm"]["launches_by_device"][
+                rec["name"]]}
+        rec["sync_audit_launches"] = checked["audit"]["launches"][
+            rec["name"]]
     phase("end")
-    print(json.dumps({"kernels": recs + irecs}))
+    print(json.dumps({"kernels": recs + irecs + precs}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

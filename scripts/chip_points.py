@@ -35,7 +35,9 @@ comparison of two checkouts.
   path (`chip_smoke.main_path`, for its stream), then
   `chip_smoke.check_phase`: `cli check --json` with no torch in its
   process, the runtime sync audit of the main path and of one IDR and
-  one P frame, and the pack_workers resize.
+  one P frame, and the pack_workers resize, then the audit of a mesh
+  SFE step (on every card when the machine has two or more: real peer
+  copies), two farm slices and a ladder wave.
 - `spec`: phase 19 alone, after the farm slices' stacks — builds the
   kernels, holds and times them at the farm slice's stacks
   (`chip_smoke.check_farm_slice_kernels`), then runs

@@ -367,6 +367,7 @@ class Manifest:
     kernel_modules: tuple[str, ...] = (
         "thinvids_tpu_torch.codecs.h264.torchme",   # csrc/me_search.cu
         "thinvids_tpu_torch.codecs.h264.torchintra",  # csrc/intra_core.cu
+        "thinvids_tpu_torch.codecs.h264.torchresid",  # csrc/p_residual.cu
         "thinvids_tpu_torch.native",                # native/cavlc_pack.cpp
     )
     #: helper names whose RESULT is a pinned/quantized shape bound (the

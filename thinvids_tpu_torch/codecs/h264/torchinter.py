@@ -5,9 +5,10 @@ plane layout, closed-loop reconstruction, and the closed-GOP program.
   (torchme.me_search: the CUDA kernel on the card, its plain version on
   the CPU); the kernel emits the prediction planes, so MC never runs as
   a separate pass. MVs are HALF-PEL units throughout.
-- Residual DCT/quant/dequant/IDCT run in PLANE layout: 4x4 butterflies
-  as strided slices along H then W of the full frame — no (n, 16, 4, 4)
-  relayout in the hot loop, int16 storage.
+- Residual DCT/quant/dequant/IDCT run in PLANE layout, int16 storage:
+  on the card as one hand kernel a frame or band stack
+  (csrc/p_residual.cu, torchresid), on the CPU as its plain version,
+  4x4 butterflies as strided slices along H then W of the full frame.
 - Frames chain through an explicit carry holding the recon planes and
   the previous frame's median MV (the temporal search centre).
 - The RD features ride the same steps: the P_Skip bias in
@@ -26,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from . import rdo, torchme
+from . import rdo, torchme, torchresid
 from .rdo import RD_OFF
 from .torchcore import (_intra_core, _mode_tail, _tables, chroma_qp,
                         intra_core_frames)
@@ -142,7 +143,24 @@ def _dc_pos_expand(dcr_grid, h, wd_):
 def _residual_p(cy16, cu16, cv16, pred_y, pred_u, pred_v, qp: int,
                 qpc: int, *, mbw: int, mbh: int, rd=RD_OFF):
     """Residual transform/quant/recon for one P frame given its
-    prediction planes (plane layout). Per-MB local math only.
+    prediction planes: :func:`residual_p_ref`'s function and outputs.
+    CUDA tensors go through the hand kernel (torchresid.residual_p_cuda,
+    one launch a frame or band stack), CPU tensors through the plain
+    version."""
+    if cy16.device.type == "cuda":
+        return torchresid.residual_p_cuda(
+            *(t.contiguous() for t in (cy16, cu16, cv16, pred_y, pred_u,
+                                       pred_v)),
+            qp, qpc, mbw=mbw, mbh=mbh, pskip=rd.pskip, nz4=rd.deblock)
+    return residual_p_ref(cy16, cu16, cv16, pred_y, pred_u, pred_v, qp,
+                          qpc, mbw=mbw, mbh=mbh, rd=rd)
+
+
+def residual_p_ref(cy16, cu16, cv16, pred_y, pred_u, pred_v, qp: int,
+                   qpc: int, *, mbw: int, mbh: int, rd=RD_OFF):
+    """Residual transform/quant/recon for one P frame given its
+    prediction planes (plane layout). Per-MB local math only: the plain
+    version of csrc/p_residual.cu's kernel, held to it bit for bit.
 
     With ``rd.pskip`` an MB whose quantized residual is negligible
     (sum |level| <= rdo.PSKIP_SUM across all planes, every |level| <=

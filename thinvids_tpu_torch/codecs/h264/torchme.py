@@ -11,6 +11,11 @@ b/h/j planes (§8.4.2.2.1), j from the unrounded horizontal
 intermediates — and the eighth-pel bilinear chroma prediction
 (§8.4.2.2.2). Motion search and compensation are one pass.
 
+The probe's 81 window costs, the centres' one heavy step, run in
+csrc/p_residual.cu's `probe_cost_kernel` on the card (torchresid;
+`probe_cost_ref` is its plain version); the box sums, pads and argmin
+around it stay torch ops.
+
 `me_search_ref` is the plain version: it takes the CPU path and is what
 the kernels are held against on the card (`halfpel_planes_ref` is the
 prepass's own, for the tests). `me_search` launches the kernels for
@@ -274,21 +279,52 @@ def _box_sum(x, s: int):
     return x.reshape(H // s, s, W // s, s).sum(dim=(1, 3)).to(torch.int32)
 
 
-def coarse_probe(cur16, ref16, sr: int = SEARCH_RANGE):
-    """Global-motion probe on box-summed quarter-res planes. Returns a
-    (2,) int32 center in pel, multiple of _COARSE (hence even)."""
+def probe_cost_ref(cq, rq_ext, mask):
+    """Plain version of the probe kernel (csrc/p_residual.cu,
+    probe_cost_kernel): the cost of each of the (2 qsr + 1)^2 candidate
+    windows, sum over every cell of the (B, hc, wc) int32 stack `cq` of
+    mask[b, r] * |cq - window|, window (oy, ox) being rq_ext[b, r + oy,
+    c + ox] of the (B, hc + 2 qsr, wc + 2 qsr) padded reference cells;
+    `mask` (B, hc) bool. Returns the int32 cost summed over the stack,
+    wrapping as the reference's int32 sums do (no 8-bit frame up to 4K
+    can wrap: 518,400 cells x 4,080 < 2^31)."""
+    _, hc, wc = cq.shape
+    n = rq_ext.shape[1] - hc + 1
+    wins = torch.stack([rq_ext[:, oy:oy + hc, ox:ox + wc]
+                        for oy in range(n) for ox in range(n)], dim=1)
+    diff = torch.abs(cq[:, None] - wins) * mask[:, None, :, None]
+    return diff.sum(dim=(0, 2, 3), dtype=torch.int32)
+
+
+def probe_cost(cq, rq_ext, mask):
+    """:func:`probe_cost_ref`'s function: the probe kernel for CUDA
+    tensors (torchresid.probe_cost_cuda), the plain version for CPU
+    tensors."""
+    if cq.device.type == "cuda":
+        from . import torchresid
+
+        return torchresid.probe_cost_cuda(cq, rq_ext, mask)
+    return probe_cost_ref(cq, rq_ext, mask)
+
+
+def probe_inputs(cur16, ref16, sr: int = SEARCH_RANGE):
+    """The probe's inputs for one (H, W) frame: its quarter-res cells as
+    a (1, hc, wc) stack, the reference's cells edge-padded by sr / 4 a
+    side, and a mask that keeps every row."""
     qs = _COARSE
     cq = _box_sum(cur16, qs)
     rq = _box_sum(ref16, qs)
     qsr = sr // qs
     rq_pad = _edge_pad(rq, qsr, qsr, qsr, qsr)
-    qh, qw = cq.shape
-    n = 2 * qsr + 1
-    wins = torch.stack([rq_pad[oy:oy + qh, ox:ox + qw]
-                        for oy in range(n) for ox in range(n)])
-    cost = torch.abs(cq[None] - wins).sum(dim=(1, 2))
-    bi = torch.argmin(cost).to(torch.int32)      # first minimum
-    return torch.stack([bi // n - qsr, bi % n - qsr]) * qs
+    mask, _ = _band_row_masks((cur16.shape[0],), cq.shape[0], qs,
+                              cq.device)
+    return cq[None], rq_pad[None].contiguous(), mask
+
+
+def coarse_probe(cur16, ref16, sr: int = SEARCH_RANGE):
+    """Global-motion probe on box-summed quarter-res planes. Returns a
+    (2,) int32 center in pel, multiple of _COARSE (hence even)."""
+    return probe_center_t(probe_cost(*probe_inputs(cur16, ref16, sr)), sr)
 
 
 def hist_median(mv_flat, lim: int):
@@ -413,16 +449,17 @@ def load_me_library() -> ctypes.CDLL:
 
 def reset_launch_counts() -> None:
     """Zero every hand kernel's launch count, the process totals and the
-    per-card maps: the ME pair's here and the intra pair's
-    (torchintra)."""
+    per-card maps: the ME pair's here, the intra pair's (torchintra) and
+    the P residual's and probe's (torchresid)."""
     global ME_KERNEL_LAUNCHES, ME_PREPASS_LAUNCHES
-    from . import torchintra
+    from . import torchintra, torchresid
 
     with _count_lock:
         ME_KERNEL_LAUNCHES = ME_PREPASS_LAUNCHES = 0
         ME_KERNEL_LAUNCHES_BY_DEVICE.clear()
         ME_PREPASS_LAUNCHES_BY_DEVICE.clear()
         torchintra.zero_counts()
+        torchresid.zero_counts()
 
 
 def _ensure_table(lib, device: torch.device) -> None:
@@ -480,8 +517,8 @@ def _on_card(*named) -> torch.device:
     dev = named[0][1].device
     for name, t in named:
         if t.device.type != "cuda":
-            raise ValueError(f"{name}: the ME kernels need CUDA tensors, "
-                             f"got {t.device}")
+            raise ValueError(f"{name}: the hand kernels need CUDA "
+                             f"tensors, got {t.device}")
         if t.device != dev:
             raise ValueError(f"{name}: on {t.device}, the frame is on {dev}")
     return dev
@@ -690,14 +727,26 @@ def _band_row_masks(real_rows: tuple, rows: int, scale: int, device):
 def banded_probe_cost(cur_stack, ref_stack, real_rows,
                       sr: int = SEARCH_RANGE, top_ext=None, bot_ext=None,
                       edge_top: bool = True, edge_bot: bool = True):
-    """The global-motion probe's per-window cost vector, summed over
-    the bands: each band contributes the partial SAD of its REAL rows
-    for every candidate window (halo cells come from the neighbour
-    bands at quarter-res granularity, so the window slices see exactly
-    the full-frame probe's padded plane). `real_rows` (one int per band,
-    pixel rows) masks the last band's padding rows out of the cost,
-    keeping the sum equal to the full-frame probe's. int32, wrapping as
-    the reference's int32 sums do.
+    """The global-motion probe's per-window cost vector, summed over the
+    bands (:func:`banded_probe_inputs`, then :func:`probe_cost`). int32,
+    wrapping as the reference's int32 sums do. The caller finishes the
+    sum over the runs and the argmin (:func:`probe_center_t`, or
+    :func:`probe_center_from_cost` on the host)."""
+    return probe_cost(*banded_probe_inputs(
+        cur_stack, ref_stack, real_rows, sr, top_ext=top_ext,
+        bot_ext=bot_ext, edge_top=edge_top, edge_bot=edge_bot))
+
+
+def banded_probe_inputs(cur_stack, ref_stack, real_rows,
+                        sr: int = SEARCH_RANGE, top_ext=None, bot_ext=None,
+                        edge_top: bool = True, edge_bot: bool = True):
+    """The probe's inputs for a band stack, (cq, rq_ext, mask) as
+    :func:`probe_cost` takes them: each band contributes the partial SAD
+    of its REAL rows for every candidate window (halo cells come from
+    the neighbour bands at quarter-res granularity, so the window slices
+    see exactly the full-frame probe's padded plane). `real_rows` (one
+    int per band, pixel rows) masks the last band's padding rows out of
+    the cost, keeping the sum equal to the full-frame probe's.
 
     Split mode: `top_ext` / `bot_ext` are injected neighbour reference
     PIXEL rows (≥ 16 a side, (rows, W)) from the adjacent run of bands
@@ -705,9 +754,7 @@ def banded_probe_cost(cur_stack, ref_stack, real_rows,
     `edge_top` / `edge_bot` as in :func:`band_halo_exchange`; their
     quarter-res cells stand in for the neighbour bands' halo cells at
     the run's edges, so the partial sums of every run add up to exactly
-    the whole layout's cost. The caller finishes the sum and the argmin
-    (:func:`probe_center_t`, or :func:`probe_center_from_cost` on the
-    host)."""
+    the whole layout's cost."""
     qs = _COARSE
     qsr = sr // qs
     B, H, W = cur_stack.shape
@@ -732,12 +779,7 @@ def banded_probe_cost(cur_stack, ref_stack, real_rows,
                                 bot_ext=bot_cells, edge_top=edge_top,
                                 edge_bot=edge_bot)
     cols = torch.arange(-qsr, wc + qsr, device=rq.device).clamp(0, wc - 1)
-    rq_ext = rq_ext[:, :, cols]
-    n = 2 * qsr + 1
-    wins = torch.stack([rq_ext[:, oy:oy + hc, ox:ox + wc]
-                        for oy in range(n) for ox in range(n)], dim=1)
-    diff = torch.abs(cq[:, None] - wins) * mask[:, None, :, None]
-    return diff.sum(dim=(0, 2, 3), dtype=torch.int32)
+    return cq, rq_ext[:, :, cols], mask
 
 
 def banded_coarse_probe(cur_stack, ref_stack, real_rows,
@@ -745,9 +787,6 @@ def banded_coarse_probe(cur_stack, ref_stack, real_rows,
     """`coarse_probe` decomposed over the bands: the summed per-window
     cost (banded_probe_cost) argmin'd (first minimum) — the SAME
     global-motion center for every band."""
-    qs = _COARSE
-    qsr = sr // qs
-    n = 2 * qsr + 1
     cost = banded_probe_cost(cur_stack, ref_stack, real_rows, sr=sr)
     return probe_center_t(cost, sr)
 
