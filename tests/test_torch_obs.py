@@ -324,6 +324,18 @@ def _names_tags(spans):
                    for s in spans})
 
 
+#: the spans the port records and the reference does not: the driving
+#: thread's waits for a staged and for a collected wave, each slice's
+#: pack on the pack pool, and the split-frame walk's steps
+PORT_SPANS = {"await_staged", "await_collect", "cavlc", "walk_intra",
+              "walk_probe", "walk_p", "walk_link"}
+
+
+def _tags(spans, name, key):
+    """The `key` tags of the `name` spans, in record order."""
+    return [s["tags"][key] for s in spans if s["name"] == name]
+
+
 def test_traced_wave_encode_records_the_reference_spans():
     w, h, n = 64, 48, 8
     clip = _smooth_clip(n, w, h, seed=41)
@@ -341,7 +353,15 @@ def test_traced_wave_encode_records_the_reference_spans():
                                [JFrame(*f) for f in clip])))
     assert got == baseline == want
     assert tspans, "tracer was bound but recorded nothing"
-    assert _names_tags(tspans) == _names_tags(jspans)
+    # the reference's spans, exactly, beside the port's own
+    assert _names_tags([s for s in tspans if s["name"] not in PORT_SPANS]) \
+        == _names_tags(jspans)
+    assert not {s["name"] for s in jspans} & PORT_SPANS
+    # one wave: its pull, then the pull that finds the stream's end
+    assert _tags(tspans, "await_staged", "wave") == [0, 1]
+    assert _tags(tspans, "await_collect", "wave") == [0]
+    # one cavlc span a slice: 8 frames, one slice each
+    assert sum(s["name"] == "cavlc" for s in tspans) == n
     # no tracer bound: nothing more records, and the bytes stay
     assert tenc.stages.tracer() is None
     assert tconcat(tenc.encode(tframes)) == baseline
@@ -396,7 +416,17 @@ def test_traced_sfe_encode_records_the_reference_frame_spans():
                            lambda: jconcat(jenc.encode(
                                [JFrame(*f) for f in clip])))
     assert got == baseline == want
-    assert _names_tags(tspans) == _names_tags(jspans)
+    assert _names_tags([s for s in tspans if s["name"] not in PORT_SPANS]) \
+        == _names_tags(jspans)
+    assert not {s["name"] for s in jspans} & PORT_SPANS
+    # two GOPs of 3 frames, a wave each: the walk's steps once a frame
+    # of each GOP, tagged with the frame in the GOP
+    assert _tags(tspans, "await_staged", "wave") == [0, 1, 2]
+    assert _tags(tspans, "await_collect", "wave") == [0, 1]
+    assert _tags(tspans, "walk_intra", "frame") == [0, 0]
+    for name in ("walk_probe", "walk_p", "walk_link"):
+        assert _tags(tspans, name, "frame") == [1, 2, 1, 2], name
+    assert sum(s["name"] == "cavlc" for s in tspans) == 2 * n
     frames = sorted(s["tags"]["frame"] for s in tspans
                     if s["name"] == "sfe_frame")
     # every frame after the first of the pass records its gap

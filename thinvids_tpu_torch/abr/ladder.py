@@ -127,8 +127,8 @@ class _LadderStages:
     def __init__(self, ladder: "LadderShardEncoder") -> None:
         self._ladder = ladder
 
-    def stage(self, name: str):
-        return self._ladder._stager.stages.stage(name)
+    def stage(self, name: str, **tags):
+        return self._ladder._stager.stages.stage(name, **tags)
 
     def bump(self, counter: str, n: int = 1) -> None:
         self._ladder._stager.stages.bump(counter, n)
@@ -327,7 +327,7 @@ class LadderShardEncoder:
         from ..parallel.dispatch import background_stage
 
         feed = background_stage(self.stage_waves(frames),
-                                self.decode_ahead)
+                                self.decode_ahead, self.stages)
         bundles: list[LadderGopBundle] = []
         pending: deque = deque()
         try:

@@ -155,6 +155,9 @@ class LocalExecutor:
         # place so failure attribution survives the subclass seam
         stage = ["probe"]
         source = None
+        # the job layer's spans in the job's trace (inert when the job
+        # was sampled out)
+        rec = obs_trace.TRACE.recorder(job.id, host=self.host)
         try:
             settings = co.job_settings(job)
             co.heartbeat_job(job.id, token, stage[0], host=self.host)
@@ -168,12 +171,13 @@ class LocalExecutor:
             # WITHOUT decoding — frames decode wave-by-wave during the
             # encode, so the clip never materializes in host RAM and
             # time-to-first-wave is one wave's decode
-            source = open_video(job.input_path)
-            meta, audio = source.meta, source.audio
-            if not len(source):
-                raise ValueError(f"no frames in {job.input_path}")
-            if not co.mark_running(job.id, token):
-                raise HaltedError("fenced before start")
+            with rec.span("job_open"):
+                source = open_video(job.input_path)
+                meta, audio = source.meta, source.audio
+                if not len(source):
+                    raise ValueError(f"no frames in {job.input_path}")
+                if not co.mark_running(job.id, token):
+                    raise HaltedError("fenced before start")
 
             if getattr(job, "job_type", "transcode") == "ladder":
                 # ABR ladder: rungs encode from ONE staged wave stream
@@ -192,18 +196,22 @@ class LocalExecutor:
 
             stage[0] = "stitch"
             co.heartbeat_job(job.id, token, stage[0], host=self.host)
-            stream = concat_segments(segments)
-            base = os.path.splitext(os.path.basename(job.input_path))[0]
-            out_path = os.path.join(self.output_dir, base + ".mp4")
-            os.makedirs(self.output_dir, exist_ok=True)
-            data = mux_mp4(stream, meta, audio=audio)
-            tmp = f"{out_path}.{job.id}.tmp"    # job-unique: no clobber
-                                                # across same-name jobs
-            with open(tmp, "wb") as fp:
-                fp.write(data)
-            os.replace(tmp, out_path)       # atomic commit
-            co.update_progress(job.id, token, combine_progress=100.0)
-            co.complete_job(job.id, token, out_path, len(data))
+            with rec.span("stitch"):
+                stream = concat_segments(segments)
+            with rec.span("mux"):
+                data = mux_mp4(stream, meta, audio=audio)
+            with rec.span("commit"):
+                base = os.path.splitext(os.path.basename(job.input_path))[0]
+                out_path = os.path.join(self.output_dir, base + ".mp4")
+                os.makedirs(self.output_dir, exist_ok=True)
+                tmp = f"{out_path}.{job.id}.tmp"    # job-unique: no
+                                                    # clobber across
+                                                    # same-name jobs
+                with open(tmp, "wb") as fp:
+                    fp.write(data)
+                os.replace(tmp, out_path)       # atomic commit
+                co.update_progress(job.id, token, combine_progress=100.0)
+                co.complete_job(job.id, token, out_path, len(data))
         except HaltedError:
             pass                            # fenced: a newer run owns the job
         except Exception as exc:            # noqa: BLE001 - attribute & fail
@@ -222,9 +230,11 @@ class LocalExecutor:
         failure attribution."""
         co = self.coordinator
         stage[0] = "segment"
-        enc = self._encoder_factory(meta, settings, self.mesh)
-        self._bind_trace(job, enc)
-        plan = enc.plan(len(frames))
+        with obs_trace.TRACE.recorder(job.id, host=self.host).span(
+                "encoder_build"):
+            enc = self._encoder_factory(meta, settings, self.mesh)
+            self._bind_trace(job, enc)
+            plan = enc.plan(len(frames))
         co.update_progress(job.id, token, parts_total=plan.num_gops,
                            segment_progress=100.0)
         co.heartbeat_job(job.id, token, stage[0], host=self.host,
@@ -533,10 +543,12 @@ class LocalExecutor:
         # default only covers test doubles that lack the attribute
         decode_ahead = int(getattr(enc, "decode_ahead", 0) or 0) \
             or GopShardEncoder.DECODE_AHEAD
+        # the waits for a staged wave land in the encoder's profile as
+        # `await_staged` (and, bound, as spans in the job's trace)
         feed = background_stage(
             enc.stage_waves(frames[start_frame:] if start_frame
                             else frames),
-            decode_ahead)
+            decode_ahead, getattr(enc, "stages", None))
         staged_iter = enumerate(feed)
         segments: list = []
         done = done0

@@ -8,8 +8,16 @@ coordinator (`trace_ring_spans`). Sources:
 - the wave pipeline's stage clocks (`parallel/dispatch.StageProfile`
   calls the bound recorder from every timed stage: decode / stage /
   dispatch / device_wait / fetch / sparse_unpack / unflatten / pack /
-  concat, plus the SFE per-frame leg);
-- the executor's per-wave spans (`wave_dispatch` / `wave_collect`);
+  concat, plus the SFE per-frame leg), and the host's critical path
+  beside them: the driving thread's waits for a staged wave
+  (`await_staged`, tagged `wave`) and for a collected one
+  (`await_collect`), each slice's CAVLC pack on the pack pool
+  (`cavlc`), and the split-frame walk's steps inside `dispatch`
+  (`walk_intra` / `walk_probe` / `walk_p` / `walk_link`, tagged
+  `frame`);
+- the executor's per-wave spans (`wave_dispatch` / `wave_collect`) and
+  its job layer (`job_open` / `encoder_build` / `stitch` / `mux` /
+  `commit`);
 - coordinator-side per-shard spans (ShardBoard lease → accepted part);
 - remote workers: a :class:`SpanBuffer` collects the worker-side spans
   (open_source / encode / upload, plus the worker's own stage clocks)
@@ -23,11 +31,20 @@ carries the trace id in its args; processes map to hosts and threads
 to thread names, so spans nest by containment per thread exactly as
 they executed.
 
+Every span starts on one clock, :func:`_now` (`time.time()`, the clock
+torch.profiler's device events are read on), and takes its duration
+from `perf_counter`, so a device trace lines up with the spans.
+
 Sampling: `trace_sample` (0..1) decides PER JOB at trace start whether
 spans record at all; an unsampled job costs one dict lookup per stage.
 Tracing never touches encoded bytes — output is bit-identical with
-tracing on or off (parity-tested), and the bench pins the fps overhead
-as ``trace_overhead_pct``.
+tracing on or off (parity-tested). Its cost, measured on an H100 80GB
+HBM3 at 700 W (`scripts/host_trace_point.py`, jobs alternating
+`trace_sample` 1 and 0 in one process): a traced 448-frame 1080p job
+keeps ~990 spans, and its wall differs from an untraced one's by less
+than the jobs' own spread (medians 3.67 and 3.61 s, quartiles within
+8%); a 4K split-frame GOP records 99 spans, and its encode with a
+recorder bound reads 0.247 s against 0.259 s without.
 
 torch- and jax-free by contract.
 """

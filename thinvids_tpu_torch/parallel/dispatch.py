@@ -26,7 +26,11 @@ calls (``encoder_factory``).
 Host side, the pipeline is instrumented per stage (StageProfile): every
 wave's source decode / staging (stack + H2D upload) / dispatch / device
 wait / D2H fetch / sparse unpack / unflatten / CAVLC pack / concat
-wall-clock accumulates on the encoder.
+wall-clock, and the CPU time of the thread inside each, accumulates on
+the encoder. So do the waits of the thread that drives the card (for a
+staged wave, `await_staged`; for a collected one, `await_collect`), each
+slice's pack on the pack pool (`cavlc`), the split-frame walk's steps
+(`walk_*`) and the blocking device→host points (`host_syncs`).
 
 Ingest is a pipelined stage: `stage_waves` accepts a streaming source
 (anything with ``iter_frames()``) or a materialized list and holds only
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import logging
 import os
 import threading
@@ -62,6 +67,7 @@ from ..core.devices import DeviceMesh, as_mesh, default_mesh  # noqa: F401
 from ..core.types import (BandPlan, EncodedSegment, Frame, GopSpec,
                           SegmentPlan, VideoMeta, is_yuv420)
 from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..codecs.h264 import torchcore, torchinter, torchme
 from ..codecs.h264.encoder import (FrameLevels, _mode_policy,
                                    gop_slice_thunks_planes, pack_slice,
@@ -80,21 +86,32 @@ _LOG = logging.getLogger(__name__)
 # ---- host-stage wall-clock instrumentation --------------------------------
 
 #: canonical stage keys, in pipeline order (the reference's names; the
-#: stages this single-device encoder never enters stay at 0)
+#: stages this single-device encoder never enters stay at 0), then the
+#: port's own: the driving thread's waits for a staged wave and for a
+#: collected one, one slice's CAVLC pack as it runs on the pack pool,
+#: and the split-frame walk's steps, which nest inside `dispatch`
 STAGE_NAMES = ("decode", "stage", "scale", "dispatch", "device_wait",
                "fetch", "dense_retry", "sparse_unpack", "unflatten",
-               "pack", "concat", "sfe", "halo")
+               "pack", "concat", "sfe", "halo",
+               "await_staged", "await_collect", "cavlc",
+               "walk_intra", "walk_probe", "walk_p", "walk_link")
 
-#: monotonic counters riding in the same snapshot as the stage clocks
+#: monotonic counters riding in the same snapshot as the stage clocks;
+#: `host_syncs` counts the blocking device→host points (_to_host, and
+#: each event _wait synchronizes)
 STAGE_COUNTERS = ("dense_fallback_waves", "h2d_bytes", "d2h_bytes",
-                  "fetch_shards", "proc_pack_gops", "sfe_frames")
+                  "fetch_shards", "proc_pack_gops", "sfe_frames",
+                  "host_syncs")
 
 
 class StageProfile:
     """Thread-safe per-stage wall-clock accumulator for the host half of
     the wave pipeline. Stages overlap across pool threads, so per-stage
     sums can exceed elapsed time — they answer "where do host cycles
-    go", not "what is the critical path".
+    go", not "what is the critical path". Beside each stage's wall
+    time it keeps the CPU time its threads spent running inside it
+    (`time.thread_time`), so a stage's wait on the GIL, a lock or the
+    card shows as wall without CPU.
 
     `mirror` (the process-wide cumulative profile) receives every add
     too, so a job's totals outlive its encoder; reset() only clears THIS
@@ -104,6 +121,7 @@ class StageProfile:
                  metrics: bool = False) -> None:
         self._lock = threading.Lock()
         self._ms = {k: 0.0 for k in STAGE_NAMES}
+        self._cpu_ms = {k: 0.0 for k in STAGE_NAMES}
         self._counts = {k: 0 for k in STAGE_COUNTERS}
         self._waves = 0
         self._mirror = mirror
@@ -129,13 +147,16 @@ class StageProfile:
         that record spans outside a stage() block read this)."""
         return self._tracer
 
-    def add(self, stage: str, seconds: float) -> None:
+    def add(self, stage: str, seconds: float, cpu_s: float = 0.0) -> None:
+        """`seconds` of wall time in `stage`, `cpu_s` of them spent
+        running on the thread's CPU."""
         with self._lock:
             self._ms[stage] = self._ms.get(stage, 0.0) + seconds * 1e3
+            self._cpu_ms[stage] = self._cpu_ms.get(stage, 0.0) + cpu_s * 1e3
         if self._metrics:
             obs_metrics.STAGE_SECONDS.labels(stage).inc(seconds)
         if self._mirror is not None:
-            self._mirror.add(stage, seconds)
+            self._mirror.add(stage, seconds, cpu_s)
 
     def bump(self, counter: str, n: int = 1) -> None:
         """Increment a monotonic counter (STAGE_COUNTERS) by `n`."""
@@ -150,14 +171,20 @@ class StageProfile:
 
     @contextlib.contextmanager
     def stage(self, name: str, **tags):
+        """Time the block as stage `name`: wall (perf_counter) and this
+        thread's CPU (thread_time); with a tracer bound, also a span
+        starting on the trace clock (obs.trace._now). The wall clocks
+        are read innermost, next to each other, so that the span lies
+        on the block."""
         tracer = self._tracer
-        t0_wall = time.time() if tracer is not None else 0.0
+        c0 = time.thread_time()
+        t0_wall = obs_trace._now() if tracer is not None else 0.0
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
-            self.add(name, dt)
+            self.add(name, dt, time.thread_time() - c0)
             if tracer is not None:
                 tracer.record(name, t0_wall, dt, **tags)
 
@@ -170,8 +197,12 @@ class StageProfile:
             self._mirror.count_wave()
 
     def snapshot(self) -> dict:
+        """Wall ms per stage, CPU ms per stage as `cpu.<stage>`, the
+        counters and `waves`: every value a number."""
         with self._lock:
             out = {k: round(v, 2) for k, v in self._ms.items()}
+            out.update({f"cpu.{k}": round(v, 2)
+                        for k, v in self._cpu_ms.items()})
             out.update(self._counts)
             out["waves"] = self._waves
             return out
@@ -180,6 +211,8 @@ class StageProfile:
         with self._lock:
             for k in self._ms:
                 self._ms[k] = 0.0
+            for k in self._cpu_ms:
+                self._cpu_ms[k] = 0.0
             for k in self._counts:
                 self._counts[k] = 0
             self._waves = 0
@@ -273,10 +306,17 @@ class _FrameCursor:
             self._lo += 1
 
 
-def background_stage(staged_waves, decode_ahead: int = 2):
+def background_stage(staged_waves, decode_ahead: int = 2,
+                     profile: StageProfile | None = None):
     """Run a staging generator (stage_waves: source decode + np.stack +
     H2D upload) on its own thread, up to `decode_ahead` staged waves
     ahead of the consumer.
+
+    With `profile`, each of the consumer's pulls is timed there as the
+    `await_staged` stage, tagged `wave=i` with the index of the wave it
+    waits for (the last pull, which finds the stream's end, with the
+    count of waves): the time the card's driving thread sat waiting on
+    ingest.
 
     Each queued wave is ALREADY uploaded: device-side input residency
     is the consumer's in-flight window plus `decode_ahead` (+1 blocked
@@ -316,11 +356,17 @@ def background_stage(staged_waves, decode_ahead: int = 2):
 
     thread = threading.Thread(target=feed, daemon=True, name="tvt-stage")
 
+    def pull(i: int):
+        if profile is None:
+            return q.get()
+        with profile.stage("await_staged", wave=i):
+            return q.get()
+
     def drain():
         thread.start()
         try:
-            while True:
-                item = q.get()
+            for i in itertools.count():
+                item = pull(i)
                 if item is done:
                     return
                 if isinstance(item, BaseException):
@@ -469,18 +515,23 @@ def _join(parts):
     return parts[0] if len(parts) == 1 else Shards(parts)
 
 
-def _to_host(t) -> np.ndarray:
+def _to_host(t, prof: StageProfile) -> np.ndarray:
+    """A device array (or a mesh's Shards) copied to the host: a
+    blocking point, counted once a call in `prof`'s `host_syncs`."""
+    prof.bump("host_syncs")
     if isinstance(t, Shards):
         return np.concatenate([p.cpu().numpy() for p in t])
     return t.cpu().numpy()
 
 
-def _wait(events) -> None:
+def _wait(events, prof: StageProfile) -> None:
     """Host-wait on a done event, or on each of a mesh's (None: the CPU,
-    nothing to wait for)."""
+    nothing to wait for), counting each event waited on in `prof`'s
+    `host_syncs`."""
     for ev in events if isinstance(events, list) else [events]:
         if ev is not None:
             ev.synchronize()
+            prof.bump("host_syncs")
 
 
 def _runs(n: int, d: int) -> list[int]:
@@ -768,7 +819,8 @@ class GopShardEncoder:
         """Stream-encode: source decode + staging run on a background
         thread up to `decode_ahead` waves ahead (background_stage);
         dispatch/collect pipeline on the calling thread."""
-        feed = background_stage(self.stage_waves(frames), self.decode_ahead)
+        feed = background_stage(self.stage_waves(frames), self.decode_ahead,
+                                self.stages)
         try:
             return self.encode_waves(feed)
         finally:
@@ -843,14 +895,15 @@ class GopShardEncoder:
         flight at once on the fetch pool, concatenated in GOP order."""
         pool = self._fetch_pool
         if pool is None:
-            host = [_to_host(a) for a in arrays]
+            host = [_to_host(a, self.stages) for a in arrays]
             self.stages.bump("d2h_bytes", sum(int(a.nbytes) for a in host))
             return host
         futss = []
         for arr in arrays:
             parts = _parts(arr)
             self.stages.bump("fetch_shards", len(parts))
-            futss.append([pool.submit(_to_host, p) for p in parts])
+            futss.append([pool.submit(_to_host, p, self.stages)
+                          for p in parts])
         host = []
         for futs in futss:
             parts = [f.result() for f in futs]
@@ -879,7 +932,7 @@ class GopShardEncoder:
 
         pool = self._fetch_pool
         if pool is None or not isinstance(payload, Shards):
-            host = _to_host(payload[:, :cut(used.max())])
+            host = _to_host(payload[:, :cut(used.max())], self.stages)
             self.stages.bump("d2h_bytes", int(host.nbytes))
             return list(host)
         # one transfer per entry, each cut to its own GOPs' longest use
@@ -889,7 +942,7 @@ class GopShardEncoder:
             n = int(part.shape[0])
             futs.append(pool.submit(
                 lambda d=part, m=cut(used[a:a + n].max()):
-                _to_host(d[:, :m])))
+                _to_host(d[:, :m], self.stages)))
             a += n
         rows: list = []
         for f in futs:
@@ -994,12 +1047,12 @@ class GopShardEncoder:
         # from the bulk D2H fetch in the stage breakdown — and letting
         # a budget overflow skip the bulk sparse fetch entirely.
         with prof.stage("device_wait"):
-            _wait(done)
+            _wait(done, prof)
             if self.inter:
-                tiny = [_to_host(t) for t in (out[2:6] if compact
-                                              else out[2:5])]
+                tiny = [_to_host(t, prof) for t in (out[2:6] if compact
+                                                    else out[2:5])]
             else:
-                tiny = [_to_host(out[0]), _to_host(out[1])]
+                tiny = [_to_host(out[0], prof), _to_host(out[1], prof)]
         prof.bump("d2h_bytes", sum(int(a.nbytes) for a in tiny))
         flat = None
         used = payload_rows = None
@@ -1041,8 +1094,8 @@ class GopShardEncoder:
                     _encode_gop_single_dense if self.inter
                     else _encode_wave_dense, mbw=mbw, mbh=mbh, rd=self.rd)
                 dense, events = self._run_wave(fn, ysd, usd, vsd, qps)
-                _wait(events)
-                flat = _to_host(dense)
+                _wait(events, prof)
+                flat = _to_host(dense, prof)
                 prof.bump("d2h_bytes", int(flat.nbytes))
                 if self.inter:
                     # the dense program re-emits levels only; MVs still
@@ -1118,6 +1171,7 @@ class GopShardEncoder:
                     thunks.append(functools.partial(
                         self._pack_intra_frame, raw, mbw, mbh, gop, fi,
                         gop_qp))
+            thunks = [self._cavlc(t) for t in thunks]
             if pool is None:
                 jobs.append((gop, lambda ts=thunks: [t() for t in ts]))
             else:
@@ -1138,6 +1192,15 @@ class GopShardEncoder:
                 self._release_spool(shm, spools)
         prof.count_wave()
         return segments
+
+    def _cavlc(self, thunk):
+        """`thunk`, one slice's (or band's) pack, timed as the `cavlc`
+        stage on whichever thread runs it: the pack pool's CPU work, which
+        the collecting thread's `pack` and `sfe` stages only wait for."""
+        def run():
+            with self.stages.stage("cavlc"):
+                return thunk()
+        return run
 
     def _pack_intra_frame(self, raw, mbw: int, mbh: int, gop: GopSpec,
                           fi: int, qp: int) -> bytes:
@@ -1194,8 +1257,11 @@ class GopShardEncoder:
             for _ in range(window):
                 if not dispatch_next():
                     break
+            collected = 0
             while pending:
-                segs = pending.pop(0).result()
+                with self.stages.stage("await_collect", wave=collected):
+                    segs = pending.pop(0).result()
+                collected += 1
                 dispatch_next()
                 segments.extend(segs)
         return segments
@@ -1580,42 +1646,51 @@ class SfeShardEncoder(GopShardEncoder):
         edges = [(r == 0 and top, r == E - 1 and bot) for r in range(E)]
         kw = dict(mbw=bp.mb_width, mbh_band=bp.band_mb_rows, rd=self.rd,
                   dense=dense, defer_deblock=self.rd.deblock)
+        step = self.stages.stage
         carry = ext = pred = hist = None
         for fi in range(nf):
             if fi == 0:
-                levels, carry = zip(*self.on_entries(
-                    lambda r: _sfe_intra_step(ys[r][0], us[r][0], vs[r][0],
-                                              qp, rows[r], **kw)))
+                with step("walk_intra", frame=fi):
+                    levels, carry = zip(*self.on_entries(
+                        lambda r: _sfe_intra_step(ys[r][0], us[r][0],
+                                                  vs[r][0], qp, rows[r],
+                                                  **kw)))
                 db_in = [()] * E
             else:
-                cost = self._sum(self.on_entries(lambda r: _sfe_probe_step(
-                    ys[r][fi], carry[r][0], rows[r], ext[r][0], ext[r][1],
-                    edges[r])))
-                if link is not None:
-                    cost = link.probe(fi, cost)
-                probe = self._to_all(torchme.probe_center_t(cost))
-                levels, hists, carry, db_in = zip(*self.on_entries(
-                    lambda r: _sfe_p_step(
-                        ys[r][fi], us[r][fi], vs[r][fi], carry[r], pred[r],
-                        probe[r], ext[r], qp, rows[r], edges[r],
-                        halo_rows=self.halo_rows, **kw)))
-                hist = tuple(self._sum(list(p)) for p in zip(*hists))
+                with step("walk_probe", frame=fi):
+                    cost = self._sum(self.on_entries(
+                        lambda r: _sfe_probe_step(
+                            ys[r][fi], carry[r][0], rows[r], ext[r][0],
+                            ext[r][1], edges[r])))
+                    if link is not None:
+                        cost = link.probe(fi, cost)
+                    probe = self._to_all(torchme.probe_center_t(cost))
+                with step("walk_p", frame=fi):
+                    levels, hists, carry, db_in = zip(*self.on_entries(
+                        lambda r: _sfe_p_step(
+                            ys[r][fi], us[r][fi], vs[r][fi], carry[r],
+                            pred[r], probe[r], ext[r], qp, rows[r],
+                            edges[r], halo_rows=self.halo_rows, **kw)))
+                    hist = tuple(self._sum(list(p)) for p in zip(*hists))
             if self.rd.deblock:
                 carry = self._deblock_runs(carry, db_in, qp)
             events = [self._event(r) for r in range(E)]
             yield (tuple(_join(list(p)) for p in zip(*levels)), carry, hist,
                    events)
             if fi < nf - 1:
-                ext = self._run_edges(
-                    carry, None if link is None else link.edges(fi + 1))
-                if hist is None:
-                    pred = self._to_all(torch.zeros(
-                        2, dtype=torch.int32, device=self.device))
-                else:
-                    total = hist if link is None else link.median(fi + 1,
-                                                                  *hist)
-                    pred = self._to_all(torchme.median_from_counts_t(
-                        *total, 2 * torchme.SEARCH_RANGE))
+                # the next frame's inputs: the edge rows and the median
+                # prediction (tagged with the frame they feed)
+                with step("walk_link", frame=fi + 1):
+                    ext = self._run_edges(
+                        carry, None if link is None else link.edges(fi + 1))
+                    if hist is None:
+                        pred = self._to_all(torch.zeros(
+                            2, dtype=torch.int32, device=self.device))
+                    else:
+                        total = hist if link is None else link.median(
+                            fi + 1, *hist)
+                        pred = self._to_all(torchme.median_from_counts_t(
+                            *total, 2 * torchme.SEARCH_RANGE))
 
     def _recv(self, t, src: int, dst: int):
         """Entry `src`'s tensor `t` on entry `dst`'s device: `t` itself on
@@ -1769,6 +1844,7 @@ class SfeShardEncoder(GopShardEncoder):
             first_mb=band.start_mb_row * mbw, deblock=self.rd.deblock)
 
     def _gather_frame(self, thunks: list) -> list[bytes]:
+        thunks = [self._cavlc(t) for t in thunks]
         pool = self._pack_pool
         if pool is None:
             return [t() for t in thunks]
@@ -1792,15 +1868,15 @@ class SfeShardEncoder(GopShardEncoder):
         obs_metrics.SFE_FRAME_SECONDS.observe(gap)
         tracer = self.stages.tracer()
         if tracer is not None:
-            tracer.record("sfe_frame", time.time() - gap, gap,
+            tracer.record("sfe_frame", obs_trace._now() - gap, gap,
                           frame=frame_index)
 
     def _keep_recon(self, carry, frame_index: int) -> None:
         """Fetch a frame's recon from each run's carry (ry, ru, rv)."""
         h, w = self.meta.height, self.meta.width
         self.recon_frames[frame_index] = tuple(
-            _to_host(p).reshape(-1, p.shape[-1])[:rows, :cols].astype(
-                np.uint8)
+            _to_host(p, self.stages).reshape(-1, p.shape[-1])[:rows, :cols]
+            .astype(np.uint8)
             for p, rows, cols in zip((_join(list(q)) for q in zip(*carry)),
                                      (h, h // 2, h // 2),
                                      (w, w // 2, w // 2)))
@@ -1834,8 +1910,8 @@ class SfeShardEncoder(GopShardEncoder):
         for fi, out in enumerate(outs):
             head, nblk, nval, n_esc, used, payload = out
             with prof.stage("device_wait"):
-                _wait(events[fi])
-                tiny = [_to_host(t) for t in (nblk, nval, n_esc, used)]
+                _wait(events[fi], prof)
+                tiny = [_to_host(t, prof) for t in (nblk, nval, n_esc, used)]
             prof.bump("d2h_bytes", sum(int(a.nbytes) for a in tiny))
             if int(tiny[2].max()) > 0:
                 dense_from = fi         # escape: rerun the GOP dense
@@ -1925,7 +2001,7 @@ class SfeShardEncoder(GopShardEncoder):
         _, ys, us, vs, qp = staged
         for fi, (levels, carry, _, events) in enumerate(self._walk(
                 gop.num_frames, ys, us, vs, qp, dense=True, link=link)):
-            _wait(events)
+            _wait(events, self.stages)
             head, flat = (None, levels[0]) if fi == 0 else levels
             yield fi, head, flat, carry
 

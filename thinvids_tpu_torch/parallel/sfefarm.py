@@ -86,7 +86,7 @@ class _Exchange:
         blob = None
         if hist is not None:
             with self._timed("device_wait"):
-                cnt, n = (_to_host(t) for t in hist)
+                cnt, n = (_to_host(t, self.enc.stages) for t in hist)
             n = int(n.reshape(-1)[0])
             self.local_hist[fi] = (cnt.astype(np.int64), n)
             blob = {"cnt": cnt.astype(np.int32),
@@ -108,7 +108,7 @@ class _Exchange:
         """The runs' probe cost total plus the peers' (int32)."""
         if self.live:
             with self._timed("device_wait"):
-                cost_h = _to_host(cost).astype(np.int32)
+                cost_h = _to_host(cost, self.enc.stages).astype(np.int32)
             with self._timed("halo"):
                 self.record["probe", fi] = self.sess.sum_probe(
                     self.seq0 + fi, cost_h)
@@ -196,7 +196,7 @@ class FarmBandEncoder(SfeShardEncoder):
         def fetch(y, u, v) -> dict:
             with self.stages.stage("fetch"):
                 flat = _to_host(torch.cat([y.reshape(-1), u.reshape(-1),
-                                           v.reshape(-1)]))
+                                           v.reshape(-1)]), self.stages)
             ny, nc = halo * W, hc * (W // 2)
             return {"y": flat[:ny].reshape(halo, W).astype(np.int16),
                     "u": flat[ny:ny + nc].reshape(hc, W // 2)
@@ -246,7 +246,8 @@ class FarmBandEncoder(SfeShardEncoder):
                 link.publish(fi, carry, hist)
             head, nblk, nval, n_esc, used, payload = levels
             with self.stages.stage("device_wait"):
-                tiny = [_to_host(t) for t in (nblk, nval, n_esc, used)]
+                tiny = [_to_host(t, self.stages)
+                        for t in (nblk, nval, n_esc, used)]
             self.stages.bump("d2h_bytes",
                              sum(int(a.nbytes) for a in tiny))
             if dense_from is None and int(tiny[2].max()) > 0:
