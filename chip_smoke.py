@@ -314,6 +314,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
               stream of 16 iid-noise frames at 64x48 (gop 2, qp 27)
               must equal H264Encoder(use_device=False)'s frames in the
               8-wide GOP plan, SPS/PPS at each GOP head.
+20. staging — after phase 19, GOP staging on the card: the films cell's
+              clip (448 seeded 1080p frames, tvbench/content.py, GOPs of
+              32, 4 a wave) staged by GopShardEncoder.prepare_waves (each
+              frame read straight into a reused pinned GOP slot, padded
+              there and copied to the card), twice (cold, then warm
+              slots), and by the plain chain (Frame.padded, np.stack per
+              GOP and per wave, pinned upload): every wave's device
+              tensors equal bit for bit. Prints staging ms a frame (wall
+              and CPU), the `stage_slot_wait` ms, the share of frames read
+              straight into a slot (must be 1). Then one LocalExecutor
+              job each way: the same MP4, which must equal the parent
+              commit's (FILMS_JOB_PARENT) where that is set.
 
 Before the last line it prints one JSON object of kernel records and the
 card's name and power limit; the last line is the device JSON object.
@@ -4379,6 +4391,182 @@ def spec_phase(dev, card: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
 
 
+# ---- phase 20 ------------------------------------------------------------
+
+#: the films cell's clip (tvbench/traffic/films.json and its
+#: configuration): 448 seeded 1080p frames, GOPs of 32, 4 GOPs a wave
+FILMS_CLIP = {"seed": 2718281828, "width": 1920, "height": 1080,
+              "frames": 448}
+#: (length, sha256) of the MP4 that commit e945b7c's LocalExecutor (its
+#: staging: pad, stack, stack, pinned upload) writes for FILMS_CLIP on an
+#: NVIDIA H100 80GB HBM3
+FILMS_JOB_PARENT = (9016164, "8a6dee9e9e35f472d44e6ba79794dc91"
+                           "71b6cb041e92ba70f0fb00f3de687b79")
+
+
+def _films_settings():
+    from thinvids_tpu_torch.core.config import DEFAULT_SETTINGS, Settings
+
+    return Settings(values=dict(
+        DEFAULT_SETTINGS, qp=27, gop_frames=32, rc_mode="cqp",
+        mode_decision=False, pskip=False, deblock=False, aq_strength=0.0,
+        sfe_bands=0, job_type="transcode", min_idle_workers=0))
+
+
+def _write_films_clip(path: str) -> None:
+    from tvbench.content import Scene
+
+    c = FILMS_CLIP
+    scene = Scene(c["seed"], c["width"], c["height"])
+    with open(path, "wb") as fp:
+        fp.write(f"YUV4MPEG2 W{c['width']} H{c['height']} F30:1 Ip A1:1 "
+                 f"C420jpeg\n".encode())
+        for i in range(c["frames"]):
+            fp.write(b"FRAME\n")
+            for plane in scene.planes(i):
+                fp.write(np.ascontiguousarray(plane).tobytes())
+
+
+def _plain_stage_waves(enc, frames):
+    """The staging chain that GOP buffers replaced, for a one-entry
+    encoder: every frame Frame.padded(16), each GOP's planes stacked and
+    tail-repeated to the wave's F, the wave's GOPs stacked, and the stack
+    copied to pinned memory and uploaded."""
+    it = iter(frames)
+    gops = list(enc.plan(len(frames)).gops)
+    for s in range(0, len(gops), enc.gops_per_wave):
+        wave = gops[s:s + enc.gops_per_wave]
+        F = max(g.num_frames for g in wave)
+        stacks = {p: [] for p in "yuv"}
+        for g in wave:
+            padded = [next(it).padded(16) for _ in range(g.num_frames)]
+            for p in "yuv":
+                arrs = [getattr(f, p) for f in padded]
+                stacks[p].append(np.stack(arrs + [arrs[-1]] * (F - len(arrs))))
+        up = [torch.from_numpy(np.stack(stacks[p])) for p in "yuv"]
+        if enc.device.type == "cuda":
+            up = [t.pin_memory().to(enc.device, non_blocking=True)
+                  for t in up]
+        qps = np.asarray([enc.gop_qp.get(g.index, enc.qp) for g in wave],
+                         np.int32)
+        yield (wave, *up, qps)
+
+
+def _films_job(tmp: str, path: str, name: str, plain: bool,
+               device: str = "cuda") -> tuple[bytes, dict, float]:
+    """One job on the clip through Coordinator.add_job and a synchronous
+    LocalExecutor on the card, as the films cell runs it: (MP4 bytes,
+    the encoder's stage snapshot, seconds)."""
+    from thinvids_tpu_torch.cluster.coordinator import (Coordinator,
+                                                        WorkerRegistry)
+    from thinvids_tpu_torch.cluster.executor import LocalExecutor
+    from thinvids_tpu_torch.ingest.probe import probe_video
+    from thinvids_tpu_torch.parallel.dispatch import make_shard_encoder
+
+    built = []
+
+    def factory(meta, settings, mesh):
+        enc = make_shard_encoder(meta, settings, mesh, device=device)
+        if plain:
+            enc.stage_waves = functools.partial(_plain_stage_waves, enc)
+        built.append(enc)
+        return enc
+
+    snap = _films_settings()
+    registry = WorkerRegistry()
+    coord = Coordinator(registry=registry, settings_fn=lambda: snap)
+    execu = LocalExecutor(coord, os.path.join(tmp, name), sync=True,
+                          device=device, encoder_factory=factory)
+    coord._launcher = execu.launch
+    registry.heartbeat(execu.host, metrics={"devices": 1})
+    t0 = time.perf_counter()
+    job = coord.store.get(coord.add_job(path, probe_video(path)).id)
+    secs = time.perf_counter() - t0
+    check(job.output_path and os.path.exists(job.output_path),
+          f"films job ({name}) failed: {job.failure_reason}")
+    with open(job.output_path, "rb") as fp:
+        return fp.read(), built[0].stages.snapshot(), secs
+
+
+def _sync(device: str) -> None:
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def staging_phase(tmp: str, device: str = "cuda") -> dict:
+    """GOP staging on the card: the films clip staged by stage_waves (each
+    frame read once into a pinned GOP slot) and by the plain chain; every
+    wave's device tensors equal bit for bit. Then one LocalExecutor job
+    each way: the same MP4, the parent commit's (FILMS_JOB_PARENT)."""
+    from thinvids_tpu_torch.ingest.decode import open_video
+    from thinvids_tpu_torch.parallel.dispatch import make_shard_encoder
+
+    path = os.path.join(tmp, "films.y4m")
+    _write_films_clip(path)
+    n = FILMS_CLIP["frames"]
+    out: dict = {}
+    with open_video(path) as src:
+        enc = make_shard_encoder(src.meta, _films_settings(), None,
+                                 device=device)
+        for rep in ("cold", "warm"):
+            enc.stages.reset()
+            _sync(device)
+            t0 = time.perf_counter()
+            _plan, waves = enc.prepare_waves(src)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            s = enc.stages.snapshot()
+            out[rep] = {
+                "wall_ms_per_frame": 1e3 * wall / n,
+                "decode_stage_ms_per_frame": (s["decode"] + s["stage"]) / n,
+                "cpu_ms_per_frame": (s["cpu.decode"] + s["cpu.stage"]) / n,
+                "stage_slot_wait_ms": s["stage_slot_wait"],
+                "direct_share": s["staged_direct_frames"] / n,
+                "copied": s["staged_copied_frames"],
+                "h2d_bytes": s["h2d_bytes"]}
+            if rep == "cold":
+                del waves
+        t0 = time.perf_counter()
+        plain = list(_plain_stage_waves(enc, src))
+        _sync(device)
+        out["plain_wall_ms_per_frame"] = 1e3 * (time.perf_counter() - t0) / n
+    check(len(plain) == len(waves) == 4, "films: want 4 staged waves")
+    for i, (a, b) in enumerate(zip(waves, plain)):
+        check(a[0] == b[0], f"films wave {i}: another GOP list")
+        for name, x, y in zip("yuv", a[1:4], b[1:4]):
+            check(x.device == y.device and x.dtype == y.dtype
+                  and x.shape == y.shape and torch.equal(x, y),
+                  f"films wave {i}: plane {name} differs from the plain "
+                  "chain's")
+        check(np.array_equal(a[4], b[4]), f"films wave {i}: QPs differ")
+    check(out["warm"]["direct_share"] == 1.0 and out["warm"]["copied"] == 0,
+          "films: a frame was not read straight into its slot")
+    print(f"staging films {FILMS_CLIP['width']}x{FILMS_CLIP['height']} "
+          f"x{n} on {device}: {json.dumps(out)}", flush=True)
+    del waves, plain
+    jobs = {}
+    for name, plain in (("gop_slots", False), ("plain_chain", True)):
+        mp4, snap, secs = _films_job(tmp, path, name, plain, device)
+        jobs[name] = mp4
+        print(f"staging films job {name}: MP4 {len(mp4)} bytes, sha256 "
+              f"{hashlib.sha256(mp4).hexdigest()}, {secs:.3f} s, "
+              f"direct {snap['staged_direct_frames']}, copied "
+              f"{snap['staged_copied_frames']}, stage_slot_wait "
+              f"{snap['stage_slot_wait']} ms", flush=True)
+        if not plain:
+            check(snap["staged_direct_frames"] == n
+                  and snap["staged_copied_frames"] == 0,
+                  "films job: a frame was not read straight into its slot")
+    check(jobs["gop_slots"] == jobs["plain_chain"],
+          "films job: the MP4 differs from the plain chain's")
+    if FILMS_JOB_PARENT is not None:
+        mp4 = jobs["gop_slots"]
+        check((len(mp4), hashlib.sha256(mp4).hexdigest())
+              == FILMS_JOB_PARENT,
+              "films job: the MP4 differs from the parent commit's")
+    return out
+
+
 # ---- phase 15 ------------------------------------------------------------
 
 def parity_phase() -> None:
@@ -4475,6 +4663,9 @@ def main() -> int:
     checked = check_phase(main, card)
     phase("19 spec")
     spec_phase(dev, card)
+    phase("20 staging")
+    with tempfile.TemporaryDirectory(prefix="tvt-smoke-") as tmp:
+        staging_phase(tmp)
     for rec in recs:
         rec["banded"] = dict(banded[rec["name"]],
                              launches=sfe["launches"][rec["name"]])

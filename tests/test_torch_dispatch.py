@@ -57,10 +57,12 @@ def _noise_clip(n, w, h, seed=0):
 
 #: the stage snapshot's keys that the port adds to the reference's: its
 #: own stages (the driving thread's waits, the pack pool's CAVLC, the
-#: split-frame walk's steps), the CPU time of every stage, and the
-#: count of blocking device→host points
+#: split-frame walk's steps, the wait for a free GOP slot), the CPU time
+#: of every stage, the count of blocking device→host points and the
+#: counts of frames staged by each route
 PORT_KEYS = ({"await_staged", "await_collect", "cavlc", "walk_intra",
-              "walk_probe", "walk_p", "walk_link", "host_syncs"}
+              "walk_probe", "walk_p", "walk_link", "stage_slot_wait",
+              "host_syncs", "staged_direct_frames", "staged_copied_frames"}
              | {f"cpu.{k}" for k in tdispatch.STAGE_NAMES})
 
 

@@ -56,6 +56,12 @@ class FrameSource:
         needs. Restartable: every call opens its own decode cursor."""
         raise NotImplementedError
 
+    def direct_reader(self, start: int = 0, stop: int | None = None):
+        """A reader that puts frame ``start + i`` of ``[start, stop)``
+        straight into caller buffers (:class:`_RangeReader`; close it),
+        or None: this source cannot read a frame at a known offset."""
+        return None
+
     def close(self) -> None:
         """Release any persistent resources (sources keep no open file
         handles between iterations, so this is best-effort hygiene)."""
@@ -110,6 +116,12 @@ class _FrameWindow:
                                                  self._start + stop)
         return self._source.iter_frames(lo, hi)
 
+    def direct_reader(self, start: int = 0, stop: int | None = None):
+        lo = self._start + max(0, start)
+        hi = self._stop if stop is None else min(self._stop,
+                                                 self._start + stop)
+        return self._source.direct_reader(lo, hi)
+
     def __iter__(self) -> Iterator[Frame]:
         return self.iter_frames()
 
@@ -143,6 +155,39 @@ class _Y4MFrameSource(FrameSource):
         for frame in self._reader.read_range(max(0, start), stop):
             self.frames_decoded += 1
             yield frame
+
+    def direct_reader(self, start: int = 0, stop: int | None = None):
+        start = max(0, start)
+        stop = len(self) if stop is None else min(stop, len(self))
+        return _RangeReader(self, self._reader.frame_reader(), start,
+                            max(start, stop))
+
+
+class _RangeReader:
+    """Frames ``[start, stop)`` of a source read into caller buffers
+    (an io reader's ``read_into``), indexed from ``start`` and counted
+    in the source's ``frames_decoded``. ``shapes`` are the file's plane
+    shapes, ``chroma`` its chroma format."""
+
+    def __init__(self, source: FrameSource, reader, start: int,
+                 stop: int) -> None:
+        self._source = source
+        self._reader = reader
+        self._start = start
+        self.num_frames = stop - start
+        self.shapes = reader.shapes
+        self.chroma = reader.chroma
+
+    def read_into(self, i: int, planes) -> None:
+        if not 0 <= i < self.num_frames:
+            raise ValueError(
+                f"frame stream ended at {self.num_frames}, but the wave "
+                f"plan needs frame {i}")
+        self._reader.read_into(self._start + i, planes)
+        self._source.frames_decoded += 1
+
+    def close(self) -> None:
+        self._reader.close()
 
 
 class _Mp4FrameSource(FrameSource):

@@ -228,6 +228,63 @@ class Y4MRangeReader:
                         else (None, None))
                 yield Frame(y, u, v, pts=idx)
 
+    def frame_reader(self) -> "Y4MFrameReader":
+        """A reader of single frames straight into caller buffers, on a
+        file handle of its own (close it)."""
+        return Y4MFrameReader(self)
+
+
+class Y4MFrameReader:
+    """Frame `i` of a :class:`Y4MRangeReader`'s file read into the
+    caller's plane buffers, one ``os.preadv`` a frame: the marker and
+    every plane whose rows are contiguous in its buffer land in place;
+    the others go through one reused scratch buffer and a strided copy.
+    The per-frame marker check and the truncation error are
+    `read_range`'s."""
+
+    def __init__(self, source: Y4MRangeReader) -> None:
+        self.path = source.path
+        self.shapes = list(source._shapes)
+        self.chroma = source._header.chroma
+        self.num_frames = source.num_frames
+        self._start = source._data_start
+        self._record = source._record
+        self._marker = bytearray(len(Y4MRangeReader._MARKER))
+        self._scratch = bytearray(sum(h * w for h, w in self.shapes))
+        self._fd = os.open(self.path, os.O_RDONLY)
+
+    def read_into(self, idx: int, planes) -> None:
+        """Frame `idx`'s planes, in file order, into the top-left corner
+        of each array of `planes` (2-D uint8, at least the plane's
+        size); fewer arrays than planes read only those."""
+        iov, copies, off = [self._marker], [], 0
+        for (h, w), dst in zip(self.shapes, planes):
+            view = dst[:h, :w]
+            if view.flags.c_contiguous:
+                iov.append(view)
+            else:
+                iov.append(memoryview(self._scratch)[off:off + h * w])
+                copies.append((view, off, h, w))
+            off += h * w
+        got = os.preadv(self._fd, iov,
+                        self._start + idx * self._record)
+        if got < len(self._marker) or self._marker != Y4MRangeReader._MARKER:
+            raise ValueError(
+                f"{self.path}: frame {idx} marker "
+                f"{bytes(self._marker[:max(0, got)])!r} is not a bare "
+                f"FRAME record (parameterized y4m frame headers are "
+                f"unsupported for range reads)")
+        if got != len(self._marker) + off:
+            raise EOFError("truncated y4m frame payload")
+        for view, o, h, w in copies:
+            view[...] = np.frombuffer(self._scratch, np.uint8, h * w,
+                                      o).reshape(h, w)
+
+    def close(self) -> None:
+        if self._fd >= 0:
+            os.close(self._fd)
+            self._fd = -1
+
 
 def read_y4m(path: str | os.PathLike) -> tuple[VideoMeta, list[Frame]]:
     with open(path, "rb") as fp:

@@ -1,7 +1,8 @@
 """GOP wave dispatch on one device: closed GOPs encoded in waves, levels
 fetched compactly, slices entropy-packed on the host.
 
-A wave of GOPs is staged (frames stacked into (G, F, H, W) arrays and
+A wave of GOPs is staged (each frame written once into its place in a
+(G, F, H, W) wave, through a reused pinned GOP buffer on a card, and
 uploaded), dispatched (each GOP's IDR + P compute and device-side
 transfer pack, torchinter.encode_gop_planes + torchcore's two-tier
 sparse pack folded into one byte payload), and collected on a collector
@@ -24,19 +25,21 @@ from the settings snapshot (core/config) in the reference's order, and
 calls (``encoder_factory``).
 
 Host side, the pipeline is instrumented per stage (StageProfile): every
-wave's source decode / staging (stack + H2D upload) / dispatch / device
+wave's source decode / staging (pad + H2D upload) / dispatch / device
 wait / D2H fetch / sparse unpack / unflatten / CAVLC pack / concat
 wall-clock, and the CPU time of the thread inside each, accumulates on
 the encoder. So do the waits of the thread that drives the card (for a
 staged wave, `await_staged`; for a collected one, `await_collect`), each
 slice's pack on the pack pool (`cavlc`), the split-frame walk's steps
-(`walk_*`) and the blocking device→host points (`host_syncs`).
+(`walk_*`), the blocking device→host points (`host_syncs`) and the
+staging thread's waits for a free GOP slot (`stage_slot_wait`).
 
 Ingest is a pipelined stage: `stage_waves` accepts a streaming source
-(anything with ``iter_frames()``) or a materialized list and holds only
-the current wave's decoded frames (a sliding _FrameCursor window), and
-:func:`background_stage` runs the decode→stack→upload chain on a staging
-thread up to `decode_ahead` waves ahead of dispatch.
+(anything with ``iter_frames()``, read straight into the GOP buffers
+where it has ``direct_reader()``) or a materialized list and holds no
+decoded frame beyond the one it copies, and :func:`background_stage`
+runs the read→pad→upload chain on a staging thread up to `decode_ahead`
+waves ahead of dispatch.
 
 Split-frame encoding (:class:`SfeShardEncoder`, ``sfe_bands > 0``) is
 the single-stream latency mode: every frame is cut into MB-row bands,
@@ -89,19 +92,24 @@ _LOG = logging.getLogger(__name__)
 #: stages this single-device encoder never enters stay at 0), then the
 #: port's own: the driving thread's waits for a staged wave and for a
 #: collected one, one slice's CAVLC pack as it runs on the pack pool,
-#: and the split-frame walk's steps, which nest inside `dispatch`
+#: the split-frame walk's steps, which nest inside `dispatch`, and the
+#: staging thread's wait for a reused GOP slot's copy to complete
 STAGE_NAMES = ("decode", "stage", "scale", "dispatch", "device_wait",
                "fetch", "dense_retry", "sparse_unpack", "unflatten",
                "pack", "concat", "sfe", "halo",
                "await_staged", "await_collect", "cavlc",
-               "walk_intra", "walk_probe", "walk_p", "walk_link")
+               "walk_intra", "walk_probe", "walk_p", "walk_link",
+               "stage_slot_wait")
 
 #: monotonic counters riding in the same snapshot as the stage clocks;
 #: `host_syncs` counts the blocking device→host points (_to_host, and
-#: each event _wait synchronizes)
+#: each event _wait synchronizes); `staged_direct_frames` and
+#: `staged_copied_frames` the frames GOP staging read straight from the
+#: source into their buffer and copied there from a decoded Frame
 STAGE_COUNTERS = ("dense_fallback_waves", "h2d_bytes", "d2h_bytes",
                   "fetch_shards", "proc_pack_gops", "sfe_frames",
-                  "host_syncs")
+                  "host_syncs", "staged_direct_frames",
+                  "staged_copied_frames")
 
 
 class StageProfile:
@@ -254,7 +262,7 @@ def frame_latency_percentiles() -> dict:
 
 
 class _FrameCursor:
-    """Sliding decoded-frame window for wave staging.
+    """Sliding decoded-frame window for split-frame staging.
 
     Pulls frames on demand from a materialized list or a streaming
     source (anything exposing ``iter_frames()``), pads them to
@@ -306,10 +314,155 @@ class _FrameCursor:
             self._lo += 1
 
 
+def _not_420(chroma) -> ValueError:
+    return ValueError(f"GopShardEncoder supports only 4:2:0 input, got "
+                      f"{chroma.name}; convert before encoding")
+
+
+class _DirectRead:
+    """GOP staging's direct route: frame i read straight from the source
+    into its GOP buffer (a source's ``direct_reader``: io/y4m's one
+    ``preadv`` a frame), each read timed as `decode`."""
+
+    counter = "staged_direct_frames"
+
+    def __init__(self, reader, profile: StageProfile,
+                 require_420: bool) -> None:
+        if require_420 and reader.chroma.name != "YUV420":
+            reader.close()
+            raise _not_420(reader.chroma)
+        self._reader = reader
+        self._profile = profile
+        self.shapes = list(reader.shapes)
+
+    def read(self, i: int, planes) -> None:
+        with self._profile.stage("decode"):
+            self._reader.read_into(i, planes)
+
+    def close(self) -> None:
+        self._reader.close()
+
+
+class _FramePull:
+    """GOP staging's copy route: frames pulled in order from a
+    materialized list or a streaming source (``iter_frames()``), each
+    pull and its one copy into the GOP buffer timed as `decode`.
+    ``shapes`` are the first frame's planes; every frame must match."""
+
+    counter = "staged_copied_frames"
+
+    def __init__(self, frames, profile: StageProfile, require_420: bool,
+                 stats: dict) -> None:
+        iter_fn = getattr(frames, "iter_frames", None)
+        self._it = iter_fn() if iter_fn is not None else iter(frames)
+        self._profile = profile
+        self._require_420 = require_420
+        self._stats = stats
+        self._pos = 0            # frames taken off the stream
+        self._ahead = None       # frame `_pos`, pulled early for `shapes`
+        self._shapes = None
+
+    def _pull(self, i: int):
+        if self._ahead is None:
+            try:
+                f = next(self._it)
+            except StopIteration:
+                raise ValueError(
+                    f"frame stream ended at {self._pos}, but the wave "
+                    f"plan needs frame {i}") from None
+            if self._require_420 and not is_yuv420(f):
+                raise _not_420(f.chroma)
+            self._stats["peak_resident_frames"] = 1
+            self._ahead = f
+        return self._ahead
+
+    @property
+    def shapes(self) -> list[tuple[int, int]]:
+        if self._shapes is None:
+            with self._profile.stage("decode"):
+                f = self._pull(self._pos)
+            self._shapes = [p.shape for p in (f.y, f.u, f.v)
+                            if p is not None]
+        return self._shapes
+
+    def read(self, i: int, planes) -> None:
+        if i < self._pos:
+            raise IndexError(f"frame {i} already released (the stream is "
+                             f"at frame {self._pos})")
+        with self._profile.stage("decode"):
+            while True:
+                f = self._pull(i)
+                self._ahead = None
+                self._pos += 1
+                if self._pos > i:
+                    break
+            for dst, plane, shape in zip(planes, (f.y, f.u, f.v),
+                                         self.shapes):
+                if plane.shape != shape:
+                    raise ValueError(
+                        f"frame {i}: plane {plane.shape}, where the "
+                        f"stream's first frame has {shape}")
+                dst[:shape[0], :shape[1]] = plane
+
+    def close(self) -> None:
+        pass
+
+
+class _Slot:
+    """One GOP's host buffers: a (frames, h, w) array per plane (`host`),
+    the pinned tensors they view (`pinned`), and the events recorded
+    behind the copies out of them still to complete (`events`)."""
+
+    __slots__ = ("host", "pinned", "events")
+
+    def __init__(self, host, pinned=None) -> None:
+        self.host = host
+        self.pinned = pinned
+        self.events: list = []
+
+
+def _pinned_slot(shapes, frames: int) -> _Slot:
+    """A slot of `frames` frames of each plane shape, in one pinned
+    allocation (PyTorch's caching host allocator: a later job's slots
+    reuse it)."""
+    sizes = [frames * h * w for h, w in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True)
+    offs = np.cumsum([0] + sizes).tolist()
+    pinned = [buf[a:b].view(frames, h, w)
+              for a, b, (h, w) in zip(offs, offs[1:], shapes)]
+    return _Slot([t.numpy() for t in pinned], pinned)
+
+
+class _SlotRing:
+    """`depth` slots handed out round robin, each made on its first use
+    (`make`). A slot is handed out again only after every event recorded
+    behind the copies out of it has completed; that wait is timed as
+    the `stage_slot_wait` stage of `profile`."""
+
+    def __init__(self, depth: int, make, profile: StageProfile) -> None:
+        self._slots: list = [None] * int(depth)
+        self._make = make
+        self._profile = profile
+        self._next = 0
+
+    def take(self) -> _Slot:
+        k = self._next
+        self._next = (k + 1) % len(self._slots)
+        slot = self._slots[k]
+        if slot is None:
+            slot = self._slots[k] = self._make()
+        elif slot.events:
+            with self._profile.stage("stage_slot_wait"):
+                for ev in slot.events:
+                    ev.synchronize()
+            slot.events.clear()
+        return slot
+
+
 def background_stage(staged_waves, decode_ahead: int = 2,
                      profile: StageProfile | None = None):
-    """Run a staging generator (stage_waves: source decode + np.stack +
-    H2D upload) on its own thread, up to `decode_ahead` staged waves
+    """Run a staging generator (stage_waves: source read + pad + H2D
+    upload) on its own thread, up to `decode_ahead` staged waves
     ahead of the consumer.
 
     With `profile`, each of the consumer's pulls is timed there as the
@@ -713,12 +866,6 @@ class GopShardEncoder:
             arr[(slice(None),) * axis + (slice(a, b),)]), i)
             for i, (a, b) in enumerate(runs)])
 
-    def _upload_runs(self, arr: np.ndarray):
-        """A (G, ...) host stack → entry i's contiguous run of G/D rows
-        on entry i's device (the lone tensor on one entry)."""
-        offs = np.cumsum([0] + _runs(arr.shape[0], self.num_devices))
-        return self._upload_split(arr, zip(offs[:-1], offs[1:]))
-
     def _event(self, entry: int = 0):
         """An event recorded on entry `entry`'s current stream after its
         last enqueued kernel (None on the CPU)."""
@@ -750,65 +897,125 @@ class GopShardEncoder:
         return joined, [r[1] for r in res]
 
     def stage_waves(self, frames):
-        """Host-side staging generator: stack frames into per-wave
-        (G, F, H, W) device arrays, lazily, one wave per iteration, so a
-        long clip never pins more than the pipeline window of waves on
-        the device. The per-GOP QPs stay on the host (G,) int32."""
-        for wave, full, F, cursor in self._wave_groups(frames,
-                                                       require_420=True):
-            # prefetch the wave's frames OUTSIDE the "stage" timer so
-            # the breakdown keeps decode (source pull) and stage
-            # (stack + H2D) disjoint
-            cursor.get(wave[-1].end_frame - 1)
-            with self.stages.stage("stage"):
-                ys = np.stack([self._gop_plane(cursor, g, F, "y")
-                               for g in full])
-                us = np.stack([self._gop_plane(cursor, g, F, "u")
-                               for g in full])
-                vs = np.stack([self._gop_plane(cursor, g, F, "v")
-                               for g in full])
-                qps = np.asarray([self.gop_qp.get(g.index, self.qp)
-                                  for g in full], np.int32)
-                self.stages.bump("h2d_bytes",
-                                 ys.nbytes + us.nbytes + vs.nbytes)
-                staged = (wave, self._upload_runs(ys),
-                          self._upload_runs(us), self._upload_runs(vs),
-                          qps)
-            yield staged
+        """Host-side staging generator: per-wave (G, F, H, W) device
+        arrays of the padded planes (:meth:`_write_waves`), lazily, one
+        wave per iteration, so a long clip never pins more than the
+        pipeline window of waves on the device. The per-GOP QPs stay on
+        the host (G,) int32."""
+        for wave, full, (ys, us, vs) in self._write_waves(
+                frames, 3, require_420=True):
+            qps = np.asarray([self.gop_qp.get(g.index, self.qp)
+                              for g in full], np.int32)
+            yield wave, ys, us, vs, qps
 
     def stage_luma_waves(self, frames):
         """Luma-only staging for analysis passes (rate control): chroma
         never leaves the host, halving the upload of a pass that only
         reads Y. Yields (wave, ys), ys the (G, F, H, W) uint8 stack on
         this encoder's device (Shards on a mesh, pad GOPs included)."""
-        for wave, full, F, cursor in self._wave_groups(frames):
-            cursor.get(wave[-1].end_frame - 1)   # decode outside "stage"
-            with self.stages.stage("stage"):
-                ys = np.stack([self._gop_plane(cursor, g, F, "y")
-                               for g in full])
-                self.stages.bump("h2d_bytes", ys.nbytes)
-                staged = (wave, self._upload_runs(ys))
-            yield staged
+        for wave, _full, (ys,) in self._write_waves(frames, 1):
+            yield wave, ys
 
-    def _wave_groups(self, frames, require_420: bool = False):
-        """Wave grouping: (wave, mesh-padded wave, static F, frame
-        cursor). Stacks into (G, F, ...) with tail-repeat padding to
-        static F; the wave itself pads to a multiple of D GOPs with
-        repeats of its last GOP (encoded, then discarded). The cursor
-        decodes frames on demand and each wave's frames are released
-        once the caller has staged them."""
+    def _write_waves(self, frames, nplanes: int, require_420: bool = False):
+        """Wave grouping and staging of the first `nplanes` planes:
+        (wave, mesh-padded wave, one array per plane) a wave. A wave's
+        GOPs stack into (G, F, ...) with tail-repeat to its static F,
+        and the wave pads to a multiple of D GOPs with repeats of its
+        last GOP (encoded, then discarded); each entry holds its
+        contiguous run of GOPs.
+
+        Each frame is written once, into its place in a GOP buffer: read
+        straight from the source where the source can read a frame at a
+        known offset (``direct_reader``), else copied from the decoded
+        Frame. The buffer is then padded in place by edge replication
+        to `Frame.padded(16)`'s planes. A CPU entry's buffer is the
+        wave's own array (a staged wave outlives the pass: queued,
+        retried, listed). A CUDA entry's is a pinned slot of a ring
+        (_SlotRing, two waves deep) copied into the wave's device array
+        on the entry's stream."""
         plan = self.plan(len(frames))
-        cursor = _FrameCursor(frames, self.stages, require_420=require_420,
-                              stats=self.staging_stats)
-        D = self.num_devices
         gops = list(plan.gops)
+        D = self.num_devices
         per_wave = D * (self.gops_per_wave if self.inter else 1)
-        for wave_start in range(0, len(gops), per_wave):
-            wave = gops[wave_start:wave_start + per_wave]
-            F = max(g.num_frames for g in wave)
-            full = wave + [wave[-1]] * ((-len(wave)) % D)
-            yield wave, full, F, cursor
-            cursor.release_below(wave[-1].end_frame)
+        reader = getattr(frames, "direct_reader", lambda: None)()
+        src = (_FramePull(frames, self.stages, require_420,
+                          self.staging_stats) if reader is None
+               else _DirectRead(reader, self.stages, require_420))
+        ring = None
+        try:
+            for wave_start in range(0, len(gops), per_wave):
+                wave = gops[wave_start:wave_start + per_wave]
+                real = src.shapes[:nplanes]
+                hp, wp = (-(-n // 16) * 16 for n in real[0])
+                padded = [(hp, wp)] + [(hp // 2, wp // 2)] * (nplanes - 1)
+                if ring is None and any(d.type == "cuda"
+                                        for d in self.mesh.devices):
+                    ring = _SlotRing(2 * per_wave, functools.partial(
+                        _pinned_slot, padded,
+                        max(g.num_frames for g in gops)), self.stages)
+                full = wave + [wave[-1]] * ((-len(wave)) % D)
+                yield wave, full, self._write_wave(src, ring, wave, full,
+                                                   real, padded)
+        finally:
+            src.close()
+
+    def _write_wave(self, src, ring, wave, full, real, padded) -> list:
+        """One wave's arrays, one a plane joined over the entries (see
+        _write_waves); the time outside the reads is the `stage` stage."""
+        F = max(g.num_frames for g in wave)
+        runs = _runs(len(full), self.num_devices)
+        owner = [(r, k) for r, n in enumerate(runs) for k in range(n)]
+        with self.stages.stage("stage"):
+            out = self.on_entries(lambda r: [torch.empty(
+                (runs[r], F, h, w), dtype=torch.uint8,
+                device=self.mesh.devices[r]) for h, w in padded])
+            self.stages.bump("h2d_bytes", len(full) * F * sum(
+                h * w for h, w in padded))
+        slot = host = None
+        for j, gop in enumerate(full):
+            r, k = owner[j]
+            cuda = self.mesh.devices[r].type == "cuda"
+            if j < len(wave):
+                slot = ring.take() if cuda else None
+                host = ([b[:F] for b in slot.host] if cuda
+                        else [t[k].numpy() for t in out[r]])
+                n = gop.num_frames
+                for i in range(n):
+                    src.read(gop.start_frame + i, [b[i] for b in host])
+                self.stages.bump(src.counter, n)
+                with self.stages.stage("stage"):
+                    for b, (h, w), (hp, wp) in zip(host, real, padded):
+                        if w < wp:
+                            b[:n, :h, w:] = b[:n, :h, w - 1:w]
+                        if h < hp:
+                            b[:n, h:] = b[:n, h - 1:h]
+                        b[n:] = b[n - 1]
+                    if cuda:
+                        self._copy_slot(slot, out[r], k, r, F)
+                continue
+            # the mesh's repeat of the wave's last GOP: its buffer again
+            with self.stages.stage("stage"):
+                if not cuda:
+                    for t, b in zip(out[r], host):
+                        t[k].numpy()[...] = b
+                    continue
+                if slot is None:        # its original is on a CPU entry
+                    slot = ring.take()
+                    for d, b in zip(slot.host, host):
+                        d[:F] = b
+                self._copy_slot(slot, out[r], k, r, F)
+        return [_join([out[r][p] for r in range(len(runs))])
+                for p in range(len(padded))]
+
+    def _copy_slot(self, slot: _Slot, dst: list, k: int, entry: int,
+                   F: int) -> None:
+        """Enqueue the copy of a slot's F frames into GOP `k` of entry
+        `entry`'s arrays `dst`, on the entry's stream, and keep the event
+        behind it on the slot."""
+        with self.mesh.on(entry):
+            for t, p in zip(dst, slot.pinned):
+                t[k].copy_(p[:F], non_blocking=True)
+            slot.events.append(self._event(entry))
 
     def prepare_waves(self, frames) -> tuple[SegmentPlan, list[tuple]]:
         """Eager staging of ALL waves (benchmarks / short clips); for
@@ -1269,15 +1476,6 @@ class GopShardEncoder:
     def _collect_threads(self, window: int) -> int:
         """Collector threads for `encode_waves`: one per in-flight wave."""
         return window
-
-    @staticmethod
-    def _gop_plane(cursor: _FrameCursor, gop: GopSpec, F: int, plane: str
-                   ) -> np.ndarray:
-        arrs = [getattr(cursor.get(i), plane)
-                for i in range(gop.start_frame, gop.end_frame)]
-        while len(arrs) < F:            # tail-repeat to the wave's static F
-            arrs.append(arrs[-1])
-        return np.stack(arrs)
 
 
 
