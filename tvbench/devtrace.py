@@ -21,7 +21,7 @@ class DeviceTrace:
         self._prof = None
         self.t0 = self.t1 = None
         self.start_s = 0.0
-        self.events: list[tuple[str, float, float]] = []
+        self.events: list[tuple[str, float, float, int]] = []
 
     @staticmethod
     def warm() -> None:
@@ -65,9 +65,9 @@ class DeviceTrace:
         return self.t1 is not None
 
 
-def device_events(prof) -> list[tuple[str, float, float]]:
-    """(name, start, end) in seconds since the epoch of every device
-    activity the profiler saw."""
+def device_events(prof) -> list[tuple[str, float, float, int]]:
+    """(name, start, end, card index), times in seconds since the epoch,
+    of every device activity the profiler saw."""
     from torch.autograd import DeviceType
 
     out = []
@@ -75,7 +75,8 @@ def device_events(prof) -> list[tuple[str, float, float]]:
         if e.device_type() != DeviceType.CUDA:
             continue
         start = e.start_ns() * 1e-9
-        out.append((e.name(), start, start + e.duration_ns() * 1e-9))
+        out.append((e.name(), start, start + e.duration_ns() * 1e-9,
+                    e.device_index()))
     return out
 
 
@@ -146,21 +147,28 @@ def label(spans, t: float) -> str:
 
 
 def reduce(trace: DeviceTrace, spans, top: int = 10) -> dict:
-    """busy_s, window_s, kernel durations by name, device busy time
-    inside each host span name's spans (`in_spans`), and the breakdown:
-    the device operations that took most time and the longest idle gaps,
-    each named by the host span open at its middle."""
+    """busy_s (the time any card was busy), busy_s_by_device (each card's
+    own, by its index), window_s, kernel durations by name, device busy
+    time inside each host span name's spans (`in_spans`), and the
+    breakdown: the device operations that took most time and the longest
+    idle gaps, each named by the host span open at its middle. An event
+    without a card index is card 0's."""
     lo, hi = trace.t0, trace.t1
-    inside = [(n, s, e) for n, s, e in trace.events if e > lo and s < hi]
+    inside = [(n, s, e, *dev) for n, s, e, *dev in trace.events
+              if e > lo and s < hi]
     by_name: dict[str, list[float]] = defaultdict(list)
-    for n, s, e in inside:
+    by_device: dict[int, list[tuple[float, float]]] = defaultdict(list)
+    for n, s, e, *dev in inside:
         by_name[n].append(e - s)
-    ivals = [(s, e) for _, s, e in inside]
+        by_device[dev[0] if dev else 0].append((s, e))
+    ivals = [(s, e) for _, s, e, *_ in inside]
     ops = sorted(((n[:160], sum(d)) for n, d in by_name.items()),
                  key=lambda x: -x[1])[:top]
     idle = sorted(gaps(ivals, lo, hi), key=lambda g: g[0] - g[1])[:top]
     return {
         "busy_s": busy_seconds(ivals, lo, hi),
+        "busy_s_by_device": {str(d): busy_seconds(v, lo, hi)
+                             for d, v in sorted(by_device.items())},
         "window_s": hi - lo,
         "kernels": dict(by_name),
         "events": len(inside),

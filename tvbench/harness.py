@@ -12,8 +12,25 @@ metric lives in a file of its own, found by name:
   (`run(ctx) -> record`);
 - metrics/<metric>.py: `read(record) -> value or None` for each metric.
 
-So a later change adds a cell, a configuration or a metric as new files
-and entries alone.
+So a later change adds each of these as new files and entries alone:
+
+- a configuration: its file under configs/ and its `configs` entry;
+- a traffic mix: its file under traffic/, naming an existing generator or
+  a new one;
+- a generator: traffic/<name>.py; it may reuse another by name
+  (`generator("jobs", ctx.root).run(ctx, mesh=...)`);
+- a metric: metrics/<name>.py and its `end_to_end` or `per_layer` entry
+  (listing its cells under `workloads`);
+- a four-card cell: its `workloads` entry with `"chips": 4`. run.py
+  already refuses a machine with fewer cards and reports `chips` as the
+  device count; the generator reads `ctx.cell["chips"]` and builds its own
+  mesh of the cards (`DeviceMesh(("cpu",) * chips)` on the CPU), and the
+  device trace keeps each card's busy time (`busy_s_by_device`), whose
+  mean over the cell's cards is the result's `busy_s`.
+
+The CPU tests cut every configuration and mix to a tiny size by a rule
+(`tests/tinyroot.py`: `tiny_config`, `tiny_traffic`), so a new one runs
+there with no test edited.
 """
 
 from __future__ import annotations

@@ -41,6 +41,21 @@ def card_power_limit() -> str:
         return "not read"
 
 
+def mean_busy_s(trace: dict, cards: int) -> float:
+    """Device busy seconds averaged over the cell's cards: each card's
+    own busy time, summed, over the number of cards. On one card this is
+    the union of its device intervals."""
+    return sum(trace["busy_s_by_device"].values()) / cards
+
+
+def cpu_ms_per_frame(rec: dict) -> dict:
+    """The window's CPU ms a frame of each stage (the `cpu.<stage>` keys
+    of the program's stage profile)."""
+    frames = rec.get("frames") or 0
+    return {k[4:]: v / frames for k, v in rec["stage_delta"].items()
+            if k.startswith("cpu.") and frames}
+
+
 def run_cell(bench: dict, name: str, seed: int, seconds: float,
              trace: bool, device: str, t_start: float,
              root: Path = harness.ROOT, program: dict | None = None,
@@ -63,6 +78,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
         rec = harness.generator(spec["traffic"]["generator"], root).run(ctx)
         rec["info"]["check_s"] = rec.pop("check_s")
         rec["info"]["window_s"] = rec["window_s"]
+        rec["info"]["cpu_ms_per_frame"] = cpu_ms_per_frame(rec)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     info = {"platform": "gpu" if device != "cpu" else "cpu",
@@ -73,7 +89,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float,
 
         info["kind"] = torch.cuda.get_device_name(0)
     if trace and "trace" in rec:
-        info["busy_s"] = rec["trace"]["busy_s"]
+        info["busy_s"] = mean_busy_s(rec["trace"], info["count"])
         info["window_s"] = rec["trace"]["window_s"]
     return harness.assemble(bench, ctx, rec, info)
 

@@ -60,7 +60,7 @@ def test_device_trace_clock_matches_the_host_spans(card):
         trace.stop()
         _, s0, s1 = sink.spans[-1]
         # torch.cuda._sleep's kernel (at::cuda::sleep's spin_kernel)
-        kernels = [(n, a, b) for n, a, b in trace.events
+        kernels = [(n, a, b) for n, a, b, _ in trace.events
                    if "spin" in n or "sleep" in n]
         assert len(kernels) == 1, trace.events
         _, k0, k1 = kernels[0]

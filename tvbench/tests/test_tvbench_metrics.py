@@ -81,6 +81,50 @@ def test_reduce_labels_each_gap_by_the_host_span_open_at_its_middle():
                                       pytest.approx(10.0)]
 
 
+def test_reduce_keeps_each_cards_busy_time_and_the_union_as_before():
+    """Two cards' events: busy_s stays the union over all cards (any
+    card busy), busy_s_by_device gives each card's own; the same events
+    without a card index read as card 0's, every other key alike."""
+    tr = devtrace.DeviceTrace()
+    tr.t0, tr.t1 = 100.0, 110.0
+    tr.events = [("k1", 99.0, 101.0, 0), ("k2", 100.5, 102.0, 1),
+                 ("k1", 105.0, 106.0, 1), ("memcpy", 109.0, 111.0, 0)]
+    spans = [("job", 99.0, 111.0), ("pack", 102.5, 104.5)]
+    out = devtrace.reduce(tr, spans)
+    assert out["busy_s"] == pytest.approx(4.0)     # 100-102, 105-106, 109-110
+    assert out["busy_s_by_device"] == {"0": pytest.approx(2.0),
+                                       "1": pytest.approx(2.5)}
+    assert out["busy_s"] == pytest.approx(devtrace.busy_seconds(
+        [(s, e) for _, s, e, _ in tr.events], 100.0, 110.0))
+    one = devtrace.DeviceTrace()
+    one.t0, one.t1 = tr.t0, tr.t1
+    one.events = [(n, s, e) for n, s, e, _ in tr.events]
+    bare = devtrace.reduce(one, spans)
+    assert bare["busy_s_by_device"] == {"0": out["busy_s"]}
+    one.events = [(n, s, e, 0) for n, s, e, _ in tr.events]
+    carded = devtrace.reduce(one, spans)
+    assert bare == carded
+    assert {k: v for k, v in out.items() if k != "busy_s_by_device"} == \
+        {k: v for k, v in carded.items() if k != "busy_s_by_device"}
+
+
+def test_the_result_reads_busy_time_averaged_over_the_cells_cards():
+    """The result's busy_s is each card's busy time averaged over the
+    cell's cards (a card with no event counts as idle); on one card it
+    is the union that devtrace.reduce gives, value for value."""
+    from tvbench.run import mean_busy_s
+
+    tr = devtrace.DeviceTrace()
+    tr.t0, tr.t1 = 100.0, 110.0
+    tr.events = [("k1", 99.0, 101.0, 0), ("k2", 100.5, 102.0, 1),
+                 ("k1", 105.0, 106.0, 1), ("memcpy", 109.0, 111.0, 3)]
+    out = devtrace.reduce(tr, [])
+    assert mean_busy_s(out, 4) == pytest.approx((1.0 + 2.5 + 1.0) / 4)
+    tr.events = [(n, s, e, 0) for n, s, e, _ in tr.events]
+    one = devtrace.reduce(tr, [])
+    assert mean_busy_s(one, 1) == one["busy_s"]
+
+
 def test_me_search_bound_against_a_hand_count():
     # 2 bands of 32 x 48: 227 candidates x 1536 px / 4 = 87,168 ops each
     ops, nbytes = roofline.me_search_bound(32, 48, 2)

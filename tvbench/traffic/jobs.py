@@ -7,6 +7,10 @@ through `Coordinator.add_job` and a synchronous `LocalExecutor` to an
 MP4, as a farm node drains its backlog. The job in flight when the window
 ends runs to completion and counts.
 
+Another generator may call `run(ctx, mesh=...)` to run the same jobs on a
+device mesh (`LocalExecutor(mesh=...)`, the path `cli worker --devices`
+builds); the memory peak is then the fullest card's.
+
 Mix parameters: `frames` a clip, `clips` distinct clips, `fps`,
 `trace_first` and `trace_jobs` (which jobs the traced run's device trace
 covers), `check_gops` (how many GOPs, drawn from the seed, the reference
@@ -44,7 +48,7 @@ def _quartiles(values):
     return statistics.quantiles(values, n=4) if len(values) > 1 else values
 
 
-def run(ctx) -> dict:
+def run(ctx, mesh=None) -> dict:
     import torch
 
     from thinvids_tpu_torch.cluster.coordinator import (Coordinator,
@@ -71,7 +75,10 @@ def run(ctx) -> dict:
 
     registry = WorkerRegistry()
     coord = Coordinator(registry=registry)
-    execu = LocalExecutor(coord, str(out_dir), sync=True, device=ctx.device)
+    execu = LocalExecutor(coord, str(out_dir), mesh=mesh, sync=True,
+                          device=ctx.device)
+    cards = [ctx.device] if mesh is None else \
+        sorted({d for d in mesh.devices if d.type == "cuda"}, key=str)
     coord._launcher = execu.launch
     meta = VideoMeta(width=w, height=h, fps_num=fps, fps_den=1,
                      num_frames=n)
@@ -81,7 +88,8 @@ def run(ctx) -> dict:
         the clip), so that every job leaves its own MP4."""
         link = src_dir / f"job{k:05d}-clip{k % len(clips)}.y4m"
         os.symlink(clips[k % len(clips)].name, link)
-        registry.heartbeat(execu.host, metrics={"devices": 1})
+        registry.heartbeat(execu.host, metrics={
+            "devices": 1 if mesh is None else mesh.size})
         t0 = time.time()
         job = coord.add_job(str(link), meta)
         t1 = time.time()
@@ -122,8 +130,8 @@ def run(ctx) -> dict:
     ctx.close_window()
     if dev is not None and dev.open:
         dev.stop()              # the window ended inside the traced jobs
-    peak = (torch.cuda.max_memory_allocated(ctx.device)
-            if ctx.device != "cpu" else 0)
+    peak = max(torch.cuda.max_memory_allocated(d) for d in cards) \
+        if ctx.device != "cpu" and cards else 0
 
     done = [j for j in jobs if j["ok"]]
     rec = {

@@ -18,6 +18,7 @@ whole, from the IDR picture to the last).
 
 from __future__ import annotations
 
+import statistics
 import sys
 import time
 
@@ -91,7 +92,7 @@ def run(ctx) -> dict:
     n_gops = int(rate * ctx.seconds) // gop
     first, last = max(0, n_gops - int(mix["trace_gops"])), n_gops - 1
     dev = devtrace.DeviceTrace() if ctx.trace else None
-    lat, lag, segs, spans = [], [], {}, sink.spans
+    lat, lag, enc_s, segs, spans = [], [], [], {}, sink.spans
     failed = 0
     t_open = t_close = ctx.open_window()
     snap0 = stage_snapshot()
@@ -117,6 +118,7 @@ def run(ctx) -> dict:
             continue
         t1 = t_close = time.time()
         spans.append(("live_encode_batch", t0, t1))
+        enc_s.append(t1 - t0)
         lat.extend((t1 - (t_open + i / rate)) * 1e3
                    for i in range(g * gop, g * gop + gop))
         if dev is not None and g == last:
@@ -141,7 +143,10 @@ def run(ctx) -> dict:
         "memory_peak_bytes": peak, "shapes": cfg["kernel_shapes"],
         "info": {"gops": n_gops, "rate_fps": rate,
                  "start_lag_max_ms": 1e3 * max(lag) if lag else None,
-                 "gop_period_ms": 1e3 * gop / rate},
+                 "gop_period_ms": 1e3 * gop / rate,
+                 "gop_encode_ms_quartiles": [
+                     1e3 * q for q in statistics.quantiles(enc_s, n=4)]
+                 if len(enc_s) > 1 else None},
     }
     if dev is not None and dev.done:
         rec["trace"] = devtrace.reduce(dev, spans)
